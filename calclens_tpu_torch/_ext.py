@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-The sources are compiled at first use with nvcc for Hopper (sm_90a) into one
-shared library with a plain C interface, loaded with ctypes.  Every exported
+The sources are compiled at first use with nvcc for Hopper (sm_90a), one
+nvcc process per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ctypes.  Every exported
 launcher takes device pointers, sizes and a CUDA stream, enqueues its kernel
 on that stream without synchronising, and returns cudaGetLastError() as an
 int; the Python wrappers raise when it is not 0.
@@ -22,29 +23,39 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-SOURCES = ("legendre_analysis.cu", "legendre_synth.cu")
+SOURCES = ("legendre_analysis.cu", "legendre_analysis_dot.cu",
+           "legendre_synth.cu", "legendre_synth_vpu.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel name -> launches since the last reset_launches()
-launches = {"legendre_analysis": 0, "legendre_synth": 0}
+launches = {"legendre_analysis": 0, "legendre_analysis_dot": 0,
+            "legendre_synth": 0, "legendre_synth_phi": 0,
+            "legendre_synth_vpu": 0}
 
 # C launcher signatures: "p" = device pointer, "i" = int, "s" = cudaStream_t
 _SIGNATURES = {
     # ere, eim, ore, oim, cth, ln_sth, logc, mcut, alm_re, alm_im,
     # nl, nm, J, stream
     "legendre_analysis_launch": "pppppppppp" + "iii" + "s",
+    "legendre_analysis_dot_launch": "pppppppppp" + "iii" + "s",
     # a_re, a_im, h_re, h_im, cth, ln_sth, logc, out, nl, nm, J, stream
     "legendre_synth_launch": "pppppppp" + "iii" + "s",
+    # a_re, a_im, cth, ln_sth, logc, out, nl, nm, J, stream
+    "legendre_synth_phi_launch": "pppppp" + "iii" + "s",
+    # a_re, a_im, cth, sth, cot, inv_sth, out, nl, nm, J, derivs, stream
+    "legendre_synth_vpu_launch": "ppppppp" + "iiii" + "s",
 }
 
 _lib = None
 build_seconds = None  # wall time of the nvcc build in this process (None: cached)
+build_log = {}  # source -> nvcc's output (ptxas registers, spills) of that build
 
 
 def reset_launches():
@@ -71,21 +82,42 @@ def _lib_path():
 
 def build():
     """Compile csrc/*.cu into the shared library (if not already built) and
-    return its path."""
+    return its path.  Each source compiles in its own nvcc process, all at
+    once; the objects are then linked."""
     global build_seconds
     path = _lib_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(SRC_DIR, s) for s in SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                           f"{res.stdout}{res.stderr}")
-    os.replace(tmp, path)  # atomic: no process loads a partial file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        jobs = []
+        for src in SOURCES:
+            obj = os.path.join(tmpdir, src + ".o")
+            log = open(os.path.join(tmpdir, src + ".log"), "w+")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", os.path.join(SRC_DIR, src),
+                   "-o", obj]
+            jobs.append((cmd, obj, log, subprocess.Popen(
+                cmd, stdout=log, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for (cmd, _, log, proc), src in zip(jobs, SOURCES):
+            code = proc.wait()
+            log.seek(0)
+            build_log[src] = log.read()
+            log.close()
+            if code != 0:
+                failed.append(f"nvcc failed ({code}):\n{' '.join(cmd)}\n"
+                              f"{build_log[src]}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = os.path.join(tmpdir, os.path.basename(path))
+        cmd = [nvcc, "-shared", "-o", tmp, *(obj for _, obj, _, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        os.replace(tmp, path)  # atomic: no process loads a partial file
     build_seconds = time.perf_counter() - t0
     return path
 

@@ -1,4 +1,4 @@
-// The scaled lambda_lm recurrence shared by the two Legendre kernels.
+// The scaled lambda_lm recurrence shared by the Legendre kernels.
 //
 // Every operation that the plain PyTorch twin (sht/legendre.py) performs as
 // a separate tensor op is written here with an explicitly rounded intrinsic
@@ -19,6 +19,8 @@ constexpr float kThBig = 4294967296.0f;            // 2^32
 constexpr float kResc = 5.42101086242752217e-20f;  // 2^-64
 constexpr float kHalfLn4Pi = 1.2655121234846454f;  // 0.5 ln(4 pi)
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kY00 = 0.28209479177387814f;        // lambda_00 = 1/sqrt(4 pi)
+constexpr float kTwo64 = 18446744073709551616.0f;  // 2^64
 
 // Diagonal seed lambda_mm = 2^log2lam, stored as val * 2^(64 k) with val in
 // [2^-32, 2^32): a ceil-based window would give k = +1 near the equator
@@ -31,6 +33,25 @@ __device__ __forceinline__ void diag_seed(float logc_m, float mf,
   const float kf = floorf(__fmul_rn(__fadd_rn(log2lam, 32.0f), 1.0f / 64.0f));
   val = exp2f(__fsub_rn(log2lam, __fmul_rn(64.0f, kf)));
   k = static_cast<int>(kf);
+}
+
+// K3's diagonal seed, a chain of products from lambda_00: one step takes
+// lambda_ll to lambda_{l+1,l+1} = (lambda_ll sin theta) f_l with
+// f_l = chain_factor(l) = sqrt((2l+3)/(2l+2)), rescaled by 2^64 (and the
+// scale counter k down by one) when it falls below 2^-64.  The chain and the
+// direct seed round differently, so K3's lambda differs from K2's in the
+// last bits, which the polar recurrence amplifies.
+__device__ __forceinline__ float chain_factor(float lf) {
+  return sqrtf(__fdiv_rn(2.0f * lf + 3.0f, 2.0f * lf + 2.0f));
+}
+
+__device__ __forceinline__ void chain_step(float sth, float f, float& seed,
+                                           int& k) {
+  seed = __fmul_rn(__fmul_rn(seed, sth), f);
+  if (seed < kResc) {
+    seed = __fmul_rn(seed, kTwo64);
+    --k;
+  }
 }
 
 // Recurrence coefficients a_lm, b_lm (l, m exact in float32).
@@ -46,9 +67,15 @@ __device__ __forceinline__ void coeffs(float lf, float mf, float& a,
   b = sqrtf(__fdiv_rn(bnum, bden));
 }
 
+// The scale of a stored value with counter k: 1, 2^-64, or 0 below.
+__device__ __forceinline__ float corfac(int k) {
+  return k == 0 ? 1.0f : (k == -1 ? kResc : 0.0f);
+}
+
 // One degree l of the scaled recurrence for one (m, ring): updates the
 // state (pp, pc, k) and returns lambda_lm (0 below 2^-64 of the stored
-// scale).  `seed_row` is l == m, where the diagonal seed (sv, sk) enters.
+// scale); lambda_{l-1,m} is then pp * corfac(k).  `seed_row` is l == m,
+// where the diagonal seed (sv, sk) enters.
 __device__ __forceinline__ float lam_step(bool seed_row, float a, float b,
                                           float c, float sv, int sk,
                                           float& pp, float& pc, int& k) {
@@ -67,7 +94,7 @@ __device__ __forceinline__ float lam_step(bool seed_row, float a, float b,
     ++k;
   }
   pc = nw;
-  return __fmul_rn(nw, k == 0 ? 1.0f : (k == -1 ? kResc : 0.0f));
+  return __fmul_rn(nw, corfac(k));
 }
 
 }  // namespace calclens

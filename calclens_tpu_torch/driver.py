@@ -17,10 +17,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from calclens_tpu.config import RayTraceConfig
-from calclens_tpu.cosmology import Cosmology, RHO_CRIT, CSOL
-from calclens_tpu.healpix import core as hp
-
+from .config import RayTraceConfig
+from .cosmology import Cosmology, RHO_CRIT, CSOL
+from .healpix import core as hp
 from .healpix import torchhp
 from .poisson import empty_plane_step_packed, plane_scalars, plane_step_packed
 from .rays import soa
@@ -125,7 +124,7 @@ class Raytracer:
         if cfg.SmoothingBeamFWHM > 0.0:
             window = gauss_beam(cfg.SmoothingBeamFWHM, lmax)
         if cfg.HEALPixWindowFunctionPath:
-            from calclens_tpu.io.weights import read_pixel_window
+            from .io.weights import read_pixel_window
 
             pw = read_pixel_window(cfg.HEALPixWindowFunctionPath,
                                    cfg.poissonOrder)[: lmax + 1]
@@ -133,7 +132,7 @@ class Raytracer:
                 pw, (0, max(0, lmax + 1 - len(pw))), constant_values=1.0)
         ring_weights = None
         if cfg.HEALPixRingWeightPath:
-            from calclens_tpu.io.weights import read_ring_weights
+            from .io.weights import read_ring_weights
 
             ring_weights = read_ring_weights(cfg.HEALPixRingWeightPath,
                                              cfg.poissonOrder)
@@ -216,12 +215,12 @@ class Raytracer:
         read_lensplanes_hdf5.c:90-122)."""
         cfg = self.cfg
         if cfg.LensPlaneType.lower() == "pixlc":
-            from calclens_tpu.io import pixlc
+            from .io import pixlc
 
             pos, mass = pixlc.read_plane(cfg.LensPlanePath, cfg.LensPlaneName,
                                          plane_num)[:2]
         else:
-            from calclens_tpu.io import lensplanes
+            from .io import lensplanes
 
             fn = lensplanes.plane_filename(cfg.LensPlanePath,
                                            cfg.LensPlaneName, plane_num)

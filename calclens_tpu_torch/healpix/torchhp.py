@@ -4,7 +4,7 @@ Port of calclens_tpu/healpix/jaxhp.py: RING ang->pix (particle deposit),
 pix->unit vector, pixel -> (ring, index) decode, closed-form ring geometry
 and the 4-pixel bilinear taps of get_interpol.  Integer work is int64 (exact
 for every order <= 13); floats follow the input dtype.  Host-side code uses
-calclens_tpu.healpix.core (numpy) instead.
+healpix/core.py (numpy) instead.
 
 Numerical care in float32: polar-cap z is computed via 1 - |z| (an exact
 small quantity) so sin(theta) stays accurate near the poles, and the integer
@@ -18,7 +18,7 @@ import math
 import numpy as np
 import torch
 
-from calclens_tpu.healpix import core as hp
+from . import core as hp
 
 
 def _isqrt_dev(x):

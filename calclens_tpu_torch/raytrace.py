@@ -14,8 +14,7 @@ import os
 import sys
 import time
 
-from calclens_tpu.config import read_config
-
+from .config import read_config
 from .driver import Raytracer
 
 

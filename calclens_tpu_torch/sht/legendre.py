@@ -1,18 +1,29 @@
-"""The two Legendre sweeps of the SHT: CUDA kernel wrappers and plain twins.
+"""The Legendre sweeps of the SHT: CUDA kernel wrappers and plain twins.
 
-K1, the analysis alm[l, m] = sum_j lambda_lm(theta_j) S_{l mod 2}[m, j]
-(csrc/legendre_analysis.cu; replaces calclens_tpu/sht/pallas_legendre.py::
-_analysis_kernel), and K2, the synthesis's 16 raw columns
-sum_l lambda_lm(theta_j) s(l, m) (csrc/legendre_synth.cu; replaces
-calclens_tpu/sht/pallas_legendre_mx.py::_synth_mx_kernel).
+Analysis, alm[l, m] = sum_j lambda_lm(theta_j) S_{l mod 2}[m, j]:
+  * K1 (csrc/legendre_analysis.cu; replaces calclens_tpu/sht/
+    pallas_legendre.py::_analysis_kernel), the default;
+  * K4 (csrc/legendre_analysis_dot.cu; replaces pallas_legendre.py::
+    _analysis_dot_kernel), the same function by another route: lambda is
+    stored for a block of degrees and then contracted over the rings.
+Synthesis, sum_l lambda_lm(theta_j) s(l, m) per ring pair:
+  * K2 (csrc/legendre_synth.cu; replaces pallas_legendre_mx.py::
+    _synth_mx_kernel), the default: 16 raw columns with derivatives (the
+    d_theta recurrence summed by parts), or 4 for the potential alone;
+  * K3 (csrc/legendre_synth_vpu.cu; replaces pallas_legendre.py::
+    _synth_kernel): l-parity buckets of a lambda, lambda' and lambda''
+    formed per degree, with lambda_mm seeded by a chain of products.
 
-Each kernel has a plain PyTorch twin here: a Python loop over l on [nm, J]
-tensors that computes the kernel's own math (the log2-space diagonal seed,
-the 2^64 scale counter, the per-j-tile turning-point cutoff of the analysis)
-with the same float32 roundings, op for op, as the kernels' recurrence
-(csrc/legendre_common.cuh): near the poles the recurrence amplifies a
-rounding difference by up to ~1/sin(theta), so only an evaluation that
-rounds alike can be held to float32 accuracy.
+Each kernel has a plain PyTorch twin here: a Python loop over l on
+[rows, J] tensors that computes the kernel's own math (the diagonal seed,
+the 2^64 scale counter, the per-j-tile turning-point cutoff of the
+analysis) with the same float32 roundings, op for op, as the kernels'
+recurrence (csrc/legendre_common.cuh): near the poles the recurrence
+amplifies a rounding difference by up to ~1/sin(theta), so only an
+evaluation that rounds alike can be held to float32 accuracy.  A twin
+computes every m row by default; the twins of K2, K3 and K4 take `m` (an
+int64 tensor of the m value of each input row) to compute some rows only,
+which is how a large problem's kernel output is checked row by row.
 A wrapper takes its twin only for tensors on the CPU; for a CUDA tensor it
 launches the kernel or raises.  The twins run in any float dtype, the
 kernels in float32 only.
@@ -29,9 +40,12 @@ _TH_BIG = 2.0**32
 _RESC = 2.0**-64
 _LOG2E = 1.4426950408889634
 _HALF_LN_4PI = 1.2655121234846454  # 0.5 * ln(4 pi)
+_Y00 = 0.28209479177387814  # lambda_00 = 1 / sqrt(4 pi)
 
-# rings per analysis block: the kernel's tile, and the unit of its m cutoff
+# rings per analysis block: the kernels' tile, and the unit of their m cutoff
 ANALYSIS_TILE_J = 512
+# degrees whose lambda K4 stores before each contraction
+DOT_BLOCK_L = 16
 
 
 # ----------------------------------------------------------------------------
@@ -47,15 +61,47 @@ def logc_table(nm: int, dtype, device) -> torch.Tensor:
     return torch.as_tensor(c[:nm], dtype=dtype, device=device)
 
 
+def _m_rows(m, rows: int, device):
+    return (torch.arange(rows, device=device) if m is None
+            else torch.as_tensor(m, device=device).long())
+
+
 def _seed(logc, mf, ln_sth):
     """Direct diagonal seed lambda_mm = stored * 2^(64 k), stored in
-    [2^-32, 2^32): [nm, J] values and int32 scale counters.  A ceil-based
+    [2^-32, 2^32): [rows, J] values and int32 scale counters.  A ceil-based
     window would give k = +1 where lambda_mm > 1 (near the equator at large
     m) and the scale cutoff would then drop legitimate values."""
     log2lam = (logc[:, None] + mf[:, None] * ln_sth[None, :]
                - _HALF_LN_4PI) * _LOG2E
     kf = torch.floor((log2lam + 32.0) * (1.0 / 64.0))
     return torch.exp2(log2lam - 64.0 * kf), kf.to(torch.int32)
+
+
+def chain_seed(m, sth):
+    """K3's diagonal seed: lambda_00 = 1/sqrt(4 pi), then
+    seed <- (seed sin theta) sqrt((2l+3)/(2l+2)) for l = 0, 1, ..., with a
+    2^64 rescale (and the scale counter down by one) whenever the seed
+    falls below 2^-64.  Returns lambda_mm for the rows' m values as [rows, J]
+    values and int32 counters."""
+    m = torch.as_tensor(m).long()
+    dt, dev = sth.dtype, sth.device
+    seed = torch.full_like(sth, _Y00)
+    k = torch.zeros(sth.shape, dtype=torch.int32, device=dev)
+    rows = {}
+    wanted = set(m.tolist())
+    for l in range(int(m.max()) + 1):
+        if l in wanted:
+            rows[l] = (seed, k)
+        lf = float(l)
+        # tensor / tensor: a scalar division would go through a reciprocal
+        f = torch.sqrt(torch.full((), 2.0 * lf + 3.0, dtype=dt, device=dev)
+                       / torch.full((), 2.0 * lf + 2.0, dtype=dt, device=dev))
+        nxt = seed * sth * f
+        under = nxt < _RESC
+        seed = torch.where(under, nxt * 2.0**64, nxt)
+        k = k - under.to(torch.int32)
+    return (torch.stack([rows[v][0] for v in m.tolist()]),
+            torch.stack([rows[v][1] for v in m.tolist()]))
 
 
 def _coeffs(l: int, mf):
@@ -72,15 +118,16 @@ def _coeffs(l: int, mf):
 
 
 class _Recurrence:
-    """State of the scaled lambda recurrence over all (m, j): step(l)
-    returns lambda_lm(theta_j) [nm, J] (exactly 0 for m > l and below
-    2^-64 of the stored scale)."""
+    """State of the scaled lambda recurrence over all (row, j): step(l)
+    returns lambda_lm(theta_j) [rows, J] (exactly 0 for m > l and below
+    2^-64 of the stored scale); lambda_{l-1,m} is then pp * corfac.
+    The diagonal seed is (values, counters) [rows, J]."""
 
-    def __init__(self, cth, ln_sth, logc, mf):
+    def __init__(self, cth, m, seed):
         self.cth = cth[None, :]
-        self.mf = mf
-        self.m = torch.arange(len(mf), device=mf.device)[:, None]
-        self.seedval, self.seedk = _seed(logc, mf, ln_sth)
+        self.m = m[:, None]
+        self.mf = m.to(cth.dtype)
+        self.seedval, self.seedk = seed
         shape = self.seedval.shape
         self.pp = torch.zeros(shape, dtype=cth.dtype, device=cth.device)
         self.pc = torch.zeros_like(self.pp)
@@ -100,8 +147,15 @@ class _Recurrence:
         prev = torch.where(big, prev * _RESC, prev)
         k = k + big.to(torch.int32)
         self.pp, self.pc, self.k = prev, new, k
-        corfac = torch.where(k == 0, 1.0, torch.where(k == -1, _RESC, 0.0))
-        return new * corfac.to(new.dtype)
+        self.corfac = torch.where(k == 0, 1.0,
+                                  torch.where(k == -1, _RESC, 0.0)
+                                  ).to(new.dtype)
+        return new * self.corfac
+
+
+def _direct_recurrence(cth, ln_sth, logc, m):
+    """The recurrence of K1, K2 and K4: diagonal seed from log2 space."""
+    return _Recurrence(cth, m, _seed(logc, m.to(cth.dtype), ln_sth))
 
 
 def _check_cuda_f32(name, tensors, shapes):
@@ -122,8 +176,26 @@ def _check_cuda_f32(name, tensors, shapes):
         raise ValueError(f"{name}: inputs lie on several devices {dev}")
 
 
+def _check_problem(name, nm, J, nl):
+    if nm == 0 or J == 0 or nl == 0:
+        raise ValueError(f"{name}: empty problem nm={nm} J={J} nl={nl}")
+    if nm > 65535:
+        raise ValueError(f"{name}: nm={nm} exceeds the grid's y dimension")
+
+
+def _launch(name, symbol, device, *args):
+    """Enqueue the C launcher `symbol` on the device's current stream (the
+    library is built at the first launch); count the launch."""
+    fn = getattr(_ext.lib(), symbol)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = fn(*args, stream)
+    _ext.check(code, name)
+    _ext.launches[name] += 1
+
+
 # ----------------------------------------------------------------------------
-# K1: analysis
+# analysis: K1 and K4
 # ----------------------------------------------------------------------------
 
 def analysis_mcut(sth_host, nl: int, nm: int):
@@ -139,25 +211,32 @@ def analysis_mcut(sth_host, nl: int, nm: int):
                     dtype=np.int32)
 
 
+def _analysis_sources(ere, eim, ore, oim, mcut, m, tile_j):
+    """Parity-resolved sources S0 = (m even ? E : O), S1 = (m even ? O : E)
+    (re, im) with every (m, j) beyond its ring tile's cutoff zeroed."""
+    J = ere.shape[1]
+    dev = ere.device
+    tile_cut = torch.as_tensor(mcut, device=dev).long()
+    jcut = tile_cut.repeat_interleave(tile_j)[:J]
+    keep = (m[:, None] < jcut[None, :]).to(ere.dtype)
+    m_even = (m % 2 == 0)[:, None]
+    return (torch.where(m_even, ere, ore) * keep,
+            torch.where(m_even, eim, oim) * keep,
+            torch.where(m_even, ore, ere) * keep,
+            torch.where(m_even, oim, eim) * keep)
+
+
 def analysis_plain(ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl: int,
                    tile_j: int = ANALYSIS_TILE_J):
     """K1's twin.  E/O planes [nm, J]; cth, ln_sth [J]; logc [nm]; mcut
     int32 [ceil(J / tile_j)].  Returns (alm_re, alm_im), each TRANSPOSED
     [nm, nl] like the kernel's output."""
-    nm, J = ere.shape
     dt, dev = ere.dtype, ere.device
-    mf = torch.arange(nm, dtype=dt, device=dev)
-    # turning-point cutoff: zero the sources of every (m, j) the kernel skips
-    tile_cut = torch.as_tensor(mcut, device=dev).long()
-    jcut = tile_cut.repeat_interleave(tile_j)[:J]
-    keep = (torch.arange(nm, device=dev)[:, None] < jcut[None, :]).to(dt)
-    m_even = (torch.arange(nm, device=dev) % 2 == 0)[:, None]
-    s0r = torch.where(m_even, ere, ore) * keep
-    s0i = torch.where(m_even, eim, oim) * keep
-    s1r = torch.where(m_even, ore, ere) * keep
-    s1i = torch.where(m_even, oim, eim) * keep
-    rec = _Recurrence(cth, ln_sth, logc, mf)
-    out_re = torch.zeros((nl, nm), dtype=dt, device=dev)
+    m = _m_rows(None, ere.shape[0], dev)
+    s0r, s0i, s1r, s1i = _analysis_sources(ere, eim, ore, oim, mcut, m,
+                                           tile_j)
+    rec = _direct_recurrence(cth, ln_sth, logc, m)
+    out_re = torch.zeros((nl, len(m)), dtype=dt, device=dev)
     out_im = torch.zeros_like(out_re)
     for l in range(nl):
         lam = rec.step(l)
@@ -167,36 +246,31 @@ def analysis_plain(ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl: int,
     return out_re.T.contiguous(), out_im.T.contiguous()
 
 
-def analysis_cuda(ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl: int):
-    """Launch K1 on the tensors' CUDA device and PyTorch's current stream.
-    Same contract as analysis_plain; float32 only."""
+def _analysis_launch(name, symbol, ere, eim, ore, oim, cth, ln_sth, logc, mcut,
+                     nl):
     nm, J = ere.shape
-    if nm == 0 or J == 0 or nl == 0:
-        raise ValueError(f"legendre_analysis: empty problem nm={nm} J={J} "
-                         f"nl={nl}")
-    if nm > 65535:
-        raise ValueError(f"legendre_analysis: nm={nm} exceeds the grid's "
-                         "y dimension")
+    _check_problem(name, nm, J, nl)
     nt = -(-J // ANALYSIS_TILE_J)
     _check_cuda_f32(
-        "legendre_analysis",
+        name,
         dict(ere=ere, eim=eim, ore=ore, oim=oim, cth=cth, ln_sth=ln_sth,
              logc=logc, mcut=mcut),
         dict(ere=(nm, J), eim=(nm, J), ore=(nm, J), oim=(nm, J), cth=(J,),
              ln_sth=(J,), logc=(nm,), mcut=(nt,)))
     alm_re = torch.zeros((nm, nl), dtype=torch.float32, device=ere.device)
     alm_im = torch.zeros_like(alm_re)
-    lib = _ext.lib()
-    with torch.cuda.device(ere.device):
-        stream = torch.cuda.current_stream(ere.device).cuda_stream
-        code = lib.legendre_analysis_launch(
-            ere.data_ptr(), eim.data_ptr(), ore.data_ptr(), oim.data_ptr(),
-            cth.data_ptr(), ln_sth.data_ptr(), logc.data_ptr(),
-            mcut.data_ptr(), alm_re.data_ptr(), alm_im.data_ptr(),
-            nl, nm, J, stream)
-    _ext.check(code, "legendre_analysis")
-    _ext.launches["legendre_analysis"] += 1
+    _launch(name, symbol, ere.device, ere.data_ptr(), eim.data_ptr(),
+            ore.data_ptr(), oim.data_ptr(), cth.data_ptr(), ln_sth.data_ptr(),
+            logc.data_ptr(), mcut.data_ptr(), alm_re.data_ptr(),
+            alm_im.data_ptr(), nl, nm, J)
     return alm_re, alm_im
+
+
+def analysis_cuda(ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl: int):
+    """Launch K1 on the tensors' CUDA device and PyTorch's current stream.
+    Same contract as analysis_plain; float32 only."""
+    return _analysis_launch("legendre_analysis", "legendre_analysis_launch",
+                            ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl)
 
 
 def analysis_columns(ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl: int):
@@ -206,11 +280,52 @@ def analysis_columns(ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl: int):
     return analysis_cuda(ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl)
 
 
+def analysis_dot_plain(ere, eim, ore, oim, cth, ln_sth, logc, mcut,
+                       nl: int, tile_j: int = ANALYSIS_TILE_J, m=None):
+    """K4's twin: K1's function by K4's route.  The lambda values of a
+    block of DOT_BLOCK_L degrees are stored [rows, block, J] and contracted
+    over j with one einsum against the four sources (S0, S1) x (re, im);
+    each degree then keeps the pair of its l parity.  Same contract as
+    analysis_plain."""
+    dt, dev = ere.dtype, ere.device
+    m = _m_rows(m, ere.shape[0], dev)
+    S = torch.stack(_analysis_sources(ere, eim, ore, oim, mcut, m, tile_j),
+                    dim=1)  # [rows, 4, J]
+    rec = _direct_recurrence(cth, ln_sth, logc, m)
+    out_re = torch.zeros((len(m), nl), dtype=dt, device=dev)
+    out_im = torch.zeros_like(out_re)
+    for l0 in range(0, nl, DOT_BLOCK_L):
+        ls = range(l0, min(l0 + DOT_BLOCK_L, nl))
+        lam = torch.stack([rec.step(l) for l in ls], dim=1)
+        R = torch.einsum("rlj,rcj->rlc", lam, S)  # [rows, block, 4]
+        odd = torch.tensor([l % 2 == 1 for l in ls], device=dev)[None, :]
+        out_re[:, l0: l0 + len(ls)] = torch.where(odd, R[:, :, 2], R[:, :, 0])
+        out_im[:, l0: l0 + len(ls)] = torch.where(odd, R[:, :, 3], R[:, :, 1])
+    return out_re, out_im
+
+
+def analysis_dot_cuda(ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl: int):
+    """Launch K4 on the tensors' CUDA device and PyTorch's current stream.
+    Same contract as analysis_dot_plain; float32 only."""
+    return _analysis_launch("legendre_analysis_dot",
+                            "legendre_analysis_dot_launch",
+                            ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl)
+
+
+def analysis_dot_columns(ere, eim, ore, oim, cth, ln_sth, logc, mcut,
+                         nl: int):
+    """K4 wrapper: the kernel for CUDA tensors, the twin for CPU tensors."""
+    if ere.device.type == "cpu":
+        return analysis_dot_plain(ere, eim, ore, oim, cth, ln_sth, logc,
+                                  mcut, nl)
+    return analysis_dot_cuda(ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl)
+
+
 def analysis_inputs(plan, E, O):
-    """Kernel-ready K1 inputs from the folded ring-pair sums E, O [nm, J]
-    (complex): contiguous real/imaginary planes, geometry rows, the seed
-    table and the per-tile cutoff.  No padding: the kernel masks the ragged
-    j edge itself."""
+    """Kernel-ready K1 / K4 inputs from the folded ring-pair sums E, O
+    [nm, J] (complex): contiguous real/imaginary planes, geometry rows, the
+    seed table and the per-tile cutoff.  No padding: the kernels mask the
+    ragged j edge themselves."""
     rdt = plan.dtype
     planes = [x.contiguous() for x in (E.real.to(rdt), E.imag.to(rdt),
                                        O.real.to(rdt), O.imag.to(rdt))]
@@ -220,7 +335,7 @@ def analysis_inputs(plan, E, O):
 
 
 # ----------------------------------------------------------------------------
-# K2: synthesis with derivatives
+# K2: synthesis columns, with derivatives (16) or the potential alone (4)
 # ----------------------------------------------------------------------------
 
 def _dfac_rows(nl: int, nm: int, dtype, device):
@@ -233,12 +348,14 @@ def _dfac_rows(nl: int, nm: int, dtype, device):
     return torch.sqrt(num / den)
 
 
-def mx_prep(nl: int, nm: int, alm, dtype):
-    """alm [nl, nm] complex -> the four TRANSPOSED stream planes [nm, nl]
+def mx_prep(nl: int, nm: int, alm, dtype, derivs: bool = True):
+    """alm [nl, nm] complex -> the TRANSPOSED stream planes [nm, nl]:
     (a_re, a_im, h_re, h_im) with h_l = d_{l+1} a_{l+1} (summation by parts
-    of the d_theta lowering recurrence)."""
+    of the d_theta lowering recurrence) when derivs, else (a_re, a_im)."""
     ar = alm.real.to(dtype)
     ai = alm.imag.to(dtype)
+    if not derivs:
+        return tuple(x.T.contiguous() for x in (ar, ai))
     d = _dfac_rows(nl - 1, nm, dtype, alm.device)  # rows l = 1..nl-1
     zero = torch.zeros((1, nm), dtype=dtype, device=alm.device)
     hr = torch.cat([ar[1:] * d, zero])
@@ -246,87 +363,194 @@ def mx_prep(nl: int, nm: int, alm, dtype):
     return tuple(x.T.contiguous() for x in (ar, ai, hr, hi))
 
 
-def synth_plain(a_re, a_im, h_re, h_im, cth, ln_sth, logc):
-    """K2's twin.  Streams [nm, nl]; cth, ln_sth [J]; logc [nm].  Returns
-    the raw columns [nm, 16, J]: {a, l a, h, l(l+1) a} x {re, im} summed
-    with weight 1 (columns 0-7) and (-1)^l (columns 8-15)."""
-    nm, nl = a_re.shape
+def synth_plain(streams, cth, ln_sth, logc, m=None):
+    """K2's twin.  streams: the 4 derivative planes or the 2 a-planes of
+    mx_prep [rows, nl]; cth, ln_sth [J]; logc [rows].  Returns the raw
+    columns [rows, ncol, J], ncol = 16 or 4: the streams {a, l a, h,
+    l(l+1) a} x {re, im} (or {a} x {re, im}) summed with weight 1 (first
+    half) and (-1)^l (second half)."""
+    a_re, a_im = streams[0], streams[1]
+    rows, nl = a_re.shape
     J = cth.shape[0]
     dt, dev = a_re.dtype, a_re.device
-    mf = torch.arange(nm, dtype=dt, device=dev)
-    rec = _Recurrence(cth, ln_sth, logc, mf)
-    # even- and odd-l sums of the 8 streams
-    acc = torch.zeros((2, 8, nm, J), dtype=dt, device=dev)
+    rec = _direct_recurrence(cth, ln_sth, logc, _m_rows(m, rows, dev))
+    ns = 8 if len(streams) == 4 else 2
+    # even- and odd-l sums of the streams
+    acc = torch.zeros((2, ns, rows, J), dtype=dt, device=dev)
     for l in range(nl):
         lam = rec.step(l)
-        lf = float(l)
         ar, ai = a_re[:, l], a_im[:, l]
-        s8 = torch.stack([ar, ai, ar * lf, ai * lf, h_re[:, l], h_im[:, l],
-                          ar * (lf * (lf + 1.0)), ai * (lf * (lf + 1.0))])
-        acc[l % 2].addcmul_(s8[:, :, None], lam[None])  # in place: no temp
-    out = torch.cat([acc[0] + acc[1], acc[0] - acc[1]])  # [16, nm, J]
+        if ns == 2:
+            s = torch.stack([ar, ai])
+        else:
+            lf = float(l)
+            s = torch.stack([ar, ai, ar * lf, ai * lf, streams[2][:, l],
+                             streams[3][:, l], ar * (lf * (lf + 1.0)),
+                             ai * (lf * (lf + 1.0))])
+        acc[l % 2].addcmul_(s[:, :, None], lam[None])  # in place: no temp
+    out = torch.cat([acc[0] + acc[1], acc[0] - acc[1]])  # [ncol, rows, J]
     return out.permute(1, 0, 2).contiguous()
 
 
-def synth_cuda(a_re, a_im, h_re, h_im, cth, ln_sth, logc):
-    """Launch K2 on the tensors' CUDA device and PyTorch's current stream.
-    Same contract as synth_plain; float32 only."""
-    nm, nl = a_re.shape
+def synth_cuda(streams, cth, ln_sth, logc):
+    """Launch K2 (16 columns, `legendre_synth`) or its 4-column form
+    (`legendre_synth_phi`) on the tensors' CUDA device and PyTorch's
+    current stream.  Same contract as synth_plain; float32 only."""
+    if len(streams) not in (2, 4):
+        raise ValueError(f"K2 takes 4 derivative streams or 2 a-streams, "
+                         f"not {len(streams)}")
+    derivs = len(streams) == 4
+    name = "legendre_synth" if derivs else "legendre_synth_phi"
+    nm, nl = streams[0].shape
     J = cth.shape[0]
-    if nm == 0 or J == 0 or nl == 0:
-        raise ValueError(f"legendre_synth: empty problem nm={nm} J={J} "
-                         f"nl={nl}")
-    if nm > 65535:
-        raise ValueError(f"legendre_synth: nm={nm} exceeds the grid's y "
-                         "dimension")
+    _check_problem(name, nm, J, nl)
+    keys = ("a_re", "a_im", "h_re", "h_im")[: len(streams)]
     _check_cuda_f32(
-        "legendre_synth",
-        dict(a_re=a_re, a_im=a_im, h_re=h_re, h_im=h_im, cth=cth,
-             ln_sth=ln_sth, logc=logc),
-        dict(a_re=(nm, nl), a_im=(nm, nl), h_re=(nm, nl), h_im=(nm, nl),
-             cth=(J,), ln_sth=(J,), logc=(nm,)))
-    out = torch.empty((nm, 16, J), dtype=torch.float32, device=a_re.device)
-    lib = _ext.lib()
-    with torch.cuda.device(a_re.device):
-        stream = torch.cuda.current_stream(a_re.device).cuda_stream
-        code = lib.legendre_synth_launch(
-            a_re.data_ptr(), a_im.data_ptr(), h_re.data_ptr(),
-            h_im.data_ptr(), cth.data_ptr(), ln_sth.data_ptr(),
-            logc.data_ptr(), out.data_ptr(), nl, nm, J, stream)
-    _ext.check(code, "legendre_synth")
-    _ext.launches["legendre_synth"] += 1
+        name, dict(zip(keys, streams), cth=cth, ln_sth=ln_sth, logc=logc),
+        dict({k: (nm, nl) for k in keys}, cth=(J,), ln_sth=(J,), logc=(nm,)))
+    out = torch.empty((nm, 16 if derivs else 4, J), dtype=torch.float32,
+                      device=cth.device)
+    _launch(name, f"{name}_launch", cth.device,
+            *(s.data_ptr() for s in streams), cth.data_ptr(),
+            ln_sth.data_ptr(), logc.data_ptr(), out.data_ptr(), nl, nm, J)
     return out
 
 
-def synth_columns(a_re, a_im, h_re, h_im, cth, ln_sth, logc):
+def synth_columns(streams, cth, ln_sth, logc):
     """K2 wrapper: the kernel for CUDA tensors, the twin for CPU tensors."""
-    if a_re.device.type == "cpu":
-        return synth_plain(a_re, a_im, h_re, h_im, cth, ln_sth, logc)
-    return synth_cuda(a_re, a_im, h_re, h_im, cth, ln_sth, logc)
+    if streams[0].device.type == "cpu":
+        return synth_plain(streams, cth, ln_sth, logc)
+    return synth_cuda(streams, cth, ln_sth, logc)
 
 
-def q_from_columns(plan, c):
-    """Raw columns [nm, 16, J] -> (qN, qS), each [3, nm, J] complex: phi,
-    d_theta and d_theta_theta on the north / south ring of each pair.
+def _south_sign(plan, device, m=None):
+    """s_m = (-1)^m: lambda_lm(pi - theta) = (-1)^(l+m) lambda_lm(theta)."""
+    return (1 - 2 * (_m_rows(m, plan.nm, device) % 2)).to(plan.dtype)[:, None]
+
+
+def q_from_columns(plan, c, m=None):
+    """Raw K2 columns [nm, 16, J] -> (qN, qS), each [3, nm, J] complex:
+    phi, d_theta and d_theta_theta on the north / south ring of each pair;
+    [nm, 4, J] -> the potential alone, each [1, nm, J].  With m (row
+    indices), c holds only those rows [len(m), ncol, J].
 
       sum_l a lam'  = cot sum (l a) lam - (1/sin) sum h lam
       sum_l a lam'' = m^2/sin^2 sum a lam - sum l(l+1) a lam - cot sum a lam'
     and lambda_lm(pi - theta) = (-1)^(l+m) lambda_lm(theta), with the
     d_theta stream flipping sign on the south ring."""
     dt = plan.dtype
-    s_m = (1 - 2 * (torch.arange(plan.nm, device=c.device) % 2)).to(dt)[:, None]
+    s_m = _south_sign(plan, c.device, m)
+    ns = c.shape[1] // 2
 
     def cplx(k):
         return torch.complex(c[:, 2 * k].to(dt), c[:, 2 * k + 1].to(dt))
 
+    if ns == 2:
+        return (cplx(0)[None].to(plan.cdtype),
+                (s_m * cplx(1))[None].to(plan.cdtype))
     c0, c1, c2, c3 = cplx(0), cplx(1), cplx(2), cplx(3)
     c0a, c1a, c2a, c3a = cplx(4), cplx(5), cplx(6), cplx(7)
     cot = plan.cot[None, :]
     inv = plan.inv_sth[None, :]
-    m2i2 = plan.m_f[:, None] ** 2 * inv * inv
+    mf = plan.m_f if m is None else _m_rows(m, 0, c.device).to(dt)
+    m2i2 = mf[:, None] ** 2 * inv * inv
     qthN = cot * c1 - inv * c2
     dSa = cot * c1a + inv * c2a  # sum (-1)^l a lam'
     qN = torch.stack([c0, qthN, m2i2 * c0 - c3 - cot * qthN])
     qS = torch.stack([s_m * c0a, -s_m * dSa,
                       s_m * (m2i2 * c0a - c3a - cot * dSa)])
     return qN.to(plan.cdtype), qS.to(plan.cdtype)
+
+
+# ----------------------------------------------------------------------------
+# K3: synthesis by l-parity buckets
+# ----------------------------------------------------------------------------
+
+def synth_vpu_plain(a_re, a_im, cth, sth, cot, inv_sth, derivs: bool,
+                    m=None):
+    """K3's twin.  a_re, a_im [rows, nl] (the TRANSPOSED alm of
+    mx_prep(..., derivs=False)); cth, sth, cot, inv_sth [J].  Returns the
+    buckets [rows, 2 nacc, J], nacc = 6 with derivatives (a_re, a_im) x
+    (lambda, lambda', lambda'') or 2 without: column 2 s holds slot s summed
+    over even l (bucket A), column 2 s + 1 over odd l (bucket B).
+
+    lambda' = l cot lambda - c_lm lambda_{l-1} / sin,
+    lambda'' = (m^2/sin^2 - l(l+1)) lambda - cot lambda',
+    c_lm = sqrt((l^2 - m^2)(2l+1)/(2l-1)), in calclens_tpu/sht/
+    pallas_legendre.py's order of operations."""
+    rows, nl = a_re.shape
+    J = cth.shape[0]
+    dt, dev = a_re.dtype, a_re.device
+    m = _m_rows(m, rows, dev)
+    mf = m.to(dt)
+    rec = _Recurrence(cth, m, chain_seed(m, sth))
+    nacc = 6 if derivs else 2
+    acc = torch.zeros((2, nacc, rows, J), dtype=dt, device=dev)
+    cot_r, inv_r = cot[None, :], inv_sth[None, :]
+    m2i2 = (mf * mf)[:, None] * inv_r * inv_r
+    for l in range(nl):
+        lam = rec.step(l)
+        ar, ai = a_re[:, l, None], a_im[:, l, None]
+        b = acc[l % 2]
+        b[0].addcmul_(ar, lam)
+        b[1].addcmul_(ai, lam)
+        if derivs:
+            lf = float(l)
+            cnum = (torch.clamp((lf - mf) * (lf + mf), min=0.0)
+                    * (2.0 * lf + 1.0))
+            c = torch.sqrt(cnum / torch.full_like(cnum,
+                                                  max(2.0 * lf - 1.0, 1.0)))
+            lam_prev = rec.pp * rec.corfac
+            lamp = (lf * cot_r) * lam - (c[:, None] * lam_prev) * inv_r
+            lampp = (m2i2 - lf * (lf + 1.0)) * lam - cot_r * lamp
+            b[2].addcmul_(ar, lamp)
+            b[3].addcmul_(ai, lamp)
+            b[4].addcmul_(ar, lampp)
+            b[5].addcmul_(ai, lampp)
+    # [parity, slot] -> column 2 slot + parity
+    return acc.permute(2, 1, 0, 3).reshape(rows, 2 * nacc, J).contiguous()
+
+
+def synth_vpu_cuda(a_re, a_im, cth, sth, cot, inv_sth, derivs: bool):
+    """Launch K3 on the tensors' CUDA device and PyTorch's current stream.
+    Same contract as synth_vpu_plain; float32 only."""
+    name = "legendre_synth_vpu"
+    nm, nl = a_re.shape
+    J = cth.shape[0]
+    _check_problem(name, nm, J, nl)
+    _check_cuda_f32(
+        name, dict(a_re=a_re, a_im=a_im, cth=cth, sth=sth, cot=cot,
+                   inv_sth=inv_sth),
+        dict(a_re=(nm, nl), a_im=(nm, nl), cth=(J,), sth=(J,), cot=(J,),
+             inv_sth=(J,)))
+    out = torch.empty((nm, 12 if derivs else 4, J), dtype=torch.float32,
+                      device=a_re.device)
+    _launch(name, "legendre_synth_vpu_launch", a_re.device,
+            a_re.data_ptr(), a_im.data_ptr(), cth.data_ptr(), sth.data_ptr(),
+            cot.data_ptr(), inv_sth.data_ptr(), out.data_ptr(), nl, nm, J,
+            int(derivs))
+    return out
+
+
+def synth_vpu_columns(a_re, a_im, cth, sth, cot, inv_sth, derivs: bool):
+    """K3 wrapper: the kernel for CUDA tensors, the twin for CPU tensors."""
+    if a_re.device.type == "cpu":
+        return synth_vpu_plain(a_re, a_im, cth, sth, cot, inv_sth, derivs)
+    return synth_vpu_cuda(a_re, a_im, cth, sth, cot, inv_sth, derivs)
+
+
+def q_from_buckets(plan, c, m=None):
+    """K3's buckets [nm, 2 nacc, J] -> (qN, qS), each [nacc / 2, nm, J]
+    complex: qN = A + B, qS = s_m (A - B), with the d_theta kernel's sign
+    flipped on the south ring (calclens_tpu/sht/pallas_legendre.py::
+    synthesis_pallas).  With m, c holds only those rows."""
+    dt = plan.dtype
+    s_m = _south_sign(plan, c.device, m)
+    qN, qS = [], []
+    for k in range(c.shape[1] // 4):
+        Are, Bre, Aim, Bim = (c[:, 4 * k + i].to(dt) for i in range(4))
+        qn = torch.complex(Are + Bre, Aim + Bim)
+        qs = s_m * torch.complex(Are - Bre, Aim - Bim)
+        qN.append(qn)
+        qS.append(-qs if k == 1 else qs)
+    return (torch.stack(qN).to(plan.cdtype), torch.stack(qS).to(plan.cdtype))

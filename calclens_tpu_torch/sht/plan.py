@@ -12,11 +12,12 @@ they are needed.
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
 
-from calclens_tpu.healpix import core as hp
+from ..healpix import core as hp
 
 
 class SHTPlan:
@@ -32,6 +33,13 @@ class SHTPlan:
     ring_weights : optional [2*nside] multiplicative quadrature ring-weight
         corrections per ring pair (1.0 = uniform).
     window : optional l-space window b_l applied in the Poisson filter.
+
+    Two attributes select the Legendre kernels, as the JAX package's
+    switches do (a caller may set them on a built plan):
+    synth_kernel : "k2" (default) or "k3" (JAX: plan.use_pallas_mx = False).
+    analysis_kernel : "k1" (default) or "k4", which the environment variable
+        CALCLENS_ANA_DOT=1 selects when the plan is built (JAX reads it when
+        calclens_tpu/sht/pallas_legendre.py is imported).
     """
 
     def __init__(self, order, device, lmax=None, dtype=torch.float32,
@@ -89,6 +97,7 @@ class SHTPlan:
         th = rt.theta[jj]
         self.sth_host = np.sin(th)  # float64, for the turning-point cutoffs
         self.cth = dev(np.cos(th).astype(ndt))
+        self.sth = dev(np.sin(th).astype(ndt))
         self.cot = dev((np.cos(th) / np.sin(th)).astype(ndt))
         self.inv_sth = dev((1.0 / np.sin(th)).astype(ndt))
         # ln(sin theta) evaluated in float64, then stored: the diagonal seed
@@ -123,6 +132,9 @@ class SHTPlan:
         else:
             self.window_dev = None
         self._ring_stage = None
+        self.synth_kernel = "k2"
+        self.analysis_kernel = ("k4" if os.environ.get("CALCLENS_ANA_DOT",
+                                                       "0") == "1" else "k1")
 
     def ring_stage(self):
         """The analysis ring-DFT stage (sht/rings.py), built on first use."""

@@ -22,8 +22,7 @@ import math
 import numpy as np
 import torch
 
-from calclens_tpu.healpix import core as hp
-
+from ..healpix import core as hp
 from .czt import czt
 
 

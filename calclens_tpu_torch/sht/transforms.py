@@ -6,9 +6,9 @@ reference's map2alm_transpose_mpi.c and alm2allmaps_transpose_mpi.c):
   * ring DFTs: the bucketed belt-rfft + cap chirp-Z stage for the analysis
     (rings.py), the uniform chirp-Z over all rings for the synthesis;
   * north/south ring pairs folded into J = 2*nside even/odd combinations;
-  * the Legendre sweeps in sht/legendre.py: kernel K1 (analysis) and K2
-    (synthesis with derivatives) for CUDA tensors, their plain twins for CPU
-    tensors;
+  * the Legendre sweeps in sht/legendre.py, chosen by the plan's selectors:
+    K1 or K4 (analysis), K2 or K3 (synthesis, with derivatives or the
+    potential alone) for CUDA tensors, their plain twins for CPU tensors;
   * the six covariant outputs phi, d_theta, d_phi/sin and the covariant
     second derivatives, with the cot corrections of
     alm2allmaps_transpose_mpi.c:1094-1147 applied in ring-row space.
@@ -86,23 +86,34 @@ def m_cutoff(lmax: int, sth_max: float, nm: int, granularity: int = 512):
 
 def legendre_analysis(plan: SHTPlan, E, O):
     """E, O [nm, J] complex (quadrature-folded even/odd ring pairs) -> alm
-    [nl, nm] complex (entries m > l are 0): kernel K1 for CUDA tensors, its
-    twin for CPU tensors."""
-    re, im = legendre.analysis_columns(*legendre.analysis_inputs(plan, E, O),
-                                       plan.nl)
+    [nl, nm] complex (entries m > l are 0): kernel K1 (plan.analysis_kernel
+    "k1") or K4 ("k4") for CUDA tensors, its twin for CPU tensors."""
+    kernel = {"k1": legendre.analysis_columns,
+              "k4": legendre.analysis_dot_columns}.get(plan.analysis_kernel)
+    if kernel is None:
+        raise ValueError(f"analysis_kernel {plan.analysis_kernel!r}: "
+                         "expected 'k1' or 'k4'")
+    re, im = kernel(*legendre.analysis_inputs(plan, E, O), plan.nl)
     return torch.complex(re, im).T.contiguous().to(plan.cdtype)
 
 
 def legendre_synthesis(plan: SHTPlan, alm, derivs: bool = True):
     """alm [nl, nm] complex -> (qN, qS), each [3, nm, J] complex (phi,
-    d_theta, d_theta_theta): kernel K2 for CUDA tensors, its twin for CPU
-    tensors."""
-    if not derivs:
-        raise NotImplementedError(
-            "potential-only synthesis (4 columns, alm2map) belongs to the "
-            "multigrid slice (ROADMAP Queue 1, slice 11)")
-    streams = legendre.mx_prep(plan.nl, plan.nm, alm, plan.dtype)
-    c = legendre.synth_columns(*streams, plan.cth, plan.ln_sth, plan.logc)
+    d_theta, d_theta_theta) when derivs, else [1, nm, J] (phi): kernel K2
+    (plan.synth_kernel "k2") or K3 ("k3") for CUDA tensors, its twin for CPU
+    tensors (calclens_tpu/sht/transforms.py::_legendre_synth_dispatch)."""
+    if plan.synth_kernel == "k3":
+        a_re, a_im = legendre.mx_prep(plan.nl, plan.nm, alm, plan.dtype,
+                                      derivs=False)
+        c = legendre.synth_vpu_columns(a_re, a_im, plan.cth, plan.sth,
+                                       plan.cot, plan.inv_sth, derivs)
+        del a_re, a_im
+        return legendre.q_from_buckets(plan, c)
+    if plan.synth_kernel != "k2":
+        raise ValueError(f"synth_kernel {plan.synth_kernel!r}: expected "
+                         "'k2' or 'k3'")
+    streams = legendre.mx_prep(plan.nl, plan.nm, alm, plan.dtype, derivs)
+    c = legendre.synth_columns(streams, plan.cth, plan.ln_sth, plan.logc)
     del streams
     return legendre.q_from_columns(plan, c)
 
@@ -116,6 +127,15 @@ def map2alm(plan: SHTPlan, m):
     E, O = fold_pairs(plan, G)
     del G
     return legendre_analysis(plan, E, O)
+
+
+def alm2map(plan: SHTPlan, alm):
+    """alm [nl, nm] -> RING map [npix]: the potential alone (the
+    multigrid path's synthesis, calclens_tpu/sht/transforms.py::alm2map)."""
+    qN, qS = legendre_synthesis(plan, alm, False)
+    Q = unfold_pairs(plan, qN[0], qS[0])
+    del qN, qS
+    return synthesis_rings(plan, Q[None])[0]
 
 
 def _streams_from_q_rows(plan, qphi, qth, qthth, sth, cot):

@@ -3,9 +3,10 @@ with calclens_tpu.healpix.jaxhp on the same numpy inputs.
 
 Integer outputs (pixel ids, ring decode, tap ids) must be equal exactly;
 float outputs agree to a few ulps of their dtype (tolerances below)."""
+import os
+import re
 import subprocess
 import sys
-import os
 
 import numpy as np
 import pytest
@@ -124,26 +125,59 @@ def test_interp_tables_describe_the_jax_grid(order):
     assert (tab.order, tab.nside, tab.npix) == (jt.order, jt.nside, jt.npix)
 
 
+def _port_sources():
+    pkg = os.path.join(REPO, "calclens_tpu_torch")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(pkg):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return files
+
+
 def test_import_port_leaves_jax_unloaded():
-    """Importing the whole port (every module) must not load jax."""
+    """Importing every module of the port, and every module that
+    chip_smoke.py imports (at any depth), then stepping a plane, loads
+    neither jax nor the JAX package calclens_tpu."""
     code = (
-        "import sys\n"
-        "import calclens_tpu_torch.driver, calclens_tpu_torch.raytrace\n"
-        "import calclens_tpu_torch.restart, calclens_tpu_torch.poisson\n"
-        "import calclens_tpu_torch.sht.transforms, calclens_tpu_torch._ext\n"
-        "import calclens_tpu_torch.sht.rings, calclens_tpu_torch.sht.czt\n"
+        "import ast, importlib, pkgutil, sys\n"
+        "import calclens_tpu_torch\n"
+        "for mod in pkgutil.walk_packages(calclens_tpu_torch.__path__,\n"
+        "                                 'calclens_tpu_torch.'):\n"
+        "    importlib.import_module(mod.name)\n"
+        "with open('chip_smoke.py') as fp:\n"
+        "    tree = ast.parse(fp.read())\n"
+        "for node in ast.walk(tree):\n"
+        "    if isinstance(node, ast.Import):\n"
+        "        for a in node.names:\n"
+        "            importlib.import_module(a.name)\n"
+        "    elif isinstance(node, ast.ImportFrom):\n"
+        "        importlib.import_module(node.module)\n"
+        "import chip_smoke\n"
+        "from calclens_tpu_torch.config import RayTraceConfig\n"
         "from calclens_tpu_torch.driver import Raytracer\n"
-        "from calclens_tpu.config import RayTraceConfig\n"
         "cfg = RayTraceConfig(maxComvDistance=100.0, NumLensPlanes=2,\n"
         "                     SHTOrder=2, rayOrder=2, bundleOrder=1)\n"
         "rt = Raytracer(cfg.finalize(), device='cpu')\n"
         "rt.init_rays()\n"
         "rt.step(0, pos=[[1.0, 0.0, 0.0]], mass=[1e12])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
-        "             m.startswith('jax.') or m.startswith('jaxlib'))\n"
-        "print('JAXMODS', bad)\n"
+        "             m.startswith(('jax.', 'jaxlib')) or\n"
+        "             m == 'calclens_tpu' or m.startswith('calclens_tpu.'))\n"
+        "print('FORBIDDEN', bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_port_sources_never_name_the_jax_package_in_an_import():
+    """No source of the port, and not chip_smoke.py, imports calclens_tpu
+    (the port keeps its own copies of the host modules it needs)."""
+    pat = re.compile(r"from calclens_tpu\.|import calclens_tpu\b")
+    hits = []
+    for path in _port_sources():
+        with open(path) as fp:
+            hits += [f"{path}:{i}" for i, line in enumerate(fp, 1)
+                     if pat.search(line)]
+    assert not hits, hits
+    assert len(_port_sources()) > 20

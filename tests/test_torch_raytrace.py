@@ -202,12 +202,16 @@ def test_plane_step_packed_matches_jax(jax_tracer):
     assert np.all(np.abs(ref[14:16]).max(axis=1) > 0)  # deflected
 
 
-def test_three_plane_trace_matches_jax_plane_by_plane(jax_tracer):
+@pytest.mark.parametrize("synth,analysis", [("k2", "k1"), ("k3", "k4")])
+def test_three_plane_trace_matches_jax_plane_by_plane(jax_tracer, synth,
+                                                      analysis):
     """Both drivers start from the same packed state (load_state) and step
-    three planes, an empty one among them; compared after every plane."""
+    three planes, an empty one among them; compared after every plane.  The
+    port runs with either pair of Legendre kernels (their twins here)."""
     jrt = jax_tracer
     start = np.array(np.asarray(jrt.rays_packed))
     trt = tdriver.Raytracer(jrt.cfg, device="cpu")
+    trt.plan.synth_kernel, trt.plan.analysis_kernel = synth, analysis
     trt.load_state(start, 1, 0)
     jrt.rays_packed = jnp.asarray(start)
     for p in (1, 2, 3):

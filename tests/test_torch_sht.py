@@ -169,7 +169,7 @@ def test_synth_twin_matches_pallas_mx_kernel():
                                                 TM=TM, TJ=TJ, LB=LB)
     raw = np.asarray(raw)[: tp.nm, :, : tp.J]
     streams = TL.mx_prep(tp.nl, tp.nm, torch.tensor(alm), torch.float32)
-    cols = TL.synth_plain(*streams, tp.cth, tp.ln_sth, tp.logc).numpy()
+    cols = TL.synth_plain(streams, tp.cth, tp.ln_sth, tp.logc).numpy()
     assert cols.shape == (tp.nm, 16, tp.J)
     for c in range(16):
         assert _relerr(cols[:, c], raw[:, c]) < 1e-5, c
@@ -251,15 +251,20 @@ def test_fold_unfold_pairs_match_jax():
 
 def test_kernel_wrappers_refuse_non_cuda_tensors():
     """The launchers never run a CPU tensor: the dispatching wrappers send
-    CPU tensors to the twins, the kernel entry points raise."""
+    CPU tensors to the twins, the kernel entry points (K1, K2 with 16 and 4
+    columns, K3 in both forms, K4) raise."""
     tp = SHTPlan(2, "cpu", dtype=torch.float32)
     x = torch.zeros((tp.nm, tp.J))
     mcut = torch.tensor(TL.analysis_mcut(tp.sth_host, tp.nl, tp.nm))
-    with pytest.raises(ValueError, match="not on CUDA"):
-        TL.analysis_cuda(x, x, x, x, tp.cth, tp.ln_sth, tp.logc, mcut, tp.nl)
+    geo = (tp.cth, tp.ln_sth, tp.logc)
+    for launch in (TL.analysis_cuda, TL.analysis_dot_cuda):
+        with pytest.raises(ValueError, match="not on CUDA"):
+            launch(x, x, x, x, *geo, mcut, tp.nl)
     s = torch.zeros((tp.nm, tp.nl))
-    with pytest.raises(ValueError, match="not on CUDA"):
-        TL.synth_cuda(s, s, s, s, tp.cth, tp.ln_sth, tp.logc)
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        T.legendre_synthesis(tp, torch.zeros((tp.nl, tp.nm),
-                                             dtype=torch.complex64), False)
+    for streams in ((s, s, s, s), (s, s)):
+        with pytest.raises(ValueError, match="not on CUDA"):
+            TL.synth_cuda(streams, *geo)
+    for derivs in (True, False):
+        with pytest.raises(ValueError, match="not on CUDA"):
+            TL.synth_vpu_cuda(s, s, tp.cth, tp.sth, tp.cot, tp.inv_sth,
+                              derivs)
