@@ -30,16 +30,19 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 SOURCES = ("legendre_analysis.cu", "legendre_analysis_dot.cu",
-           "legendre_synth.cu", "legendre_synth_vpu.cu")
+           "legendre_synth.cu", "legendre_synth_vpu.cu", "roofline_probe.cu",
+           "gather_probe.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel name -> launches since the last reset_launches()
 launches = {"legendre_analysis": 0, "legendre_analysis_dot": 0,
             "legendre_synth": 0, "legendre_synth_phi": 0,
-            "legendre_synth_vpu": 0}
+            "legendre_synth_vpu": 0, "roofline_probe": 0, "gather_rows": 0,
+            "gather_lanes": 0, "gather_onehot": 0}
 
-# C launcher signatures: "p" = device pointer, "i" = int, "s" = cudaStream_t
+# C launcher signatures: "p" = device pointer, "i" = int, "l" = long long,
+# "s" = cudaStream_t
 _SIGNATURES = {
     # ere, eim, ore, oim, cth, ln_sth, logc, mcut, alm_re, alm_im,
     # nl, nm, J, stream
@@ -51,6 +54,12 @@ _SIGNATURES = {
     "legendre_synth_phi_launch": "pppppp" + "iii" + "s",
     # a_re, a_im, cth, sth, cot, inv_sth, out, nl, nm, J, derivs, stream
     "legendre_synth_vpu_launch": "ppppppp" + "iiii" + "s",
+    # geo, out, rows, TJ, LB, LBLK, mode, stream
+    "roofline_probe_launch": "pp" + "iiiii" + "s",
+    # tab, idx, out, n, stream
+    "gather_rows_launch": "ppp" + "l" + "s",
+    "gather_lanes_launch": "ppp" + "l" + "s",
+    "gather_onehot_launch": "ppp" + "l" + "s",
 }
 
 _lib = None
@@ -127,7 +136,8 @@ def lib():
     global _lib
     if _lib is None:
         handle = ctypes.CDLL(build())
-        codes = {"p": ctypes.c_void_p, "i": ctypes.c_int, "s": ctypes.c_void_p}
+        codes = {"p": ctypes.c_void_p, "i": ctypes.c_int,
+                 "l": ctypes.c_longlong, "s": ctypes.c_void_p}
         for name, sig in _SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = [codes[c] for c in sig]

@@ -4,7 +4,8 @@ Port of calclens_tpu/driver.py on one device: the outer loop over lens
 planes runs on the host (each plane loads its particles), and everything
 inside a plane (deposit, SHT Poisson solve, interpolation, propagation) is
 torch work on the Raytracer's device.  The CUDA kernels run when that device
-is a GPU; a CPU Raytracer runs their plain twins.
+is a GPU; a CPU Raytracer runs their plain twins.  After each
+MapRedshiftList plane, run() writes the lens maps (maps.py).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from .config import RayTraceConfig
+from . import maps as lm
 from .cosmology import Cosmology, RHO_CRIT, CSOL
 from .healpix import core as hp
 from .healpix import torchhp
@@ -90,7 +92,6 @@ def _check_supported(cfg):
         (cfg.UseHEALPixLensPlaneMaps, "UseHEALPixLensPlaneMaps", 6),
         (not _full_sky(cfg), "a cut-sky ra/dec box", 6),
         (bool(cfg.GalsFileList), "GalsFileList", 8),
-        (bool(cfg.MapRedshiftList), "MapRedshiftList (lens maps)", 5),
         (bool(cfg.RayOutputName), "RayOutputName", 10),
         (cfg.Profile, "Profile (per-phase timing rows)", 10),
         (bool(cfg.CMBLensing), "CMBLensing", 9),
@@ -279,13 +280,42 @@ class Raytracer:
                          for x in rays)))
         self._ray_nest = nest
 
+    def _map_planes(self):
+        """plane number -> map index for MapRedshiftList planes."""
+        cfg = self.cfg
+        if not cfg.MapRedshiftList:
+            return {}
+        zs = lm.read_map_redshifts(cfg.MapRedshiftList)
+        nums = lm.map_plane_nums(zs, cfg.OmegaM, cfg.maxComvDistance,
+                                 cfg.NumLensPlanes)
+        return {int(p): i for i, p in enumerate(nums)}
+
+    def _map_order(self):
+        return (lm.DRIVER_MAP_ORDER if self.cfg.LensMapOrder < 0
+                else self.cfg.LensMapOrder)
+
+    def _write_map_outputs(self):
+        """Accumulate the lens maps on the rays' device (only the [7,
+        npix_map] sums reach the host) and write Convergence_ and Rays_."""
+        order = self._map_order()
+        stacked = lm.accum_lens_map_packed(self.rays_packed, self._ray_nest,
+                                           self.cfg.rayOrder, order)
+        accum = lm.LensMapAccum.from_stacked(stacked)
+        return lm.write_map_outputs(accum, order, self.cfg.OutputPath or ".",
+                                    self.map_num)
+
     def run(self, progress=True, start_time=None):
-        """Plane loop with wall-time restarts (reference raytrace.c:131-371):
-        npz restarts every WallTimeBetweenRestart seconds and before the
-        WallTimeLimit; at the end, the restart and the timing.0 rows."""
+        """Plane loop with lens maps and wall-time restarts (reference
+        raytrace.c:131-371): after each MapRedshiftList plane the lens maps
+        (when OutputPath is set); npz restarts every WallTimeBetweenRestart
+        seconds and before the WallTimeLimit; at the end, the restart and
+        the timing.0 rows."""
         cfg = self.cfg
         if self.rays_packed is None:
             self.init_rays()
+        map_planes = self._map_planes()
+        if map_planes and cfg.OutputPath:
+            lm.check_map_order(cfg.rayOrder, self._map_order())
         t_start = start_time if start_time is not None else time.perf_counter()
         t_last_restart = t_start
         for p in range(self.current_plane, cfg.NumLensPlanes):
@@ -295,6 +325,9 @@ class Raytracer:
                 print(f"plane {p:4d}/{cfg.NumLensPlanes} "
                       f"[dist={pp.rad:.2f} Mpc/h, z={pp.zlens:.2f}] "
                       f"{self.timings[-1][1]:.3f}s", file=sys.stderr)
+            if p in map_planes and cfg.OutputPath:
+                self._write_map_outputs()
+                self.map_num += 1
             now = time.perf_counter()
             step_t = self.timings[-1][1]
             if cfg.OutputPath and (

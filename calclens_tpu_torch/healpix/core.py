@@ -2,7 +2,7 @@
 
 The port's own copy of the part of calclens_tpu/healpix/core.py that it
 calls: pixel counts, the per-ring geometry table of the SHT, RING pixel ->
-unit vector and RING -> NEST (the port imports nothing of the JAX package;
+unit vector, RING <-> NEST (the port imports nothing of the JAX package;
 tests/test_torch_copies.py holds the copy to the original).  Device-side
 HEALPix work lives in torchhp.py.
 
@@ -112,11 +112,32 @@ def _spread_bits(v):
     return x.astype(np.int64)
 
 
+def _compress_bits(v):
+    """Inverse of _spread_bits: keep even bits, pack them."""
+    x = np.asarray(v, dtype=np.uint64) & np.uint64(0x5555555555555555)
+    x = (x | (x >> np.uint64(1))) & np.uint64(0x3333333333333333)
+    x = (x | (x >> np.uint64(2))) & np.uint64(0x0F0F0F0F0F0F0F0F)
+    x = (x | (x >> np.uint64(4))) & np.uint64(0x00FF00FF00FF00FF)
+    x = (x | (x >> np.uint64(8))) & np.uint64(0x0000FFFF0000FFFF)
+    x = (x | (x >> np.uint64(16))) & np.uint64(0x00000000FFFFFFFF)
+    return x.astype(np.int64)
+
+
 def xyf2nest(x, y, f, order):
     x = np.asarray(x, dtype=np.int64)
     y = np.asarray(y, dtype=np.int64)
     f = np.asarray(f, dtype=np.int64)
     return (f << (2 * order)) + _spread_bits(x) + (_spread_bits(y) << 1)
+
+
+def nest2xyf(pix, order):
+    pix = np.asarray(pix, dtype=np.int64)
+    npface = np.int64(1) << (2 * order)
+    f = pix >> (2 * order)
+    p = pix & (npface - 1)
+    x = _compress_bits(p)
+    y = _compress_bits(p >> 1)
+    return x, y, f
 
 
 def ring2xyf(pix, order):
@@ -169,6 +190,36 @@ def ring2xyf(pix, order):
     x = (ipt - irt) >> 1
     y = (-ipt - irt) >> 1
     return x, y, face
+
+
+def xyf2ring(x, y, f, order):
+    nside = order2nside(order)
+    npix = order2npix(order)
+    ncap = 2 * nside * (nside - 1)
+    x = np.asarray(x, dtype=np.int64)
+    y = np.asarray(y, dtype=np.int64)
+    f = np.asarray(f, dtype=np.int64)
+
+    jr = JRLL[f] * nside - x - y - 1
+    north = jr < nside
+    south = jr > 3 * nside
+
+    nr = np.where(north, jr, np.where(south, 4 * nside - jr, nside))
+    n_before = np.where(
+        north,
+        2 * nr * (nr - 1),
+        np.where(south, npix - 2 * (nr + 1) * nr, ncap + (jr - nside) * 4 * nside),
+    )
+    kshift = np.where(north | south, np.int64(0), (jr - nside) & 1)
+
+    jp = (JPLL[f] * nr + x - y + 1 + kshift) >> 1
+    jp = np.where(jp > 4 * nr, jp - 4 * nr, jp)
+    jp = np.where(jp < 1, jp + 4 * nr, jp)
+    return n_before + jp - 1
+
+
+def nest2ring(pix, order):
+    return xyf2ring(*nest2xyf(pix, order), order)
 
 
 def ring2nest(pix, order):

@@ -1,9 +1,11 @@
 """Device-side HEALPix geometry on torch tensors (RING scheme).
 
 Port of calclens_tpu/healpix/jaxhp.py: RING ang->pix (particle deposit),
-pix->unit vector, pixel -> (ring, index) decode, closed-form ring geometry
-and the 4-pixel bilinear taps of get_interpol.  Integer work is int64 (exact
-for every order <= 13); floats follow the input dtype.  Host-side code uses
+pix->unit vector, pixel -> (ring, index) decode, closed-form ring geometry,
+the 4-pixel bilinear taps of get_interpol, and NEST <-> RING for the lens
+maps.  Integer work is int64 (exact for every order <= 13), except the NEST
+<-> RING functions, which are int32 like the JAX ones; floats follow the
+input dtype.  Host-side code uses
 healpix/core.py (numpy) instead.
 
 Numerical care in float32: polar-cap z is computed via 1 - |z| (an exact
@@ -119,6 +121,131 @@ def pix2vec_ring_soa(pix, order: int, dtype=torch.float32):
     sth = torch.where(cap, sth_cap, sth_eq)
     phi = torch.where(cap, phi_cap, phi_eq)
     return sth * torch.cos(phi), sth * torch.sin(phi), z
+
+
+# ----------------------------------------------------------------------------
+# NEST <-> RING on device (int32; valid for order <= 13, npix < 2^31)
+# ----------------------------------------------------------------------------
+
+def _spread_bits32(v):
+    """Bit i of v -> bit 2i (v < 2^15)."""
+    x = v & 0x0000FFFF
+    x = (x | (x << 8)) & 0x00FF00FF
+    x = (x | (x << 4)) & 0x0F0F0F0F
+    x = (x | (x << 2)) & 0x33333333
+    return (x | (x << 1)) & 0x55555555
+
+
+def _compress_bits32(v):
+    """Inverse of _spread_bits32: keep even bits, pack them."""
+    x = v & 0x55555555
+    x = (x | (x >> 1)) & 0x33333333
+    x = (x | (x >> 2)) & 0x0F0F0F0F
+    x = (x | (x >> 4)) & 0x00FF00FF
+    return (x | (x >> 8)) & 0x0000FFFF
+
+
+def _face_table(table, face):
+    return torch.as_tensor(table, dtype=torch.int32,
+                           device=face.device)[face.long()]
+
+
+def ring2xyf_dev(pix, order: int):
+    """RING pixel -> (x, y, face), int32 (core.ring2xyf; every
+    intermediate < 2^31 for order <= 13)."""
+    nside = 1 << order
+    npix = 12 * nside * nside
+    ncap = 2 * nside * (nside - 1)
+    pix = pix.to(torch.int32)
+
+    north = pix < ncap
+    south = pix >= npix - ncap
+
+    iring_n = (1 + _isqrt_dev(1 + 2 * pix)) >> 1
+    iphi_n = pix + 1 - 2 * iring_n * (iring_n - 1)
+    face_n = (iphi_n - 1) // torch.clamp(iring_n, min=1)
+
+    ip = pix - ncap
+    tmp = ip >> (order + 2)
+    iring_e = tmp + nside
+    iphi_e = ip - tmp * 4 * nside + 1
+    kshift_e = (iring_e + nside) & 1
+    ire = iring_e - nside + 1
+    irm = 2 * nside + 2 - ire
+    ifm = (iphi_e - ire // 2 + nside - 1) >> order
+    ifp = (iphi_e - irm // 2 + nside - 1) >> order
+    face_e = torch.where(ifp == ifm, ifp | 4,
+                         torch.where(ifp < ifm, ifp, ifm + 8))
+
+    ip_s = npix - pix
+    iring_sl = (1 + _isqrt_dev(2 * ip_s - 1)) >> 1
+    iphi_s = 4 * iring_sl + 1 - (ip_s - 2 * iring_sl * (iring_sl - 1))
+    face_s = 8 + (iphi_s - 1) // torch.clamp(iring_sl, min=1)
+    iring_s = 4 * nside - iring_sl
+
+    iring = torch.where(north, iring_n, torch.where(south, iring_s, iring_e))
+    iphi = torch.where(north, iphi_n, torch.where(south, iphi_s, iphi_e))
+    kshift = torch.where(north | south, 0, kshift_e)
+    nr = torch.where(north, iring_n,
+                     torch.where(south, iring_sl, torch.full_like(pix, nside)))
+    face = torch.where(north, face_n, torch.where(south, face_s, face_e))
+
+    irt = iring - _face_table(hp.JRLL, face) * nside + 1
+    ipt = 2 * iphi - _face_table(hp.JPLL, face) * nr - kshift - 1
+    ipt = torch.where(ipt >= 2 * nside, ipt - 8 * nside, ipt)
+    return (ipt - irt) >> 1, (-ipt - irt) >> 1, face
+
+
+def xyf2ring_dev(x, y, f, order: int):
+    """(x, y, face) -> RING pixel, int32 (core.xyf2ring)."""
+    nside = 1 << order
+    npix = 12 * nside * nside
+    ncap = 2 * nside * (nside - 1)
+    x, y, f = (v.to(torch.int32) for v in (x, y, f))
+
+    jr = _face_table(hp.JRLL, f) * nside - x - y - 1
+    north = jr < nside
+    south = jr > 3 * nside
+
+    nr = torch.where(north, jr, torch.where(south, 4 * nside - jr,
+                                            torch.full_like(jr, nside)))
+    n_before = torch.where(
+        north, 2 * nr * (nr - 1),
+        torch.where(south, npix - 2 * (nr + 1) * nr,
+                    ncap + (jr - nside) * 4 * nside))
+    kshift = torch.where(north | south, 0, (jr - nside) & 1)
+
+    jp = (_face_table(hp.JPLL, f) * nr + x - y + 1 + kshift) >> 1
+    jp = torch.where(jp > 4 * nr, jp - 4 * nr, jp)
+    jp = torch.where(jp < 1, jp + 4 * nr, jp)
+    return n_before + jp - 1
+
+
+def nest2ring_dev(pix, order: int):
+    """NEST -> RING, int32 (order <= 13)."""
+    pix = pix.to(torch.int32)
+    p = pix & ((1 << (2 * order)) - 1)
+    return xyf2ring_dev(_compress_bits32(p), _compress_bits32(p >> 1),
+                        pix >> (2 * order), order)
+
+
+def ring2nest_dev(pix, order: int):
+    """RING -> NEST, int32 (order <= 13)."""
+    x, y, f = ring2xyf_dev(pix, order)
+    return (f << (2 * order)) + _spread_bits32(x) + (_spread_bits32(y) << 1)
+
+
+def coarse_nest_from_ring(rpix, ray_order: int, map_order: int):
+    """RING pixel at ray_order -> NEST pixel of its map_order parent (the
+    lens-map NGP pixel, ray nest >> 2 (ray_order - map_order)).  Shifting
+    (x, y) before the bit spread keeps every value < 2^15."""
+    if not map_order <= ray_order <= 13:
+        raise ValueError(f"need map_order <= ray_order <= 13, got "
+                         f"{map_order}, {ray_order}")
+    k = ray_order - map_order
+    x, y, f = ring2xyf_dev(rpix, ray_order)
+    return ((f << (2 * map_order)) + _spread_bits32(x >> k)
+            + (_spread_bits32(y >> k) << 1))
 
 
 class InterpTables:

@@ -22,14 +22,22 @@ of which must pass:
      the CPU (twins) and once on the card (kernels); the packed ray buffers
      must agree within 5e-4 of each quantity's max |value| after every
      plane.  Run twice: with the default kernels (K2, K1) and with the
-     variant (K3, K4); each CUDA run must have launched its two kernels;
+     variant (K3, K4); each CUDA run must have launched its two kernels.
+     Then Raytracer.run, with MapRedshiftList and OutputPath, on the CPU
+     and on the card (8 planes): the driver writes the lens maps after
+     planes 1 and 2, and the card's Convergence_ and Rays_ files agree
+     with the CPU's within the same bound (ray counts exact);
   5. headline: SHTOrder 12 (NSIDE 4096, lmax 12287), rayOrder 10
      (12,582,912 rays), 2^21 particles, float32, through Raytracer.step:
      one warm-up plane and three timed planes, with the kernel launch counts
      of exactly that run, the peak device memory and finite rays; then the
      variant headline (K3, K4): one warm-up plane and two timed planes, K3
      and K4 launched and K1 and K2 not, and the distance of its rays from
-     the default run's rays after the same planes;
+     the default run's rays after the same planes.  After the default
+     run's planes, the driver's lens maps at LensMapOrder 8: the card's
+     [7, npix] sums against a float64 host accumulation of the same rays
+     (counts exact, the rest within 1e-5 of each row's max), and the
+     Convergence_ and Rays_ FITS files read back;
   6. the kernels at the headline shape: K1 and K2 against their twins
      (same 1e-5 bound); K2's 4-column form, K3 and K4 against their twins
      on a set of m rows (all rings, all degrees; the full twins would take
@@ -38,7 +46,21 @@ of which must pass:
      distance from K2 printed (the two seed lambda_mm differently), and
      each one's distance from float64 twins on the m rows, polar caps and
      belt apart; every kernel timed with CUDA events beside its bound from
-     the shapes.
+     the shapes;
+  7. P1, the Legendre roofline probe (csrc/roofline_probe.cu): each mode
+     (rec, rec+store, store, dot) against its plain version at two shapes
+     where the recurrence stays finite, one of them the timed layout (1e-6
+     of max |plain|, dot 1e-5); then the tool's ceilings() at its default
+     shape (6.44e9 elements), whose launches are counted, beside the plain
+     versions and, for dot, torch.bmm in FP32; store and dot also held to
+     their plain versions at that shape; each mode's bound, the store
+     modes' from the card's shared-memory peak; each Legendre kernel's
+     share of the rec and rec+store ceilings from its order-12 time of
+     phase 6 and the tool's exact element counts; the SASS of the
+     rec+store loop keeps its stores;
+  8. P2-P4, the gather probes (csrc/gather_probe.cu), through the tool's
+     run() at N = 2^23: each bit-exact against torch's tab[idx], timed
+     beside it, launches counted.
 
 It prints the card's line, a JSON line {"kernels": [...]} with each
 kernel's launches on its path's run, its error against its twin, its
@@ -63,6 +85,21 @@ VARIANT_BOUND = 1e-5  # K3, K4, K2-4col vs twins; K4 vs K1; alm2map vs K2
 # the A rows, measured on an H100), so the kernels' path must agree with
 # the twins' far better than either agrees with the exact answer
 TRACE_BOUND = 5e-4
+# lens map at order 8 on the card (float32 sums of 16 rays per pixel)
+# against a float64 host accumulation, relative to each row's max
+MAP_BOUND = 1e-5
+MAP_ORDER = 8
+# P1 probe vs its plain version, relative to max |plain|: the same roundings
+# (0 expected); dot sums its FMAs in another order
+PROBE_BOUND = 1e-6
+PROBE_DOT_BOUND = 1e-5
+# shapes at which the probe's recurrence stays finite and every mode is
+# held to its plain version: one m row per 512-thread block with 8-degree
+# refills (16 degrees, m < 128); and the timed layout of ceilings() (two m
+# rows per 256-ring block, 128-degree refills) on two blocks of rows and
+# two refills (256 degrees, m < 4)
+PROBE_CHECKS = (dict(MT=4, LBLK=2, LB=8, TM=32, TJ=512),
+                dict(MT=2, LBLK=2, LB=128, TM=2, TJ=256))
 # m rows on which the order-12 outputs of K2-4col, K3 and K4 are held to
 # their twins: both parities, the first rows, and rows up to lmax
 CHECK_ROWS = (0, 1, 2, 3, 511, 2048, 6143, 10001, 12287)
@@ -104,23 +141,6 @@ def card_line():
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     check(res.returncode == 0, f"nvidia-smi failed: {res.stderr.strip()}")
     return res.stdout.strip().splitlines()[0]
-
-
-def cuda_time_ms(fn, reps):
-    """Mean milliseconds per call of fn on the current stream (CUDA events
-    around `reps` calls, after one warm-up call)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
 def timed_once(fn):
@@ -185,19 +205,20 @@ def compare_kernels(plan, streams, ana, reps):
     times: per kernel (max relative error over its output columns, max
     absolute error, kernel ms as the mean of `reps` launches after the
     compared one, twin ms of its one run)."""
+    from calclens_tpu_torch.tools import cuda_ms
     from calclens_tpu_torch.sht import legendre as TL
 
     geo = (plan.cth, plan.ln_sth, plan.logc)
     got = TL.synth_cuda(streams, *geo)
     ref, k2_twin_ms = timed_once(lambda: TL.synth_plain(streams, *geo))
     k2 = (*col_errs(got, ref),
-          cuda_time_ms(lambda: TL.synth_cuda(streams, *geo), reps),
+          cuda_ms(lambda: TL.synth_cuda(streams, *geo), reps),
           k2_twin_ms)
     del got, ref
     got = TL.analysis_cuda(*ana, plan.nl)
     ref, k1_twin_ms = timed_once(lambda: TL.analysis_plain(*ana, plan.nl))
     k1 = (*pair_errs(got, ref),
-          cuda_time_ms(lambda: TL.analysis_cuda(*ana, plan.nl), reps),
+          cuda_ms(lambda: TL.analysis_cuda(*ana, plan.nl), reps),
           k1_twin_ms)
     return k1, k2
 
@@ -245,6 +266,7 @@ def variant_calls(plan, streams, ana):
 def compare_variants(plan, streams, ana, reps):
     """Each variant kernel against its full twin: name -> (rel, abs,
     kernel ms, twin ms)."""
+    from calclens_tpu_torch.tools import cuda_ms
     import torch
 
     out = {}
@@ -252,7 +274,7 @@ def compare_variants(plan, streams, ana, reps):
                                                   ana).items():
         got = kern()
         ref, twin_ms = timed_once(lambda: twin(None))
-        out[name] = (*errs(got, ref), cuda_time_ms(kern, reps), twin_ms)
+        out[name] = (*errs(got, ref), cuda_ms(kern, reps), twin_ms)
         del got, ref
         torch.cuda.empty_cache()
     return out
@@ -262,6 +284,7 @@ def check_variant_rows(plan, streams, ana, reps):
     """At the headline shape: each variant kernel's full output, on the
     CHECK_ROWS rows, against its twin run on those rows alone: name ->
     (rel, abs, kernel ms)."""
+    from calclens_tpu_torch.tools import cuda_ms
     import torch
 
     m = torch.tensor(CHECK_ROWS, device=plan.device)
@@ -271,7 +294,7 @@ def check_variant_rows(plan, streams, ana, reps):
         got = kern()
         got = got[m] if isinstance(got, torch.Tensor) else tuple(
             x[m] for x in got)
-        out[name] = (*errs(got, twin(m)), cuda_time_ms(kern, reps))
+        out[name] = (*errs(got, twin(m)), cuda_ms(kern, reps))
         del got
         torch.cuda.empty_cache()
     return out
@@ -419,11 +442,99 @@ def trace_cuda_vs_cpu(synth, analysis):
     return errs, counts
 
 
-def headline(synth, analysis, planes, snapshot_after):
+def traced_run(device, out_dir, map_planes):
+    """Raytracer.run, the entry point a user calls, at the trace's shape
+    (SHTOrder 7 / rayOrder 6, f32, 8 planes) with MapRedshiftList naming
+    `map_planes` and OutputPath `out_dir`: the driver's own map-plane logic
+    writes the lens maps at LensMapOrder 4.  Each plane's particles come
+    from pixel_centre_particles through load_particles (the card's machine
+    has no h5py for lens-plane files).  Returns (Raytracer, launches)."""
+    from calclens_tpu_torch import _ext
+    from calclens_tpu_torch import maps as tmaps
+    from calclens_tpu_torch.config import RayTraceConfig
+    from calclens_tpu_torch.driver import Raytracer
+
+    base = dict(OmegaM=0.3, maxComvDistance=2000.0, NumLensPlanes=8)
+    # redshifts at the comoving distances of the map planes
+    zgrid = np.linspace(0.0, 3.0, 30001)
+    binL = base["maxComvDistance"] / base["NumLensPlanes"]
+    zs = np.interp(np.asarray(map_planes) * binL,
+                   tmaps.comoving_distance_2f1(zgrid, base["OmegaM"]), zgrid)
+    zpath = f"{out_dir}/map_redshifts.txt"
+    with open(zpath, "w") as fp:
+        fp.write("".join(f"{z:.10f}\n" for z in zs))
+    cfg = RayTraceConfig(SHTOrder=7, rayOrder=6, bundleOrder=3,
+                         Precision="f32", MapRedshiftList=zpath,
+                         LensMapOrder=4, OutputPath=f"{out_dir}/{device}",
+                         **base).finalize()
+    rt = Raytracer(cfg, device=device)
+    check(sorted(rt._map_planes()) == sorted(map_planes),
+          f"map redshifts {zs} give planes {rt._map_planes()}")
+    rt.load_particles = lambda p: pixel_centre_particles(cfg, rt.cosmo, p,
+                                                         20000, 100 + p)
+    _ext.reset_launches()
+    rt.run(progress=False)
+    return rt, dict(_ext.launches)
+
+
+def run_with_maps():
+    """traced_run on the CPU (twins) and on the card (kernels), with lens
+    maps after planes 1 and 2 (the planes that the trace above compares):
+    each run writes both files per map plane and counts its map planes;
+    the card's files agree with the CPU's as the rays do (pixel ids and
+    ray counts exact; the per-pixel means of A, of ra and of dec, and the
+    convergence, within TRACE_BOUND of the largest |value| of A, ra and
+    dec).  Returns (worst error, card launches)."""
+    import os
+    import tempfile
+
+    from calclens_tpu_torch.io import fits
+
+    map_planes = (1, 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {dev: traced_run(dev, tmp, map_planes)
+                for dev in ("cpu", "cuda")}
+        counts = runs["cuda"][1]
+        check(all(counts[k] >= 8 for k in PATH_KERNELS[("k2", "k1")]),
+              f"Raytracer.run on the card did not launch its kernels: "
+              f"{counts}")
+        worst = 0.0
+        for i in range(len(map_planes)):
+            tabs = {}
+            for dev, (rt, _) in runs.items():
+                check(rt.map_num == len(map_planes), f"{dev} run wrote "
+                      f"{rt.map_num} map planes")
+                cpath, rpath = (os.path.join(rt.cfg.OutputPath,
+                                             f"{kind}_16_{i}.fits")
+                                for kind in ("Convergence", "Rays"))
+                check(os.path.exists(cpath) and os.path.exists(rpath),
+                      f"{dev} run did not write the lens maps of map {i}")
+                tabs[dev] = (fits.read_fits(cpath)[1][1],
+                             fits.read_fits(rpath)[1][1])
+            (cg, rg), (cc, rc) = tabs["cuda"], tabs["cpu"]
+            check(np.array_equal(rg["N_RAYS"], rc["N_RAYS"])
+                  and np.array_equal(rg["NEST_IDX"], rc["NEST_IDX"]),
+                  f"map {i}: pixel ids or ray counts differ")
+            amax = max(float(np.abs(rc[k]).max())
+                       for k in ("A00", "A01", "A10", "A11"))
+            for k, scale in (("A00", amax), ("A01", amax), ("A10", amax),
+                             ("A11", amax), ("SIGNAL", amax),
+                             ("ra", float(np.abs(rc["ra"]).max())),
+                             ("dec", float(np.abs(rc["dec"]).max()))):
+                g, c = (cg, cc) if k == "SIGNAL" else (rg, rc)
+                worst = max(worst, float(np.abs(
+                    g[k].astype(np.float64) - c[k]).max()) / scale)
+    check(worst < TRACE_BOUND, f"Raytracer.run lens maps, card vs CPU: "
+          f"{worst:.3e}")
+    return worst, counts
+
+
+def headline(synth, analysis, planes, snapshot_after, maps_order=None):
     """The plane step at the headline shape with the given kernels: plane
     1 as warm-up, then `planes` timed; the launch counts of exactly those
     planes, peak device memory, and a host copy of the rays after plane
-    `snapshot_after`."""
+    `snapshot_after`; then, with maps_order, the lens maps of the final
+    rays (lens_maps)."""
     import torch
     from calclens_tpu_torch import _ext
     from calclens_tpu_torch.config import RayTraceConfig
@@ -464,9 +575,171 @@ def headline(synth, analysis, planes, snapshot_after):
           all(v == 0 for k, v in counts.items() if k not in ran),
           f"headline ({synth}, {analysis}): launches {counts}, expected "
           f"only {ran}")
-    return dict(setup_s=setup_s, times=times, nrays=nrays, npart=npart,
-                counts=counts, peak=peak, shape=tuple(rt.rays_packed.shape),
-                snap=snap)
+    out = dict(setup_s=setup_s, times=times, nrays=nrays, npart=npart,
+               counts=counts, peak=peak, shape=tuple(rt.rays_packed.shape),
+               snap=snap)
+    if maps_order is not None:
+        out["maps"] = lens_maps(rt, maps_order)
+    return out
+
+
+def lens_maps(rt, order):
+    """The driver's lens maps of the current rays at `order`, written to a
+    temporary directory: the card's [7, npix] sums against a float64 host
+    accumulation of the same ray buffer (scatter-add onto ring2nest >> 2k);
+    counts exact, the other rows within MAP_BOUND of each row's max; both
+    FITS files read back.  Returns (worst row error, seconds of the driver's
+    map writer, pixels)."""
+    import tempfile
+
+    import torch
+    from calclens_tpu_torch import maps as tmaps
+    from calclens_tpu_torch.healpix import core as hp
+    from calclens_tpu_torch.io import fits
+
+    ray_order = rt.cfg.rayOrder
+    got = tmaps.accum_lens_map_packed(rt.rays_packed, None, ray_order,
+                                      order).cpu().double().numpy()
+    packed = rt.rays_packed.cpu().double().numpy()
+    nx, ny, nz = packed[0], packed[1], packed[2]
+    theta = np.arccos(np.clip(nz / np.sqrt(nx * nx + ny * ny + nz * nz),
+                              -1.0, 1.0))
+    phi = np.arctan2(ny, nx)
+    phi = np.where(phi < 0.0, phi + 2.0 * np.pi, phi)
+    vals = (np.ones_like(nx), packed[6], packed[7], packed[8], packed[9],
+            np.degrees(phi), 90.0 - np.degrees(theta))
+    npix = int(hp.order2npix(order))
+    lpix = hp.ring2nest(np.arange(packed.shape[1]), ray_order) \
+        >> (2 * (ray_order - order))
+    del packed
+    ref = np.stack([np.bincount(lpix, weights=v, minlength=npix)
+                    for v in vals])
+    check(np.array_equal(got[0], ref[0]), "lens map: counts differ from the "
+          "host accumulation")
+    err = max(float(np.abs(got[k] - ref[k]).max() / np.abs(ref[k]).max())
+              for k in range(1, 7))
+    check(err < MAP_BOUND, f"lens map off the float64 host sums: {err:.3e}")
+    with tempfile.TemporaryDirectory() as tmp:
+        rt.cfg.OutputPath, rt.cfg.LensMapOrder = tmp, order
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cpath, rpath = rt._write_map_outputs()
+        write_s = time.perf_counter() - t0
+        sig = fits.read_fits(cpath)[1][1]["SIGNAL"]
+        rec = fits.read_fits(rpath)[1][1]
+        check(len(sig) == npix and len(rec) == npix
+              and np.array_equal(rec["N_RAYS"], ref[0].astype(np.int32))
+              and bool(np.isfinite(sig).all()),
+              "lens map FITS files do not read back")
+    return err, write_s, npix
+
+
+def check_probe(mode, shape, got, ref, errs):
+    """One probe output against its plain version; errs[mode] keeps the
+    largest absolute error."""
+    import torch
+
+    check(bool(torch.isfinite(ref).all()), f"probe {mode}: plain values "
+          f"not finite at {shape}")
+    rel = rel_err(got, ref)
+    err = float((got - ref).abs().max())
+    bound = PROBE_DOT_BOUND if mode == "dot" else PROBE_BOUND
+    say(f"P1 roofline_probe {mode} at {shape}: rel {rel:.3e} abs {err:.3e} "
+        f"(bound {bound:g})")
+    check(rel <= bound, f"probe {mode} off its plain version at {shape}: "
+          f"{rel:.3e}")
+    errs[mode] = max(errs.get(mode, 0.0), err)
+
+
+def probe_phase(dev, kernel_ms, plan):
+    """P1: every mode against its plain version at PROBE_CHECKS; then the
+    tool's ceilings() at its default shape (the path whose launches are
+    counted), each mode's plain version and, for dot, torch.bmm timed on
+    the same inputs, store and dot held to their plain versions there (the
+    recurrence overflows at that shape); the Legendre kernels' shares of
+    the rec and rec+store ceilings from their order-12 times `kernel_ms`
+    and the tool's element counts; the SASS check that the rec+store loop
+    keeps its stores."""
+    from calclens_tpu_torch.tools import cuda_ms
+    import torch
+    from calclens_tpu_torch import _ext
+    from calclens_tpu_torch.tools import roofline_legendre as R
+
+    errs = {}
+    for shape in PROBE_CHECKS:
+        geo = R.default_geo(shape["TJ"], dev)
+        for mode in R.MODES:
+            check_probe(mode, shape, R.probe_cuda(geo=geo, mode=mode, **shape),
+                        R.probe_plain(geo=geo, mode=mode, **shape), errs)
+    _ext.reset_launches()
+    ceil = R.ceilings(dev)
+    launches = _ext.launches["roofline_probe"]
+    check(launches > 0 and sum(_ext.launches.values()) == launches,
+          f"ceilings() launches {dict(_ext.launches)}")
+    sh = R.DEFAULT_SHAPE
+    geo = R.default_geo(sh["TJ"], dev)
+    plain_ms = {}
+    for mode in R.MODES:
+        ref, plain_ms[mode] = timed_once(
+            lambda m=mode: R.probe_plain(geo=geo, mode=m, **sh))
+        if mode in ("store", "dot"):
+            check_probe(mode, dict(sh), R.probe_cuda(geo=geo, mode=mode, **sh),
+                        ref, errs)
+        del ref
+    lib_ms = cuda_ms(lambda: R.dot_library(geo=geo, **sh), 3)
+    lib_err = rel_err(R.dot_library(geo=geo, **sh),
+                      R.probe_plain(geo=geo, mode="dot", **sh))
+    say(f"P1 dot: torch.bmm (FP32) {lib_ms:.3f} ms, rel {lib_err:.3e} from "
+        f"the plain version; plain ms per mode {plain_ms}")
+    elems = R.elements(**sh)
+    rows = sh["MT"] * sh["TM"]
+    out_bytes = {m: 4.0 * rows * sh["TJ"] * (R.DOT_COLS if m == "dot" else 1)
+                 + 4.0 * 5 * sh["TJ"] for m in R.MODES}
+    smem_peak = R.smem_peak_bytes_per_s()
+    check(smem_peak, "nvidia-smi gave no SM clock for the shared-memory peak")
+    modes = {}
+    for mode in R.MODES:
+        # the store modes also write 4 bytes per element into shared memory
+        limits = {"operations": elems * R.FLOPS[mode] / FP32_PEAK,
+                  "bytes": out_bytes[mode] / HBM_RATE,
+                  "shared memory": (4.0 * elems / smem_peak
+                                    if "store" in mode else 0.0)}
+        by = max(limits, key=limits.get)
+        modes[mode] = dict(
+            ms=ceil[mode]["ms"], plain_ms=plain_ms[mode],
+            bound_ms=1e3 * limits[by], bound_by=by,
+            library_ms=lib_ms if mode == "dot" else None,
+            max_abs_err=errs[mode])
+        say(f"P1 {mode}: {ceil[mode]['ms']:.4f} ms, bound "
+            f"{modes[mode]['bound_ms']:.4f} ms ({modes[mode]['bound_by']})")
+    counts = R.element_counts(plan)
+    sh_ = R.shares(kernel_ms, counts, ceil)
+    for name, (rate, s_rec, s_rs) in sh_.items():
+        say(f"order 12 {name}: {kernel_ms[name]:.2f} ms, {counts[name]:.4e} "
+            f"elements, {rate:.1f} G elem/s = {s_rec:.1%} of the rec "
+            f"ceiling, {s_rs:.1%} of rec+store")
+    ops = R.store_loop_check()
+    say(f"P1 rec+store loop SASS (cuobjdump): {ops}")
+    check(ops.get("STS", 0) >= ops.get("FADD", 1) > 0,
+          f"rec+store loop lost its stores: {ops}")
+    return dict(launches=launches, modes=modes, shares=sh_, shape=dict(sh))
+
+
+def gather_phase(dev):
+    """P2-P4 through the tool's run() at N = 2^23 (the path whose launches
+    are counted): each bit-exact against tab[idx], timed beside it."""
+    from calclens_tpu_torch import _ext
+    from calclens_tpu_torch.tools import exp_gather as G
+
+    _ext.reset_launches()
+    res = G.run(dev)
+    counts = dict(_ext.launches)
+    for name, r in res.items():
+        check(r["exact"], f"{name} differs from tab[idx]: max abs "
+              f"{r['max_abs_err']:.3e}")
+        check(counts[name] > 0, f"{name} was not launched: {counts}")
+        r["launches"] = counts[name]
+    return res
 
 
 def report_headline(label, h):
@@ -542,10 +815,23 @@ def main():
         check(max(errs) < TRACE_BOUND, f"CUDA trace ({synth}, {analysis}) "
               f"off the CPU trace: {errs}")
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run_err, run_counts = run_with_maps()
+    say(f"Raytracer.run order 7/6 f32, 8 planes, lens maps at LensMapOrder 4 "
+        f"after planes 1 and 2: card vs CPU files {run_err:.3e} (bound "
+        f"{TRACE_BOUND:g}), ray counts exact; card launches {run_counts} "
+        f"({time.perf_counter() - t0:.1f} s for both runs)")
+    torch.cuda.empty_cache()
 
     # 5. headline shape through Raytracer.step, default then variant
-    h = headline("k2", "k1", (2, 3, 4), snapshot_after=3)
+    h = headline("k2", "k1", (2, 3, 4), snapshot_after=3,
+                 maps_order=MAP_ORDER)
     report_headline("headline", h)
+    map_err, map_s, map_npix = h["maps"]
+    say(f"lens maps of the headline rays at LensMapOrder {MAP_ORDER} "
+        f"({map_npix} pixels): card vs float64 host sums {map_err:.3e} of "
+        f"each row's max (bound {MAP_BOUND:g}), counts exact; driver's map "
+        f"writer {map_s:.3f} s; Convergence_ and Rays_ FITS read back")
     torch.cuda.empty_cache()
     hv = headline("k3", "k4", (2, 3), snapshot_after=3)
     report_headline("variant headline (k3, k4)", hv)
@@ -621,6 +907,19 @@ def main():
            if "phi only" not in k}
     v12 = {k.split()[1]: v for k, v in rows12.items() if "phi only" not in k}
 
+    # 7. P1, the Legendre roofline probe; the kernels' shares of its
+    # ceilings from the order-12 times above (not timed again)
+    kernel_ms = {"legendre_analysis": k1[2], "legendre_synth": k2[2],
+                 **{k: v[2] for k, v in v12.items()}}
+    del alm, streams, ana
+    torch.cuda.empty_cache()
+    p1 = probe_phase(dev, kernel_ms, plan)
+    torch.cuda.empty_cache()
+
+    # 8. P2-P4, the gather probes, beside torch's tab[idx]
+    gathers = gather_phase(dev)
+    torch.cuda.empty_cache()
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, **extra):
         return dict(name=name, route="cuda",
                     source=f"calclens_tpu_torch/csrc/{source}",
@@ -654,6 +953,29 @@ def main():
               v12["legendre_analysis_dot"][2],
               v10["legendre_analysis_dot"][3], plain_order=10),
     ]
+    dot = p1["modes"]["dot"]
+    kernels.append(dict(
+        name="roofline_probe", route="cuda",
+        source="calclens_tpu_torch/csrc/roofline_probe.cu",
+        replaces="tools/roofline_legendre.py:63", launches=p1["launches"],
+        **{k: dot[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")},
+        mode="dot", modes=p1["modes"], shape=p1["shape"]))
+    for name, line in (("gather_rows", 67), ("gather_lanes", 96),
+                       ("gather_onehot", 125)):
+        g = gathers[name]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="calclens_tpu_torch/csrc/gather_probe.cu",
+            replaces=f"tools/exp_pallas_gather.py:{line}",
+            launches=g["launches"], max_abs_err=g["max_abs_err"],
+            ms=g["ms"], plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
+            bound_by="bytes", library_ms=g["library_ms"]))
+    for k in kernels:
+        k.setdefault("shares_of_ceilings", None)
+        if k["name"] in p1["shares"]:
+            _, s_rec, s_rs = p1["shares"][k["name"]]
+            k["shares_of_ceilings"] = dict(rec=s_rec, rec_store=s_rs)
     check(all(math.isfinite(k[f]) for k in kernels
               for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")),
           "non-finite kernel measurement")

@@ -71,6 +71,12 @@ def test_healpix_core_matches_jax(order):
                                   jhp.pix2vec_ring(pix, order))
     np.testing.assert_array_equal(thp.ring2nest(pix, order),
                                   jhp.ring2nest(pix, order))
+    np.testing.assert_array_equal(thp.nest2ring(pix, order),
+                                  jhp.nest2ring(pix, order))
+    for got, ref in zip(thp.nest2xyf(pix, order), jhp.nest2xyf(pix, order)):
+        np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(thp.JRLL, jhp.JRLL)
+    np.testing.assert_array_equal(thp.JPLL, jhp.JPLL)
 
 
 def _write_table(path, values):

@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels (K1, K2 with 16 and 4 columns, K3 in both
-forms, K4) against their plain PyTorch twins, on the card.  Marked `cuda`; each test skips (inside the `cuda_device` fixture)
-when torch sees no GPU.  Run on a machine with the card:
+forms, K4, the probes P1-P4) against their plain PyTorch twins, and the
+lens-map accumulation on the card against the CPU, on the card.  Marked
+`cuda`; each test skips (inside the `cuda_device` fixture) when torch sees
+no GPU.  Run on a machine with the card:
 
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest
 
@@ -16,9 +18,12 @@ import pytest
 import torch
 
 from calclens_tpu_torch import _ext
+from calclens_tpu_torch import maps as tmaps
 from calclens_tpu_torch.sht import legendre as TL
 from calclens_tpu_torch.sht import transforms as T
 from calclens_tpu_torch.sht.plan import SHTPlan
+from calclens_tpu_torch.tools import exp_gather as G
+from calclens_tpu_torch.tools import roofline_legendre as R
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-5
@@ -174,3 +179,82 @@ def test_kernels_refuse_float64_cuda_tensors(cuda_device):
                       device=cuda_device)
     with pytest.raises(TypeError, match="float32 only"):
         T.legendre_synthesis(plan, alm)
+
+
+# shapes at which the probe's recurrence stays finite: one m row per
+# 512-thread block with 8-degree refills (m < 128, 16 degrees); and the
+# layout that ceilings() times, two m rows per 256-ring block with
+# 128-degree refills, on two blocks of rows and two refills (m < 4, 256
+# degrees)
+PROBE_SHAPES = {"one-row": dict(MT=4, LBLK=2, LB=8, TM=32, TJ=512),
+                "timed-layout": dict(MT=2, LBLK=2, LB=128, TM=2, TJ=256)}
+
+
+@pytest.mark.parametrize("shape", PROBE_SHAPES)
+@pytest.mark.parametrize("mode", ["rec", "rec+store", "store", "dot"])
+def test_roofline_probe_matches_plain(cuda_device, mode, shape):
+    """P1 against its plain version: the kernel and the plain version round
+    every operation alike, bound 1e-6 of max |plain|; dot sums its FMAs in
+    another order, 1e-5."""
+    shape = PROBE_SHAPES[shape]
+    geo = R.default_geo(shape["TJ"], cuda_device)
+    before = _ext.launches["roofline_probe"]
+    got = R.probe(geo=geo, mode=mode, **shape)
+    torch.cuda.synchronize()
+    assert _ext.launches["roofline_probe"] == before + 1
+    ref = R.probe_plain(geo=geo, mode=mode, **shape)
+    assert got.shape == ref.shape and bool(torch.isfinite(ref).all())
+    assert _relerr(got, ref) <= (1e-5 if mode == "dot" else 1e-6)
+
+
+@pytest.mark.parametrize("mode", ["store", "dot"])
+def test_roofline_probe_matches_plain_at_default_shape(cuda_device, mode):
+    """The two modes whose values stay finite at the tool's default shape
+    (6.44e9 elements), against the plain version there: store exactly; dot
+    sums 8192 FMAs per output in another order, 1e-5."""
+    sh = R.DEFAULT_SHAPE
+    geo = R.default_geo(sh["TJ"], cuda_device)
+    got = R.probe(geo=geo, mode=mode, **sh)
+    ref = R.probe_plain(geo=geo, mode=mode, **sh)
+    assert got.shape == ref.shape
+    assert _relerr(got, ref) <= (1e-5 if mode == "dot" else 0.0)
+
+
+@pytest.mark.parametrize("name", ["gather_rows", "gather_lanes",
+                                  "gather_onehot"])
+def test_gather_kernels_bit_exact(cuda_device, name):
+    """P2-P4 equal torch's tab[idx] bit for bit, on a ragged count of
+    indices; an index outside the table gives a row of NaN."""
+    tab, idx = G.inputs(n=(1 << 16) + 17, seed=7, device=cuda_device)
+    idx[5] = -1
+    idx[9] = G.W
+    ok = torch.ones(len(idx), dtype=torch.bool, device=cuda_device)
+    ok[5] = ok[9] = False
+    before = _ext.launches[name]
+    if name == "gather_lanes":
+        got = G.gather_lanes(tab.T.contiguous(), idx).T
+    else:
+        got = getattr(G, name)(tab, idx)
+    torch.cuda.synchronize()
+    assert _ext.launches[name] == before + 1
+    assert torch.equal(got[ok], tab[idx[ok]])
+    assert bool(torch.isnan(got[~ok]).all())
+
+
+def test_lens_map_accumulation_on_the_card(cuda_device):
+    """The full-sky lens-map sums of a random f32 ray buffer on the card
+    against the same function on the CPU: counts exact, the rest within
+    1e-5 of each row's max (float32 sums of 4^4 children in another
+    order)."""
+    rng = np.random.default_rng(12)
+    order, map_order = 8, 4
+    npix = 12 * 4**order
+    packed = rng.normal(size=(21, npix)).astype(np.float32)
+    got = tmaps.accum_lens_map_packed(
+        torch.tensor(packed, device=cuda_device), None, order, map_order)
+    ref = tmaps.accum_lens_map_packed(torch.tensor(packed), None, order,
+                                      map_order)
+    got = got.cpu()
+    assert torch.equal(got[0], ref[0])
+    for k in range(1, 7):
+        assert _relerr(got[k], ref[k]) < 1e-5, k

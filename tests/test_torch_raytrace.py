@@ -258,7 +258,7 @@ def test_npz_restart_roundtrip_jax_port_jax(jax_tracer, tmp_path):
 @pytest.mark.parametrize("field,value,slice_no", [
     ("DepositScheme", "CIC", 6), ("DepositScheme", "SPH", 7),
     ("SHTOnly", False, 11), ("ThreeDPot", True, 12), ("minDec", 0.0, 6),
-    ("GalsFileList", "gals.txt", 8), ("MapRedshiftList", "z.txt", 5),
+    ("GalsFileList", "gals.txt", 8), ("DebugIO", True, 10),
     ("RayOutputName", "rays", 10), ("Profile", True, 10)])
 def test_out_of_slice_config_raises(field, value, slice_no):
     cfg = _trace_cfg(**{field: value})
