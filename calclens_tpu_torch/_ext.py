@@ -48,10 +48,10 @@ _SIGNATURES = {
     # nl, nm, J, stream
     "legendre_analysis_launch": "pppppppppp" + "iii" + "s",
     "legendre_analysis_dot_launch": "pppppppppp" + "iii" + "s",
-    # a_re, a_im, h_re, h_im, cth, ln_sth, logc, out, nl, nm, J, stream
-    "legendre_synth_launch": "pppppppp" + "iii" + "s",
-    # a_re, a_im, cth, ln_sth, logc, out, nl, nm, J, stream
-    "legendre_synth_phi_launch": "pppppp" + "iii" + "s",
+    # a_re, a_im, h_re, h_im, cth, ln_sth, logc, mcut, out, nl, nm, J, stream
+    "legendre_synth_launch": "ppppppppp" + "iii" + "s",
+    # a_re, a_im, cth, ln_sth, logc, mcut, out, nl, nm, J, stream
+    "legendre_synth_phi_launch": "ppppppp" + "iii" + "s",
     # a_re, a_im, cth, sth, cot, inv_sth, out, nl, nm, J, derivs, stream
     "legendre_synth_vpu_launch": "ppppppp" + "iiii" + "s",
     # geo, out, rows, TJ, LB, LBLK, mode, stream

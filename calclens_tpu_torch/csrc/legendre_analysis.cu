@@ -6,32 +6,46 @@
 //   alm[l, m] = sum_j lambda_lm(theta_j) * S_{l mod 2}[m, j]
 //
 // over the northern ring pairs j, where S0 = (m even ? E : O) and
-// S1 = (m even ? O : E) are the quadrature-folded even/odd ring-pair sums.
-// lambda_lm comes from the scaled three-term recurrence in l: the diagonal
-// seed lambda_mm is taken directly in log2 space (stored value in
-// [2^-32, 2^32) times 2^(64 k)), and a per-element scale counter k rescales
-// by 2^-64 whenever |p| > 2^32; lambda = p for k == 0, p * 2^-64 for
-// k == -1 and 0 below (the reference's plmgen rescaling and lmin cutoff).
-// Blocks whose m lies at or beyond the j-tile's turning-point cutoff mcut
-// (transforms.m_cutoff on the tile's largest sin theta) contribute nothing
-// and exit at once.
+// S1 = (m even ? O : E) are the quadrature-folded even/odd ring-pair sums,
+// i.e. E for even l - m and O for odd l - m.  lambda_lm comes from the
+// scaled three-term recurrence in l: the diagonal seed lambda_mm is taken
+// directly in log2 space (stored value in [2^-32, 2^32) times 2^(64 k)),
+// and a per-element scale counter k rescales by 2^-64 whenever |p| > 2^32;
+// lambda = p for k == 0, p * 2^-64 for k == -1 and 0 below (the
+// reference's plmgen rescaling and lmin cutoff).  Blocks whose m lies at or
+// beyond the j-tile's turning-point cutoff mcut (transforms.m_cutoff on the
+// tile's largest sin theta) contribute nothing and exit at once.
 //
-// What bounds it on the H100: per (l, m, j) the recurrence costs ~4 FP32
-// ops and the contraction 4 FMAs, but the sum runs over j, i.e. ACROSS
-// threads, once per degree l.  A per-l block reduction is the limit, not
-// memory: the inputs (E, O) are read once and alm is written once.
+// What bounds it on the H100: instruction issue.  The inputs (E, O) are
+// read once and alm is written once; per (l, m, j) element the function
+// needs the recurrence's 4 operations, rounded one by one as the twin
+// rounds them (no FMA), and 2 FMAs (re, im): 6 issue slots.  The sum runs
+// over j, across threads, so a cross-thread reduction comes on top.
 // Design: a block is one m times a 512-ring tile; each of its 128 threads
-// carries the recurrence of 4 rings in registers and sums their products
-// locally, so one warp-shuffle tree (5 steps for re and im) serves 4
-// rings.  The warps' partial sums for 128 degrees wait in shared memory
-// and are summed by one thread per degree; the 512-ring tiles of a degree
-// are combined with atomicAdd into the zeroed alm buffer.  So for J > 512
-// (HEALPix order >= 9) the order of the final f32 sums can change from run
-// to run and the last bits of alm with it; for J <= 512 the kernel is
-// deterministic.  The recurrence coefficients of 128 degrees are computed
-// once per block into shared memory instead of two square roots per degree
-// in every thread.  The triangular skip (no work for l < m) is the loop's
-// start at l = m.
+// carries the recurrence of 4 rings (one warp: 128 consecutive rings) in
+// registers and sums their products locally.
+//  - The seed row l == m is peeled off the loop; a warp then runs its
+//    degrees in groups of 16, each in one of three modes chosen by a vote
+//    after the previous group (legendre_common.cuh): the recurrence alone
+//    while every ring's lambda is 0 (scale k <= -2), then the careful
+//    recurrence (rescale test, scale factor), then, once all its rings are
+//    at k == 0, the bare 4-operation recurrence.  All three give the
+//    twin's bits.
+//  - Degrees are unrolled by 2, so E (even l - m) or O (odd) is chosen at
+//    compile time; the last chunk is padded with zero degrees.
+//  - The cross-thread sum is taken once per 16 degrees, not per degree:
+//    each thread stores its (re, im) partial of every degree in shared
+//    memory (rows padded so that both the stores and the float4 reads of
+//    the sum are free of bank conflicts), then 8 threads per degree sum the
+//    degree's 128 partials and 3 shuffles combine them.  The partials are
+//    double-buffered: one barrier per 16 degrees.
+//  - The 512-ring tiles of a degree are combined with atomicAdd into the
+//    zeroed alm buffer.  So for J > 512 (HEALPix order >= 9) the order of
+//    the final f32 sums can change from run to run and the last bits of alm
+//    with it; for J <= 512 the kernel is deterministic.
+//  - The recurrence coefficients of 128 degrees are computed once per block
+//    into shared memory instead of two square roots per degree in every
+//    thread.
 
 #include <cuda_runtime.h>
 
@@ -41,13 +55,83 @@ namespace {
 
 using calclens::coeffs;
 using calclens::diag_seed;
-using calclens::lam_step;
+using calclens::Mode;
+using calclens::rec_step;
+using calclens::rescale_rings;
+using calclens::seed_rings;
+using calclens::warp_mode;
 
-constexpr int kThreads = 128;                     // threads per block
-constexpr int kRingsPerThread = 4;
-constexpr int kTileJ = kThreads * kRingsPerThread;  // 512 rings: the mcut tile
-constexpr int kChunkL = 128;                      // degrees per shared chunk
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 128;                       // threads per block
+constexpr int kRings = 4;                           // rings per thread
+constexpr int kTileJ = kThreads * kRings;  // 512 rings: the mcut tile
+constexpr int kChunkL = kThreads;          // degrees per coefficient chunk
+constexpr int kRedL = 16;                  // degrees per cross-thread sum
+constexpr int kGroup = kRedL;  // degrees between two votes; divides kRedL
+// floats per degree row of the partials: kThreads (re, im) pairs + 16, so
+// the 8 threads that read one row in a quarter-warp hit distinct banks
+constexpr int kRedRow = 2 * kThreads + 16;
+constexpr int kRowVec = 2 * kThreads / 4;      // float4 of partials per row
+constexpr int kSumThreads = kThreads / kRedL;  // threads summing one degree
+
+struct Analysis {
+  float c[kRings], pp[kRings], pc[kRings], cf[kRings];
+  int k[kRings];
+  float er[kRings], ei[kRings], orr[kRings], oi[kRings];
+
+  // P = (l - m) mod 2: the degree's partial (re, im) of this thread's rings
+  template <int P>
+  __device__ __forceinline__ void store(const float (&lam)[kRings],
+                                        float* red) {
+    const float(&sr)[kRings] = P ? orr : er;
+    const float(&si)[kRings] = P ? oi : ei;
+    float pr = lam[0] * sr[0], pim = lam[0] * si[0];
+#pragma unroll
+    for (int q = 1; q < kRings; ++q) {
+      pr += lam[q] * sr[q];
+      pim += lam[q] * si[q];
+    }
+    *reinterpret_cast<float2*>(red) = make_float2(pr, pim);
+  }
+
+  template <int P, Mode kMode>
+  __device__ __forceinline__ void degree(float2 ab, float* red) {
+    rec_step(ab.x, ab.y, c, pp, pc);
+    if constexpr (kMode == Mode::kSteady) {
+      store<P>(pc, red);
+    } else {
+      rescale_rings(pp, pc, k, cf);
+      if constexpr (kMode == Mode::kCareful) {
+        float lam[kRings];
+#pragma unroll
+        for (int q = 0; q < kRings; ++q) lam[q] = __fmul_rn(pc[q], cf[q]);
+        store<P>(lam, red);
+      } else {  // every lambda is 0
+        *reinterpret_cast<float2*>(red) = make_float2(0.0f, 0.0f);
+      }
+    }
+  }
+
+  // degrees i .. i + kGroup - 1 (i even: degree i has P = 0) with
+  // coefficients coef[i..], partials into red rows 0 .. kGroup - 1; with
+  // kSeed, degree i is the seed row
+  template <Mode kMode, bool kSeed = false>
+  __device__ __forceinline__ void group(const float4* coef2, int i,
+                                        float* red, const float (&sv)[kRings],
+                                        const int (&sk)[kRings]) {
+#pragma unroll
+    for (int u = 0; u < kGroup; u += 2) {
+      const float4 ab = coef2[(i + u) / 2];  // degrees i + u, i + u + 1
+      if (kSeed && u == 0) {
+        float lam[kRings];
+        seed_rings(sv, sk, pp, pc, k, cf, lam);
+        store<0>(lam, red);
+      } else {
+        degree<0, kMode>(make_float2(ab.x, ab.y), red + u * kRedRow);
+      }
+      degree<1, kMode>(make_float2(ab.z, ab.w), red + (u + 1) * kRedRow);
+    }
+  }
+};
 
 __global__ void __launch_bounds__(kThreads)
 legendre_analysis_kernel(const float* __restrict__ ere,
@@ -65,86 +149,93 @@ legendre_analysis_kernel(const float* __restrict__ ere,
   const int m = blockIdx.y;
   if (m >= mcut[jt]) return;  // whole (m, tile) below f32 significance
 
-  __shared__ float coef_a[kChunkL];
-  __shared__ float coef_b[kChunkL];
-  __shared__ float red_re[kWarps][kChunkL];
-  __shared__ float red_im[kWarps][kChunkL];
+  __shared__ __align__(16) float2 coef[kChunkL];  // (a, b) per degree
+  __shared__ __align__(16) float red[2][kRedL][kRedRow];
 
   const int t = threadIdx.x;
   const int lane = t & 31;
-  const int warp = t >> 5;
   const float mf = static_cast<float>(m);
-  const bool m_even = (m & 1) == 0;
   const float logc_m = logc[m];
 
-  float s0r[kRingsPerThread], s0i[kRingsPerThread];
-  float s1r[kRingsPerThread], s1i[kRingsPerThread];
-  float c[kRingsPerThread], pp[kRingsPerThread], pc[kRingsPerThread];
-  float sv[kRingsPerThread];
-  int k[kRingsPerThread], sk[kRingsPerThread];
+  Analysis s;
+  float sv[kRings];
+  int sk[kRings];
 #pragma unroll
-  for (int q = 0; q < kRingsPerThread; ++q) {
-    const int j = jt * kTileJ + q * kThreads + t;
-    s0r[q] = s0i[q] = s1r[q] = s1i[q] = 0.0f;
-    c[q] = 0.0f;
+  for (int q = 0; q < kRings; ++q) {
+    // warp w holds rings 128 w .. 128 w + 127 of the tile
+    const int j = jt * kTileJ + (t >> 5) * (32 * kRings) + q * 32 + lane;
+    s.er[q] = s.ei[q] = s.orr[q] = s.oi[q] = 0.0f;
+    s.c[q] = 0.0f;
     sv[q] = 0.0f;
     sk[q] = 0;
     if (j < J) {
       const size_t o = static_cast<size_t>(m) * J + j;
-      const float er = ere[o], ei = eim[o], orr = ore[o], oi = oim[o];
-      s0r[q] = m_even ? er : orr;
-      s0i[q] = m_even ? ei : oi;
-      s1r[q] = m_even ? orr : er;
-      s1i[q] = m_even ? oi : ei;
-      c[q] = cth[j];
+      s.er[q] = ere[o];
+      s.ei[q] = eim[o];
+      s.orr[q] = ore[o];
+      s.oi[q] = oim[o];
+      s.c[q] = cth[j];
       diag_seed(logc_m, mf, ln_sth[j], sv[q], sk[q]);
     }
-    pp[q] = pc[q] = 0.0f;
-    k[q] = 0;
   }
 
+  // the cross-thread sum of one block of kRedL degrees: thread t sums
+  // every kSumThreads-th float4 of row t / kSumThreads
+  const int sum_row = t / kSumThreads;
+  const int sum_col = t % kSumThreads;
+
+  Mode mode = Mode::kCareful;
+  int buf = 0;
   for (int l0 = m; l0 < nl; l0 += kChunkL) {
+    __syncthreads();  // the previous chunk's coefficient readers are done
+    {
+      const int l = l0 + t;  // degrees past nl are staged as zeros
+      float a = 0.0f, b = 0.0f;
+      if (l < nl) coeffs(static_cast<float>(l), mf, a, b);
+      coef[t] = make_float2(a, b);
+    }
+    __syncthreads();
+    const float4* coef2 = reinterpret_cast<const float4*>(coef);
     const int nc = min(kChunkL, nl - l0);
-    __syncthreads();  // the previous chunk's readers are done
-    if (t < nc) {
-      coeffs(static_cast<float>(l0 + t), mf, coef_a[t], coef_b[t]);
-    }
-    __syncthreads();
-    for (int i = 0; i < nc; ++i) {
-      const int l = l0 + i;
-      const float a = coef_a[i];
-      const float b = coef_b[i];
-      const bool odd = (l & 1) != 0;
-      float pr = 0.0f, pim = 0.0f;
-#pragma unroll
-      for (int q = 0; q < kRingsPerThread; ++q) {
-        // l == m is the diagonal seed row (a block-uniform branch)
-        const float lam = lam_step(l == m, a, b, c[q], sv[q], sk[q], pp[q],
-                                   pc[q], k[q]);
-        pr += lam * (odd ? s1r[q] : s0r[q]);
-        pim += lam * (odd ? s1i[q] : s0i[q]);
+    for (int s0 = 0; s0 < nc; s0 += kRedL) {
+#pragma unroll 1
+      for (int g = 0; g < kRedL; g += kGroup) {  // once, as built
+        float* rg = &red[buf][g][2 * t];
+        if (l0 == m && s0 + g == 0) {
+          s.group<Mode::kCareful, true>(coef2, 0, rg, sv, sk);
+          mode = warp_mode(s.cf);
+        } else if (mode == Mode::kSteady) {
+          s.group<Mode::kSteady>(coef2, s0 + g, rg, sv, sk);
+        } else {
+          if (mode == Mode::kZero) {
+            s.group<Mode::kZero>(coef2, s0 + g, rg, sv, sk);
+          } else {
+            s.group<Mode::kCareful>(coef2, s0 + g, rg, sv, sk);
+          }
+          mode = warp_mode(s.cf);
+        }
       }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        pr += __shfl_xor_sync(0xffffffffu, pr, off);
-        pim += __shfl_xor_sync(0xffffffffu, pim, off);
-      }
-      if (lane == 0) {
-        red_re[warp][i] = pr;
-        red_im[warp][i] = pim;
-      }
-    }
-    __syncthreads();
-    if (t < nc) {
+      __syncthreads();  // the partials of these kRedL degrees are stored
+      const float4* row =
+          reinterpret_cast<const float4*>(&red[buf][sum_row][0]);
       float sr = 0.0f, si = 0.0f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        sr += red_re[w][t];
-        si += red_im[w][t];
+      for (int v = sum_col; v < kRowVec; v += kSumThreads) {
+        const float4 x = row[v];
+        sr += x.x + x.z;
+        si += x.y + x.w;
       }
-      const size_t o = static_cast<size_t>(m) * nl + l0 + t;
-      atomicAdd(alm_re + o, sr);
-      atomicAdd(alm_im + o, si);
+#pragma unroll
+      for (int off = kSumThreads / 2; off > 0; off >>= 1) {
+        sr += __shfl_xor_sync(0xffffffffu, sr, off);
+        si += __shfl_xor_sync(0xffffffffu, si, off);
+      }
+      if (sum_col == 0 && s0 + sum_row < nc) {
+        const size_t o = static_cast<size_t>(m) * nl + l0 + s0 + sum_row;
+        atomicAdd(alm_re + o, sr);
+        atomicAdd(alm_im + o, si);
+      }
+      buf ^= 1;  // the next block of partials goes to the other buffer
     }
   }
 }

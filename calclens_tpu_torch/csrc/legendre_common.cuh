@@ -97,4 +97,90 @@ __device__ __forceinline__ float lam_step(bool seed_row, float a, float b,
   return __fmul_rn(nw, corfac(k));
 }
 
+// ---------------------------------------------------------------------------
+// lam_step split for K1 and K2, whose threads carry R rings each.  Together
+// the steps below give lam_step's bits; a kernel peels the seed row
+// (l == m) off its loop, so no degree of the loop tests for it.
+//
+// The scale factor cf = corfac(k) is kept per ring and recomputed only when
+// k changes.  A warp runs its degrees in one of three modes, chosen by a
+// vote every few degrees (warp_mode); k only grows, so a warp goes from
+// zero to careful to steady:
+//  - zero: cf == 0 (k <= -2) on every ring of the warp, so lambda == 0 and
+//    the sums are left alone: only the recurrence and its rescale;
+//  - careful: lam_step's rescale test and lambda = value * cf;
+//  - steady: cf == 1 (k == 0) on every ring: lambda == p exactly, and the
+//    rescale cannot fire because |lambda_lm| <= sqrt((2l+1)/(4 pi)) < 2^6
+//    << 2^32, so the bare rec_step (the TPU kernel's "steady" sweep,
+//    calclens_tpu/sht/pallas_legendre_mx.py:224-239).
+// ---------------------------------------------------------------------------
+
+enum class Mode { kZero, kCareful, kSteady };
+
+// The seed row of R rings: state from the diagonal seeds (sv, sk); returns
+// lambda_mm in lam.
+template <int R>
+__device__ __forceinline__ void seed_rings(const float (&sv)[R],
+                                           const int (&sk)[R], float (&pp)[R],
+                                           float (&pc)[R], int (&k)[R],
+                                           float (&cf)[R], float (&lam)[R]) {
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    pp[q] = 0.0f;
+    pc[q] = sv[q];  // in [2^-32, 2^32): no rescale
+    k[q] = sk[q];
+    cf[q] = corfac(sk[q]);
+    lam[q] = __fmul_rn(sv[q], cf[q]);
+  }
+}
+
+// One degree of the bare recurrence on R rings:
+// pc <- a (c pc - b pp), pp <- old pc, rounded op by op as lam_step.
+template <int R>
+__device__ __forceinline__ void rec_step(float a, float b, const float (&c)[R],
+                                         float (&pp)[R], float (&pc)[R]) {
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const float nw =
+        __fmul_rn(a, __fsub_rn(__fmul_rn(c[q], pc[q]), __fmul_rn(b, pp[q])));
+    pp[q] = pc[q];
+    pc[q] = nw;
+  }
+}
+
+// lam_step's 2^-64 rescale after rec_step, for a ring whose |value|
+// exceeds 2^32: one test of the largest |value|, then a branch that is
+// rarely taken.
+template <int R>
+__device__ __forceinline__ void rescale_rings(float (&pp)[R], float (&pc)[R],
+                                              int (&k)[R], float (&cf)[R]) {
+  float big = fabsf(pc[0]);
+#pragma unroll
+  for (int q = 1; q < R; ++q) big = fmaxf(big, fabsf(pc[q]));
+  if (big > kThBig) {
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      if (fabsf(pc[q]) > kThBig) {
+        pc[q] = __fmul_rn(pc[q], kResc);
+        pp[q] = __fmul_rn(pp[q], kResc);
+        ++k[q];
+        cf[q] = corfac(k[q]);
+      }
+    }
+  }
+}
+
+// The mode of the warp's next degrees (the same on every lane).
+template <int R>
+__device__ __forceinline__ Mode warp_mode(const float (&cf)[R]) {
+  bool one = true, zero = true;
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    one = one && cf[q] == 1.0f;
+    zero = zero && cf[q] == 0.0f;
+  }
+  if (__all_sync(0xffffffffu, one)) return Mode::kSteady;
+  return __all_sync(0xffffffffu, zero) ? Mode::kZero : Mode::kCareful;
+}
+
 }  // namespace calclens

@@ -14,24 +14,42 @@
 // m^2/sin^2 factors turn the columns into (qN, qS).  lambda_lm comes from
 // the same scaled recurrence as the analysis kernel: diagonal seed in log2
 // space, 2^-64 rescale with a scale counter, lambda = 0 below 2^-64 of the
-// stored scale.
+// stored scale.  (m, ring) pairs at or beyond the turning-point cutoff of
+// their 128-ring tile (mcut, transforms.m_cutoff on the tile's largest
+// sin theta) are below float32 significance: their columns are written as 0.
 //
-// What bounds it on the H100: FP32 arithmetic.  Per (l, m, j) the
-// recurrence costs ~4 ops and the columns 8 FMAs (16 columns) or 2 (4
-// columns): even and odd degrees are summed apart, so the (-1)^l columns are
-// a difference at the end.  Nothing is reduced across threads and the
-// output is written once.  The contraction stays in plain FP32 FMA on the
-// CUDA cores: the summed-by-parts streams cancel by ~1/l after the
-// cot / (1/sin) combination, which TF32 tensor-core inputs (10-bit
-// mantissa) would turn into O(1) errors at high l.
-// Design: one thread per (m, ring pair j), a block is one m times 128 rings.
-// The block stages 128 degrees of its m's alm streams, pre-multiplied by l
-// and l(l+1), together with the recurrence coefficients in shared memory
-// (three float4 broadcast loads per degree, one for the potential alone), so
-// a thread's inner loop is the recurrence plus the FMAs into register
-// accumulators.  The triangular skip (no work for l < m) is the loop's start
-// at l = m; blocks of small m (the longest) are launched first.  The column
-// count is a template parameter: one source, two launchers, two counters.
+// What bounds it on the H100: instruction issue.  Nothing is reduced across
+// threads, the output is written once and the inputs are small, so the
+// limit is the issue slots of each (l, m, j) element: the recurrence, whose
+// 4 operations stay rounded one by one (__fmul_rn / __fsub_rn, as the twin
+// rounds them; no FMA), and the column FMAs, 8 (16 columns) or 2 (4
+// columns): 12 or 6 slots at least.  The contraction stays in plain FP32 on
+// the CUDA cores: the summed-by-parts streams cancel by ~1/l after the
+// cot / (1/sin) combination, which TF32 inputs would turn into O(1) errors.
+//
+// Design, to spend the slots on that arithmetic and little else:
+//  - each thread carries kRings = 4 rings, so the shared-memory loads of a
+//    degree's streams and coefficients (three float4 broadcasts, one for the
+//    potential alone) and the loop's own instructions serve 4 rings;
+//  - a block is one m times 512 rings, four warps of 128 consecutive rings;
+//    the block stages 128 degrees of its m's streams, pre-multiplied by l
+//    and l(l+1), with the recurrence coefficients in shared memory;
+//  - the seed row l == m is peeled off the loop; after it a warp runs its
+//    degrees in groups of 8 (16 for the 4 columns) in one of three modes,
+//    chosen by a vote after each group (legendre_common.cuh): while every
+//    ring's lambda is 0 (scale k <= -2) the recurrence alone, without the
+//    column FMAs; then the careful recurrence (rescale test, scale factor);
+//    once every ring of the warp is at k == 0 the bare 4-operation
+//    recurrence.  All three give the twin's bits;
+//  - degrees are unrolled by 2, so the even and odd sums are chosen at
+//    compile time (the (-1)^l columns are their difference at the end);
+//    the last chunk is padded with zero degrees to a whole group;
+//  - the m cutoff is per warp: a warp whose 128-ring tile lies beyond its
+//    cutoff writes zeros and skips the sweep (a block with no warp left
+//    skips the staging too); blocks of small m (the longest) are launched
+//    first.
+// The column count is a template parameter: one source, two launchers, two
+// counters.
 
 #include <cuda_runtime.h>
 
@@ -41,12 +59,101 @@ namespace {
 
 using calclens::coeffs;
 using calclens::diag_seed;
-using calclens::lam_step;
+using calclens::Mode;
+using calclens::rec_step;
+using calclens::rescale_rings;
+using calclens::seed_rings;
+using calclens::warp_mode;
 
-constexpr int kThreads = 128;  // rings per block, one per thread
-constexpr int kChunkL = 128;   // degrees per shared chunk (== kThreads)
+constexpr int kRings = 4;                 // rings per thread
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTileJ = 32 * kRings;       // rings per warp: the mcut tile
+constexpr int kBlockJ = kWarps * kTileJ;  // rings per block
+constexpr int kChunkL = kThreads;         // degrees per shared chunk
 
 // kStreams = 8 (16 columns, with derivatives) or 2 (4 columns, potential)
+template <int kStreams>
+struct Synth {
+  static constexpr int kVec = kStreams == 8 ? 3 : 1;  // float4 per degree
+  // degrees between two votes: 16 for the 4 columns; 8 for the 16, whose
+  // 16-degree group took 129 registers and ran slower
+  static constexpr int kGroup = kStreams == 8 ? 8 : 16;
+
+  float c[kRings], pp[kRings], pc[kRings], cf[kRings];
+  int k[kRings];
+  float acc[2][kRings][kStreams];  // [(l - m) mod 2][ring][stream]
+
+  // s: the degree's staged float4s; P = (l - m) mod 2
+  template <int P>
+  __device__ __forceinline__ void add(const float4* s,
+                                      const float (&lam)[kRings]) {
+    const float4 s0 = s[0];
+#pragma unroll
+    for (int q = 0; q < kRings; ++q) {
+      acc[P][q][0] += s0.z * lam[q];
+      acc[P][q][1] += s0.w * lam[q];
+    }
+    if constexpr (kStreams == 8) {
+      const float4 s1 = s[1];
+      const float4 s2 = s[2];
+#pragma unroll
+      for (int q = 0; q < kRings; ++q) {
+        acc[P][q][2] += s1.x * lam[q];
+        acc[P][q][3] += s1.y * lam[q];
+        acc[P][q][4] += s1.z * lam[q];
+        acc[P][q][5] += s1.w * lam[q];
+        acc[P][q][6] += s2.x * lam[q];
+        acc[P][q][7] += s2.y * lam[q];
+      }
+    }
+  }
+
+  template <int P, Mode kMode>
+  __device__ __forceinline__ void degree(const float4* s) {
+    const float4 s0 = s[0];
+    rec_step(s0.x, s0.y, c, pp, pc);
+    if constexpr (kMode == Mode::kSteady) {
+      add<P>(s, pc);
+    } else {
+      rescale_rings(pp, pc, k, cf);
+      if constexpr (kMode == Mode::kCareful) {
+        float lam[kRings];
+#pragma unroll
+        for (int q = 0; q < kRings; ++q) lam[q] = __fmul_rn(pc[q], cf[q]);
+        add<P>(s, lam);
+      }
+    }
+  }
+
+  // degrees i .. i + kGroup - 1 of the chunk sh [kChunkL][kVec]; i even,
+  // so degree i has P = 0
+  template <Mode kMode>
+  __device__ __forceinline__ void group(const float4* sh, int i) {
+    const float4* g = sh + i * kVec;
+#pragma unroll
+    for (int u = 0; u < kGroup; u += 2) {
+      degree<0, kMode>(g + u * kVec);
+      degree<1, kMode>(g + (u + 1) * kVec);
+    }
+  }
+
+  // the first group of the first chunk: the seed row l == m, then careful
+  __device__ __forceinline__ void seed_group(const float4* sh,
+                                             const float (&sv)[kRings],
+                                             const int (&sk)[kRings]) {
+    float lam[kRings];
+    seed_rings(sv, sk, pp, pc, k, cf, lam);
+    add<0>(sh, lam);
+    degree<1, Mode::kCareful>(sh + kVec);
+#pragma unroll
+    for (int u = 2; u < kGroup; u += 2) {
+      degree<0, Mode::kCareful>(sh + u * kVec);
+      degree<1, Mode::kCareful>(sh + (u + 1) * kVec);
+    }
+  }
+};
+
 template <int kStreams>
 __global__ void __launch_bounds__(kThreads)
 legendre_synth_kernel(const float* __restrict__ a_re,  // [nm, nl]
@@ -56,81 +163,105 @@ legendre_synth_kernel(const float* __restrict__ a_re,  // [nm, nl]
                       const float* __restrict__ cth,
                       const float* __restrict__ ln_sth,
                       const float* __restrict__ logc,
-                      float* __restrict__ out,  // [nm, 2 kStreams, J]
+                      const int* __restrict__ mcut,  // [ceil(J / kTileJ)]
+                      float* __restrict__ out,       // [nm, 2 kStreams, J]
                       int nl, int J) {
-  constexpr int kVec = kStreams == 8 ? 3 : 1;
+  using S = Synth<kStreams>;
+  constexpr int kVec = S::kVec;
+  constexpr int kGroup = S::kGroup;
   __shared__ float4 sh[kChunkL][kVec];
 
   const int t = threadIdx.x;
-  const int j = blockIdx.x * kThreads + t;
+  const int lane = t & 31;
+  const int tile = blockIdx.x * kWarps + (t >> 5);
   const int m = blockIdx.y;
+  const int j0 = tile * kTileJ + lane;  // ring q of the thread: j0 + 32 q
+  const bool active = j0 - lane < J && m < mcut[tile];
+  // a block with no active warp skips the sweep and writes zeros
+  const int l_end = __syncthreads_or(active) ? nl : m;
+
   const float mf = static_cast<float>(m);
   const size_t row = static_cast<size_t>(m) * nl;
-
-  float c = 0.0f, sv = 0.0f;
-  int sk = 0;
-  if (j < J) {
-    c = cth[j];
-    diag_seed(logc[m], mf, ln_sth[j], sv, sk);
-  }
-  float pp = 0.0f, pc = 0.0f;
-  int k = 0;
-  float ev[kStreams], od[kStreams];
+  S s;
+  float sv[kRings];
+  int sk[kRings];
 #pragma unroll
-  for (int i = 0; i < kStreams; ++i) ev[i] = od[i] = 0.0f;
+  for (int q = 0; q < kRings; ++q) {
+    const int j = j0 + 32 * q;
+    s.c[q] = 0.0f;
+    sv[q] = 0.0f;
+    sk[q] = 0;
+    if (active && j < J) {
+      s.c[q] = cth[j];
+      diag_seed(logc[m], mf, ln_sth[j], sv[q], sk[q]);
+    }
+#pragma unroll
+    for (int i = 0; i < kStreams; ++i) {
+      s.acc[0][q][i] = s.acc[1][q][i] = 0.0f;
+    }
+  }
 
-  for (int l0 = m; l0 < nl; l0 += kChunkL) {
-    const int nc = min(kChunkL, nl - l0);
+  Mode mode = Mode::kCareful;
+  for (int l0 = m; l0 < l_end; l0 += kChunkL) {
     __syncthreads();  // the previous chunk's readers are done
-    if (t < nc) {
-      const int l = l0 + t;
-      const float lf = static_cast<float>(l);
-      float ca, cb;
-      coeffs(lf, mf, ca, cb);
-      const float ar = a_re[row + l], ai = a_im[row + l];
-      sh[t][0] = make_float4(ca, cb, ar, ai);
+    {
+      const int l = l0 + t;  // degrees past nl are staged as zeros
+      float4 v0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), v1 = v0, v2 = v0;
+      if (l < nl) {
+        const float lf = static_cast<float>(l);
+        float ca, cb;
+        coeffs(lf, mf, ca, cb);
+        const float ar = a_re[row + l], ai = a_im[row + l];
+        v0 = make_float4(ca, cb, ar, ai);
+        if constexpr (kStreams == 8) {
+          const float l2 = __fmul_rn(lf, lf + 1.0f);
+          v1 = make_float4(__fmul_rn(ar, lf), __fmul_rn(ai, lf),
+                           h_re[row + l], h_im[row + l]);
+          v2 = make_float4(__fmul_rn(ar, l2), __fmul_rn(ai, l2), 0.0f, 0.0f);
+        }
+      }
+      sh[t][0] = v0;
       if constexpr (kStreams == 8) {
-        const float hr = h_re[row + l], hi = h_im[row + l];
-        const float l2 = __fmul_rn(lf, lf + 1.0f);
-        sh[t][1] = make_float4(__fmul_rn(ar, lf), __fmul_rn(ai, lf), hr, hi);
-        sh[t][2] = make_float4(__fmul_rn(ar, l2), __fmul_rn(ai, l2), 0.0f,
-                               0.0f);
+        sh[t][1] = v1;
+        sh[t][2] = v2;
       }
     }
     __syncthreads();
-    for (int i = 0; i < nc; ++i) {
-      const int l = l0 + i;
-      const float4 s0 = sh[i][0];
-      // l == m is the diagonal seed row (a block-uniform branch)
-      const float lam = lam_step(l == m, s0.x, s0.y, c, sv, sk, pp, pc, k);
-      if (l & 1) {
-        od[0] += s0.z * lam; od[1] += s0.w * lam;
-        if constexpr (kStreams == 8) {
-          const float4 s1 = sh[i][1];
-          const float4 s2 = sh[i][2];
-          od[2] += s1.x * lam; od[3] += s1.y * lam;
-          od[4] += s1.z * lam; od[5] += s1.w * lam;
-          od[6] += s2.x * lam; od[7] += s2.y * lam;
-        }
+    if (!active) continue;  // warp-uniform
+    const int nc = min(kChunkL, nl - l0);
+    int i = 0;
+    if (l0 == m) {
+      s.seed_group(&sh[0][0], sv, sk);
+      mode = warp_mode(s.cf);
+      i = kGroup;
+    }
+    for (; i < nc; i += kGroup) {
+      if (mode == Mode::kSteady) {
+        s.template group<Mode::kSteady>(&sh[0][0], i);
       } else {
-        ev[0] += s0.z * lam; ev[1] += s0.w * lam;
-        if constexpr (kStreams == 8) {
-          const float4 s1 = sh[i][1];
-          const float4 s2 = sh[i][2];
-          ev[2] += s1.x * lam; ev[3] += s1.y * lam;
-          ev[4] += s1.z * lam; ev[5] += s1.w * lam;
-          ev[6] += s2.x * lam; ev[7] += s2.y * lam;
+        if (mode == Mode::kZero) {
+          s.template group<Mode::kZero>(&sh[0][0], i);
+        } else {
+          s.template group<Mode::kCareful>(&sh[0][0], i);
         }
+        mode = warp_mode(s.cf);
       }
     }
   }
-  if (j < J) {
-    float* o = out + static_cast<size_t>(m) * (2 * kStreams) * J + j;
+
+  // even-l sums are the (l - m)-even ones for even m, the odd ones for odd
+  // m; a warp beyond its cutoff writes its zeros
+  const bool m_odd = (m & 1) != 0;
+  float* o = out + static_cast<size_t>(m) * (2 * kStreams) * J;
+#pragma unroll
+  for (int q = 0; q < kRings; ++q) {
+    const int j = j0 + 32 * q;
+    if (j >= J) continue;
 #pragma unroll
     for (int i = 0; i < kStreams; ++i) {
-      o[static_cast<size_t>(i) * J] = ev[i] + od[i];  // sum_l s lam
-      o[static_cast<size_t>(i + kStreams) * J] =
-          ev[i] - od[i];  // sum_l (-1)^l s lam
+      const float e = s.acc[0][q][i], d = s.acc[1][q][i];
+      o[static_cast<size_t>(i) * J + j] = e + d;
+      o[static_cast<size_t>(i + kStreams) * J + j] = m_odd ? d - e : e - d;
     }
   }
 }
@@ -138,33 +269,34 @@ legendre_synth_kernel(const float* __restrict__ a_re,  // [nm, nl]
 template <int kStreams>
 int launch(const float* a_re, const float* a_im, const float* h_re,
            const float* h_im, const float* cth, const float* ln_sth,
-           const float* logc, float* out, int nl, int nm, int J,
-           void* stream) {
-  const dim3 grid((J + kThreads - 1) / kThreads, nm);
+           const float* logc, const int* mcut, float* out, int nl, int nm,
+           int J, void* stream) {
+  const dim3 grid((J + kBlockJ - 1) / kBlockJ, nm);
   legendre_synth_kernel<kStreams>
       <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          a_re, a_im, h_re, h_im, cth, ln_sth, logc, out, nl, J);
+          a_re, a_im, h_re, h_im, cth, ln_sth, logc, mcut, out, nl, J);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Streams a_re, a_im, h_re, h_im [nm, nl] (TRANSPOSED alm); cth, ln_sth [J];
-// logc [nm]; out [nm, 16, J].  Returns cudaGetLastError() after the launch.
+// logc [nm]; mcut [ceil(J / 128)] int32; out [nm, 16, J].  Returns
+// cudaGetLastError() after the launch.
 extern "C" int legendre_synth_launch(
     const float* a_re, const float* a_im, const float* h_re, const float* h_im,
-    const float* cth, const float* ln_sth, const float* logc, float* out,
-    int nl, int nm, int J, void* stream) {
-  return launch<8>(a_re, a_im, h_re, h_im, cth, ln_sth, logc, out, nl, nm, J,
-                   stream);
+    const float* cth, const float* ln_sth, const float* logc, const int* mcut,
+    float* out, int nl, int nm, int J, void* stream) {
+  return launch<8>(a_re, a_im, h_re, h_im, cth, ln_sth, logc, mcut, out, nl,
+                   nm, J, stream);
 }
 
 // The potential alone: a_re, a_im [nm, nl]; out [nm, 4, J] = {a_re, a_im}
 // summed with weight 1, then with (-1)^l.
 extern "C" int legendre_synth_phi_launch(
     const float* a_re, const float* a_im, const float* cth,
-    const float* ln_sth, const float* logc, float* out, int nl, int nm,
-    int J, void* stream) {
-  return launch<2>(a_re, a_im, nullptr, nullptr, cth, ln_sth, logc, out, nl,
-                   nm, J, stream);
+    const float* ln_sth, const float* logc, const int* mcut, float* out,
+    int nl, int nm, int J, void* stream) {
+  return launch<2>(a_re, a_im, nullptr, nullptr, cth, ln_sth, logc, mcut,
+                   out, nl, nm, J, stream);
 }

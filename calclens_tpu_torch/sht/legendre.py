@@ -9,15 +9,16 @@ Analysis, alm[l, m] = sum_j lambda_lm(theta_j) S_{l mod 2}[m, j]:
 Synthesis, sum_l lambda_lm(theta_j) s(l, m) per ring pair:
   * K2 (csrc/legendre_synth.cu; replaces pallas_legendre_mx.py::
     _synth_mx_kernel), the default: 16 raw columns with derivatives (the
-    d_theta recurrence summed by parts), or 4 for the potential alone;
+    d_theta recurrence summed by parts), or 4 for the potential alone, 0
+    beyond the per-tile turning-point cutoff;
   * K3 (csrc/legendre_synth_vpu.cu; replaces pallas_legendre.py::
     _synth_kernel): l-parity buckets of a lambda, lambda' and lambda''
     formed per degree, with lambda_mm seeded by a chain of products.
 
 Each kernel has a plain PyTorch twin here: a Python loop over l on
 [rows, J] tensors that computes the kernel's own math (the diagonal seed,
-the 2^64 scale counter, the per-j-tile turning-point cutoff of the
-analysis) with the same float32 roundings, op for op, as the kernels'
+the 2^64 scale counter, the per-j-tile turning-point cutoffs of K1, K2
+and K4) with the same float32 roundings, op for op, as the kernels'
 recurrence (csrc/legendre_common.cuh): near the poles the recurrence
 amplifies a rounding difference by up to ~1/sin(theta), so only an
 evaluation that rounds alike can be held to float32 accuracy.  A twin
@@ -42,8 +43,10 @@ _LOG2E = 1.4426950408889634
 _HALF_LN_4PI = 1.2655121234846454  # 0.5 * ln(4 pi)
 _Y00 = 0.28209479177387814  # lambda_00 = 1 / sqrt(4 pi)
 
-# rings per analysis block: the kernels' tile, and the unit of their m cutoff
+# rings per analysis block: K1's and K4's tile, and the unit of their m cutoff
 ANALYSIS_TILE_J = 512
+# rings per warp of K2: the unit of its m cutoff
+SYNTH_TILE_J = 128
 # degrees whose lambda K4 stores before each contraction
 DOT_BLOCK_L = 16
 
@@ -198,27 +201,38 @@ def _launch(name, symbol, device, *args):
 # analysis: K1 and K4
 # ----------------------------------------------------------------------------
 
-def analysis_mcut(sth_host, nl: int, nm: int):
-    """Per-j-tile turning-point cutoff (int32 [ceil(J / 512)]): m >= mcut
-    contributes nothing to the tile's rings (transforms.m_cutoff at
+def tile_mcut(sth_host, nl: int, nm: int, tile_j: int):
+    """Per-j-tile turning-point cutoff (int32 [ceil(J / tile_j)]): m >=
+    mcut contributes nothing to the tile's rings (transforms.m_cutoff at
     granularity 1 on the tile's largest sin theta)."""
     from .transforms import m_cutoff
 
     sth = np.asarray(sth_host, np.float64)
-    T = ANALYSIS_TILE_J
-    return np.array([m_cutoff(nl - 1, float(np.max(sth[t: t + T])), nm,
-                              granularity=1) for t in range(0, len(sth), T)],
-                    dtype=np.int32)
+    return np.array([m_cutoff(nl - 1, float(np.max(sth[t: t + tile_j])), nm,
+                              granularity=1)
+                     for t in range(0, len(sth), tile_j)], dtype=np.int32)
+
+
+def analysis_mcut(sth_host, nl: int, nm: int):
+    """K1's and K4's cutoff: tile_mcut on their 512-ring tiles."""
+    return tile_mcut(sth_host, nl, nm, ANALYSIS_TILE_J)
+
+
+def synth_mcut(sth_host, nl: int, nm: int):
+    """K2's cutoff: tile_mcut on its 128-ring tiles."""
+    return tile_mcut(sth_host, nl, nm, SYNTH_TILE_J)
+
+
+def _below_cut(mcut, m, J: int, tile_j: int):
+    """[rows, J] bool: row m lies below the cutoff of ring j's tile."""
+    tile_cut = torch.as_tensor(mcut, device=m.device).long()
+    return m[:, None] < tile_cut.repeat_interleave(tile_j)[None, :J]
 
 
 def _analysis_sources(ere, eim, ore, oim, mcut, m, tile_j):
     """Parity-resolved sources S0 = (m even ? E : O), S1 = (m even ? O : E)
     (re, im) with every (m, j) beyond its ring tile's cutoff zeroed."""
-    J = ere.shape[1]
-    dev = ere.device
-    tile_cut = torch.as_tensor(mcut, device=dev).long()
-    jcut = tile_cut.repeat_interleave(tile_j)[:J]
-    keep = (m[:, None] < jcut[None, :]).to(ere.dtype)
+    keep = _below_cut(mcut, m, ere.shape[1], tile_j).to(ere.dtype)
     m_even = (m % 2 == 0)[:, None]
     return (torch.where(m_even, ere, ore) * keep,
             torch.where(m_even, eim, oim) * keep,
@@ -324,14 +338,13 @@ def analysis_dot_columns(ere, eim, ore, oim, cth, ln_sth, logc, mcut,
 def analysis_inputs(plan, E, O):
     """Kernel-ready K1 / K4 inputs from the folded ring-pair sums E, O
     [nm, J] (complex): contiguous real/imaginary planes, geometry rows, the
-    seed table and the per-tile cutoff.  No padding: the kernels mask the
-    ragged j edge themselves."""
+    seed table and the per-tile cutoff (cached on the plan).  No padding:
+    the kernels mask the ragged j edge themselves."""
     rdt = plan.dtype
     planes = [x.contiguous() for x in (E.real.to(rdt), E.imag.to(rdt),
                                        O.real.to(rdt), O.imag.to(rdt))]
-    mcut = torch.as_tensor(analysis_mcut(plan.sth_host, plan.nl, plan.nm),
-                           device=E.device)
-    return (*planes, plan.cth, plan.ln_sth, plan.logc, mcut)
+    return (*planes, plan.cth, plan.ln_sth, plan.logc,
+            plan.mcut(ANALYSIS_TILE_J))
 
 
 # ----------------------------------------------------------------------------
@@ -363,17 +376,21 @@ def mx_prep(nl: int, nm: int, alm, dtype, derivs: bool = True):
     return tuple(x.T.contiguous() for x in (ar, ai, hr, hi))
 
 
-def synth_plain(streams, cth, ln_sth, logc, m=None):
+def synth_plain(streams, cth, ln_sth, logc, mcut=None, m=None,
+                tile_j: int = SYNTH_TILE_J):
     """K2's twin.  streams: the 4 derivative planes or the 2 a-planes of
-    mx_prep [rows, nl]; cth, ln_sth [J]; logc [rows].  Returns the raw
-    columns [rows, ncol, J], ncol = 16 or 4: the streams {a, l a, h,
-    l(l+1) a} x {re, im} (or {a} x {re, im}) summed with weight 1 (first
-    half) and (-1)^l (second half)."""
+    mx_prep [rows, nl]; cth, ln_sth [J]; logc [rows]; mcut int32
+    [ceil(J / tile_j)] or None (no cutoff).  Returns the raw columns
+    [rows, ncol, J], ncol = 16 or 4: the streams {a, l a, h, l(l+1) a} x
+    {re, im} (or {a} x {re, im}) summed with weight 1 (first half) and
+    (-1)^l (second half); 0 where the row's m is at or beyond the cutoff of
+    the ring's tile."""
     a_re, a_im = streams[0], streams[1]
     rows, nl = a_re.shape
     J = cth.shape[0]
     dt, dev = a_re.dtype, a_re.device
-    rec = _direct_recurrence(cth, ln_sth, logc, _m_rows(m, rows, dev))
+    m = _m_rows(m, rows, dev)
+    rec = _direct_recurrence(cth, ln_sth, logc, m)
     ns = 8 if len(streams) == 4 else 2
     # even- and odd-l sums of the streams
     acc = torch.zeros((2, ns, rows, J), dtype=dt, device=dev)
@@ -389,13 +406,16 @@ def synth_plain(streams, cth, ln_sth, logc, m=None):
                              ai * (lf * (lf + 1.0))])
         acc[l % 2].addcmul_(s[:, :, None], lam[None])  # in place: no temp
     out = torch.cat([acc[0] + acc[1], acc[0] - acc[1]])  # [ncol, rows, J]
+    if mcut is not None:
+        out = torch.where(_below_cut(mcut, m, J, tile_j)[None], out, 0.0)
     return out.permute(1, 0, 2).contiguous()
 
 
-def synth_cuda(streams, cth, ln_sth, logc):
+def synth_cuda(streams, cth, ln_sth, logc, mcut):
     """Launch K2 (16 columns, `legendre_synth`) or its 4-column form
     (`legendre_synth_phi`) on the tensors' CUDA device and PyTorch's
-    current stream.  Same contract as synth_plain; float32 only."""
+    current stream.  Same contract as synth_plain with its SYNTH_TILE_J
+    tiles; float32 only."""
     if len(streams) not in (2, 4):
         raise ValueError(f"K2 takes 4 derivative streams or 2 a-streams, "
                          f"not {len(streams)}")
@@ -406,21 +426,24 @@ def synth_cuda(streams, cth, ln_sth, logc):
     _check_problem(name, nm, J, nl)
     keys = ("a_re", "a_im", "h_re", "h_im")[: len(streams)]
     _check_cuda_f32(
-        name, dict(zip(keys, streams), cth=cth, ln_sth=ln_sth, logc=logc),
-        dict({k: (nm, nl) for k in keys}, cth=(J,), ln_sth=(J,), logc=(nm,)))
+        name, dict(zip(keys, streams), cth=cth, ln_sth=ln_sth, logc=logc,
+                   mcut=mcut),
+        dict({k: (nm, nl) for k in keys}, cth=(J,), ln_sth=(J,), logc=(nm,),
+             mcut=(-(-J // SYNTH_TILE_J),)))
     out = torch.empty((nm, 16 if derivs else 4, J), dtype=torch.float32,
                       device=cth.device)
     _launch(name, f"{name}_launch", cth.device,
             *(s.data_ptr() for s in streams), cth.data_ptr(),
-            ln_sth.data_ptr(), logc.data_ptr(), out.data_ptr(), nl, nm, J)
+            ln_sth.data_ptr(), logc.data_ptr(), mcut.data_ptr(),
+            out.data_ptr(), nl, nm, J)
     return out
 
 
-def synth_columns(streams, cth, ln_sth, logc):
+def synth_columns(streams, cth, ln_sth, logc, mcut):
     """K2 wrapper: the kernel for CUDA tensors, the twin for CPU tensors."""
     if streams[0].device.type == "cpu":
-        return synth_plain(streams, cth, ln_sth, logc)
-    return synth_cuda(streams, cth, ln_sth, logc)
+        return synth_plain(streams, cth, ln_sth, logc, mcut)
+    return synth_cuda(streams, cth, ln_sth, logc, mcut)
 
 
 def _south_sign(plan, device, m=None):

@@ -132,6 +132,7 @@ class SHTPlan:
         else:
             self.window_dev = None
         self._ring_stage = None
+        self._mcut = {}
         self.synth_kernel = "k2"
         self.analysis_kernel = ("k4" if os.environ.get("CALCLENS_ANA_DOT",
                                                        "0") == "1" else "k1")
@@ -144,6 +145,18 @@ class SHTPlan:
             self._ring_stage = RingStage(self.order, self.nm, self.nrings_pad,
                                          self.device, dtype=self.dtype)
         return self._ring_stage
+
+    def mcut(self, tile_j):
+        """The Legendre kernels' per-tile turning-point cutoff on tiles of
+        `tile_j` ring pairs (legendre.tile_mcut), int32 on the plan's
+        device, built once per tile width."""
+        if tile_j not in self._mcut:
+            from .legendre import tile_mcut
+
+            self._mcut[tile_j] = torch.as_tensor(
+                tile_mcut(self.sth_host, self.nl, self.nm, tile_j),
+                device=self.device)
+        return self._mcut[tile_j]
 
     def _pix2ring(self):
         """(ring index, offset in ring) of every map pixel, on the device."""

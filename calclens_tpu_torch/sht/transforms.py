@@ -101,7 +101,11 @@ def legendre_synthesis(plan: SHTPlan, alm, derivs: bool = True):
     """alm [nl, nm] complex -> (qN, qS), each [3, nm, J] complex (phi,
     d_theta, d_theta_theta) when derivs, else [1, nm, J] (phi): kernel K2
     (plan.synth_kernel "k2") or K3 ("k3") for CUDA tensors, its twin for CPU
-    tensors (calclens_tpu/sht/transforms.py::_legendre_synth_dispatch)."""
+    tensors (calclens_tpu/sht/transforms.py::_legendre_synth_dispatch).  K2
+    leaves 0 beyond its per-tile turning-point cutoff (plan.mcut), where
+    lambda is below float32 significance; the JAX package cuts its streamed
+    synthesis on ring windows by the same rule (_geo_view and
+    _legendre_synth_dispatch)."""
     if plan.synth_kernel == "k3":
         a_re, a_im = legendre.mx_prep(plan.nl, plan.nm, alm, plan.dtype,
                                       derivs=False)
@@ -113,7 +117,8 @@ def legendre_synthesis(plan: SHTPlan, alm, derivs: bool = True):
         raise ValueError(f"synth_kernel {plan.synth_kernel!r}: expected "
                          "'k2' or 'k3'")
     streams = legendre.mx_prep(plan.nl, plan.nm, alm, plan.dtype, derivs)
-    c = legendre.synth_columns(streams, plan.cth, plan.ln_sth, plan.logc)
+    c = legendre.synth_columns(streams, plan.cth, plan.ln_sth, plan.logc,
+                               plan.mcut(legendre.SYNTH_TILE_J))
     del streams
     return legendre.q_from_columns(plan, c)
 

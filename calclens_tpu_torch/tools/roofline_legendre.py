@@ -177,6 +177,109 @@ def smem_peak_bytes_per_s():
     return SMEM_BYTES_PER_CLOCK_PER_SM * sms * mhz * 1e6
 
 
+def _sass():
+    """cuobjdump -sass of the built kernel library."""
+    import shutil
+
+    from .. import _ext
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, "-sass", _ext.build()], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+
+
+# the redesigned sweeps: SASS function name part -> (kernel, rings per
+# thread, degrees per group between two votes)
+STEADY_KERNELS = {"legendre_synth_kernelILi8": ("legendre_synth", 4, 8),
+                  "legendre_synth_kernelILi2": ("legendre_synth_phi", 4, 16),
+                  "legendre_analysis_kernel": ("legendre_analysis", 4, 16)}
+
+
+def _instructions(body):
+    """[(address, opcode, predicated, branch target or None)] of one SASS
+    function."""
+    import re
+
+    out = []
+    for line in body.split("\n"):
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9._]*)([^;]*);", line)
+        if m:
+            t = re.search(r"0x([0-9a-f]+)\s*$", m.group(4))
+            tgt = (int(t.group(1), 16) if m.group(3).startswith("BRA") and t
+                   else None)
+            out.append((int(m.group(1), 16), m.group(3), bool(m.group(2)),
+                        tgt))
+    return out
+
+
+def _steady_path(ins, head, tail):
+    """The path from `head` to the backward branch at `tail` that runs no
+    rescale test (FSETP, FMNMX) and no vote, staying inside the loop and
+    visiting no address twice; of several, the one with the most FFMA, then
+    the shortest.  None if there is none."""
+    at = {a: i for i, (a, _, _, _) in enumerate(ins)}
+    best = None
+    stack = [(at[head], [], frozenset())]
+    while stack:
+        i, path, seen = stack.pop()
+        while True:
+            a, op, pred, tgt = ins[i]
+            base = op.split(".")[0]
+            if (a in seen or not head <= a <= tail
+                    or base in ("FSETP", "FMNMX", "VOTE", "EXIT")):
+                break
+            seen = seen | {a}
+            path = path + [base]
+            if a == tail:
+                key = (path.count("FFMA"), -len(path))
+                if best is None or key > best[0]:
+                    best = (key, path)
+                break
+            if tgt is None:
+                i += 1
+            elif pred:  # both sides
+                stack.append((at[tgt], path, seen))
+                i += 1
+            else:
+                i = at[tgt]
+    return None if best is None else best[1]
+
+
+def steady_loop_sass(sass=None):
+    """The SASS instructions of the redesigned K1 and K2 loops once every
+    ring of a warp is at scale k == 0: in the innermost loop that holds a
+    vote (one group of degrees; for K1 with its cross-thread sum), the
+    path from its head to its predicated backward branch that runs no
+    rescale test and no vote.  Returns kernel -> dict(group, per_degree,
+    per_element, ops)."""
+    import re
+    from collections import Counter
+
+    out = {}
+    for body in re.split(r"\n\s*Function : ", sass or _sass())[1:]:
+        name = body.split("\n", 1)[0]
+        key = next((k for k in STEADY_KERNELS if k in name), None)
+        if key is None:
+            continue
+        kernel, rings, group = STEADY_KERNELS[key]
+        ins = _instructions(body)
+        votes = [a for a, op, _, _ in ins if op.startswith("VOTE")]
+        # a loop's backward branch is predicated (the vote's fallback for
+        # divergent warps jumps back unconditionally)
+        head, tail = min(((tgt, a) for a, _, pred, tgt in ins
+                          if pred and tgt is not None and tgt < a
+                          and any(tgt <= v <= a for v in votes)),
+                         key=lambda lp: lp[1] - lp[0])
+        path = _steady_path(ins, head, tail)
+        if path is None:
+            continue
+        out[kernel] = dict(group=len(path), per_degree=len(path) / group,
+                           per_element=len(path) / group / rings,
+                           ops=dict(Counter(path)))
+    return out
+
+
 def store_loop_check():
     """Shows that nvcc kept the rec+store kernel's stores: in the built
     library's SASS (cuobjdump -sass), the instructions of that kernel's
@@ -184,15 +287,9 @@ def store_loop_check():
     Each step of the recurrence is 3 FMUL and 1 FADD, so a loop that keeps
     its stores has one STS per FADD.  Returns {opcode: count}."""
     import re
-    import shutil
     from collections import Counter
 
-    from .. import _ext
-
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    res = subprocess.run([tool, "-sass", _ext.build()], capture_output=True,
-                         text=True, timeout=120, check=True)
-    for body in re.split(r"\n\s*Function : ", res.stdout)[1:]:
+    for body in re.split(r"\n\s*Function : ", _sass())[1:]:
         name = body.split("\n", 1)[0]
         if "roofline_probe_kernel" not in name or "ILi1E" not in name:
             continue  # template argument 1 is rec+store
@@ -242,22 +339,26 @@ def ceilings(device="cuda"):
 def element_counts(plan, rings=None):
     """(l, m, j) elements each Legendre kernel computes at this plan, over
     the ring pairs `rings` (a slice; all by default), following the port's
-    own loops: the triangle l >= m over every ring for K2, K2-4col and K3;
-    for K1 and K4 only the (m, 512-ring tile) pairs below the tile's
-    turning-point cutoff (sht/legendre.analysis_mcut).  Rings beyond J are
-    not counted."""
-    from ..sht.legendre import ANALYSIS_TILE_J, analysis_mcut
+    own loops: the triangle l >= m over every ring for K3; for K1 and K4
+    only the (m, 512-ring tile) pairs below the tile's turning-point cutoff
+    (sht/legendre.analysis_mcut), for K2 and K2-4col those below the cutoff
+    of their 128-ring tiles (synth_mcut).  Rings beyond J are not
+    counted."""
+    from ..sht.legendre import (ANALYSIS_TILE_J, SYNTH_TILE_J, analysis_mcut,
+                                synth_mcut)
 
     nl, nm, J = plan.nl, plan.nm, plan.J
     tri_m = np.maximum(nl - np.arange(nm), 0).astype(np.int64)
     cum = np.concatenate([[0], np.cumsum(tri_m)])  # cum[c] = sum over m < c
     j = np.arange(J)[rings if rings is not None else slice(None)]
-    synth = int(cum[-1]) * len(j)
-    mcut = analysis_mcut(plan.sth_host, nl, nm)
-    ana = int(cum[mcut[j // ANALYSIS_TILE_J]].sum())
+    full = int(cum[-1]) * len(j)
+    ana = int(cum[analysis_mcut(plan.sth_host, nl, nm)[j // ANALYSIS_TILE_J]]
+              .sum())
+    synth = int(cum[synth_mcut(plan.sth_host, nl, nm)[j // SYNTH_TILE_J]]
+                .sum())
     return {"legendre_analysis": ana, "legendre_analysis_dot": ana,
             "legendre_synth": synth, "legendre_synth_phi": synth,
-            "legendre_synth_vpu": synth}
+            "legendre_synth_vpu": full}
 
 
 def shares(kernel_ms, counts, ceil):
@@ -301,7 +402,7 @@ def production(order=12, device="cuda", ceil=None):
     plan = SHTPlan(order, dev, dtype=torch.float32)
     streams, ana = _production_inputs(plan)
     a2 = streams[:2]
-    g2 = (plan.cth, plan.ln_sth, plan.logc)
+    g2 = (plan.cth, plan.ln_sth, plan.logc, plan.mcut(TL.SYNTH_TILE_J))
     g3 = (plan.cth, plan.sth, plan.cot, plan.inv_sth)
     calls = {
         "legendre_analysis": lambda: TL.analysis_cuda(*ana, plan.nl),
@@ -320,7 +421,9 @@ def production(order=12, device="cuda", ceil=None):
     ranged = {}
     for label, sl in ranges.items():
         geo = tuple(x[sl].contiguous() for x in (plan.cth, plan.ln_sth))
-        t = cuda_ms(lambda: TL.synth_cuda(streams, *geo, plan.logc),
+        mcut = torch.as_tensor(TL.synth_mcut(plan.sth_host[sl], plan.nl,
+                                             plan.nm), device=dev)
+        t = cuda_ms(lambda: TL.synth_cuda(streams, *geo, plan.logc, mcut),
                     PRODUCTION_REPS)
         n = element_counts(plan, sl)["legendre_synth"]
         ranged[label] = dict(j0=sl.start, j1=sl.stop, ms=t, elems=n,

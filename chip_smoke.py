@@ -11,7 +11,8 @@ of which must pass:
   2. build: the hand-written kernels (calclens_tpu_torch/csrc/*.cu) are
      compiled for sm_90a from the checkout, one nvcc per source;
   3. kernels vs twins: K1 (Legendre analysis), K2 (synthesis with
-     derivatives, 16 columns), K2's potential-only form (4 columns), K3
+     derivatives, 16 columns) and K2's potential-only form (4 columns),
+     both with their per-tile turning-point cutoff, K3
      (bucketed synthesis, with and without derivatives) and K4
      (stored-lambda analysis) against their plain PyTorch twins on the
      card, on band-limited random inputs from a numpy seed, at orders 8 and
@@ -46,7 +47,7 @@ of which must pass:
      distance from K2 printed (the two seed lambda_mm differently), and
      each one's distance from float64 twins on the m rows, polar caps and
      belt apart; every kernel timed with CUDA events beside its bound from
-     the shapes;
+     the shapes (K2's also on the full triangle) and its issue floor;
   7. P1, the Legendre roofline probe (csrc/roofline_probe.cu): each mode
      (rec, rec+store, store, dot) against its plain version at two shapes
      where the recurrence stays finite, one of them the timed layout (1e-6
@@ -57,7 +58,8 @@ of which must pass:
      modes' from the card's shared-memory peak; each Legendre kernel's
      share of the rec and rec+store ceilings from its order-12 time of
      phase 6 and the tool's exact element counts; the SASS of the
-     rec+store loop keeps its stores;
+     rec+store loop keeps its stores; the SASS instructions of K1's and
+     K2's steady loops per element;
   8. P2-P4, the gather probes (csrc/gather_probe.cu), through the tool's
      run() at N = 2^23: each bit-exact against torch's tab[idx], timed
      beside it, launches counted.
@@ -120,6 +122,14 @@ HBM_RATE = 3.35e12  # bytes/s
 FLOPS_PER_ELEMENT = {"legendre_analysis": 9, "legendre_analysis_dot": 9,
                      "legendre_synth": 21, "legendre_synth_phi": 9,
                      "legendre_synth_vpu": 21}
+# Issue slots per element that the rounding contract needs: the recurrence's
+# 4 operations, each rounded (no FMA), and one slot per column FMA (K1/K4 2,
+# K2 8, K2-4col 2; K3 as K2).  The card issues at most one warp instruction
+# per scheduler and clock: 132 SMs x 4 schedulers x 32 lanes x 1980 MHz.
+SLOTS_PER_ELEMENT = {"legendre_analysis": 6, "legendre_analysis_dot": 6,
+               "legendre_synth": 12, "legendre_synth_phi": 6,
+               "legendre_synth_vpu": 12}
+SLOT_RATE = 132 * 4 * 32 * 1980e6  # thread-instructions/s
 
 
 class SmokeFailure(Exception):
@@ -208,7 +218,7 @@ def compare_kernels(plan, streams, ana, reps):
     from calclens_tpu_torch.tools import cuda_ms
     from calclens_tpu_torch.sht import legendre as TL
 
-    geo = (plan.cth, plan.ln_sth, plan.logc)
+    geo = (plan.cth, plan.ln_sth, plan.logc, plan.mcut(TL.SYNTH_TILE_J))
     got = TL.synth_cuda(streams, *geo)
     ref, k2_twin_ms = timed_once(lambda: TL.synth_plain(streams, *geo))
     k2 = (*col_errs(got, ref),
@@ -229,7 +239,8 @@ def variant_calls(plan, streams, ana):
     from calclens_tpu_torch.sht import legendre as TL
 
     a2 = streams[:2]
-    g2 = (plan.cth, plan.ln_sth, plan.logc)
+    mcut = plan.mcut(TL.SYNTH_TILE_J)
+    g2 = (plan.cth, plan.ln_sth, plan.logc, mcut)
     g3 = (plan.cth, plan.sth, plan.cot, plan.inv_sth)
 
     def rows(x, m):
@@ -237,7 +248,7 @@ def variant_calls(plan, streams, ana):
 
     def k2phi_twin(m):
         return TL.synth_plain(tuple(rows(a, m) for a in a2), plan.cth,
-                              plan.ln_sth, rows(plan.logc, m), m=m)
+                              plan.ln_sth, rows(plan.logc, m), mcut, m=m)
 
     def k3_twin(derivs):
         return lambda m: TL.synth_vpu_plain(rows(a2[0], m), rows(a2[1], m),
@@ -300,35 +311,49 @@ def check_variant_rows(plan, streams, ana, reps):
     return out
 
 
-def kernel_bounds(plan, mcut):
-    """name -> (bound ms, "operations" or "bytes") at this plan's shape:
-    the larger of the FP32 operations over FP32_PEAK and the bytes that
-    must move (each input read once, each output written once) over
-    HBM_RATE.  Element counts follow the work these inputs need: the
-    triangle l >= m for the synthesis kernels, and for the analysis kernels
-    only the (m, ring tile) pairs below the tile's turning-point cutoff."""
+def kernel_bounds(plan):
+    """name -> dict(bound_ms, bound_by, full_bound_ms, floor_ms, elems) at
+    this plan's shape.  The bound is the larger of the FP32 operations over
+    FP32_PEAK and the bytes that must move (each input read once, each
+    output written once) over HBM_RATE, on the elements these inputs need
+    (roofline_legendre.element_counts: the triangle l >= m for K3; for K1
+    and K4 only the (m, 512-ring tile) pairs below the tile's turning-point
+    cutoff, for K2 and K2-4col those below their 128-ring tiles' cutoff);
+    full_bound_ms is the same on the full triangle (K2's before its cutoff).
+    floor_ms: SLOTS_PER_ELEMENT per element over SLOT_RATE."""
+    from calclens_tpu_torch.sht.legendre import ANALYSIS_TILE_J as T1
+    from calclens_tpu_torch.tools import roofline_legendre as R
+
     nl, nm, J = plan.nl, plan.nm, plan.J
-    tile = 512
     tri_m = np.maximum(nl - np.arange(nm), 0).astype(np.float64)  # per m
     tri = float(tri_m.sum())
-    rings = [min(tile, J - t) for t in range(0, J, tile)]
-    cut = np.asarray(mcut.cpu() if hasattr(mcut, "cpu") else mcut)
-    ana_elems = sum(r * float(tri_m[:c].sum()) for r, c in zip(rings, cut))
+    rings = [min(T1, J - t) for t in range(0, J, T1)]
+    cut = plan.mcut(T1).cpu().numpy()
     ana_in = sum(r * int(c) for r, c in zip(rings, cut))  # (m, j) needed
     f4 = 4.0
-    work = {
-        "legendre_analysis": (ana_elems, f4 * (4 * ana_in + 2 * tri + 2 * J)),
-        "legendre_synth": (tri * J, f4 * (4 * tri + 16 * nm * J + 2 * J)),
-        "legendre_synth_phi": (tri * J, f4 * (2 * tri + 4 * nm * J + 2 * J)),
-        "legendre_synth_vpu": (tri * J, f4 * (2 * tri + 12 * nm * J + 4 * J)),
+    nbytes = {
+        "legendre_analysis": f4 * (4 * ana_in + 2 * tri + 2 * J),
+        "legendre_synth": f4 * (4 * tri + 16 * nm * J + 2 * J),
+        "legendre_synth_phi": f4 * (2 * tri + 4 * nm * J + 2 * J),
+        "legendre_synth_vpu": f4 * (2 * tri + 12 * nm * J + 4 * J),
     }
-    work["legendre_analysis_dot"] = work["legendre_analysis"]
+    nbytes["legendre_analysis_dot"] = nbytes["legendre_analysis"]
+    elems = R.element_counts(plan)
+
+    def bound(name, n):
+        t_ops = n * FLOPS_PER_ELEMENT[name] / FP32_PEAK
+        t_mem = nbytes[name] / HBM_RATE
+        return (1e3 * max(t_ops, t_mem),
+                "operations" if t_ops >= t_mem else "bytes")
+
     out = {}
-    for name, (elems, nbytes) in work.items():
-        t_ops = elems * FLOPS_PER_ELEMENT[name] / FP32_PEAK
-        t_mem = nbytes / HBM_RATE
-        out[name] = (1e3 * max(t_ops, t_mem),
-                     "operations" if t_ops >= t_mem else "bytes")
+    for name, n in elems.items():
+        b, by = bound(name, n)
+        out[name] = dict(bound_ms=b, bound_by=by,
+                         full_bound_ms=bound(name, tri * J)[0],
+                         floor_ms=1e3 * SLOTS_PER_ELEMENT[name] * n
+                         / SLOT_RATE,
+                         elems=n)
     return out
 
 
@@ -722,7 +747,17 @@ def probe_phase(dev, kernel_ms, plan):
     say(f"P1 rec+store loop SASS (cuobjdump): {ops}")
     check(ops.get("STS", 0) >= ops.get("FADD", 1) > 0,
           f"rec+store loop lost its stores: {ops}")
-    return dict(launches=launches, modes=modes, shares=sh_, shape=dict(sh))
+    steady = R.steady_loop_sass()
+    for name, r in steady.items():
+        say(f"{name} steady loop SASS (cuobjdump): {r['group']} instructions "
+            f"per group, {r['per_degree']:.3f} per degree and thread, "
+            f"{r['per_element']:.3f} per element (floor "
+            f"{SLOTS_PER_ELEMENT[name]}); {r['ops']}")
+    check(sorted(steady) == ["legendre_analysis", "legendre_synth",
+                             "legendre_synth_phi"],
+          f"steady loops not found in the SASS: {sorted(steady)}")
+    return dict(launches=launches, modes=modes, shares=sh_, shape=dict(sh),
+                steady=steady)
 
 
 def gather_phase(dev):
@@ -900,9 +935,12 @@ def main():
     del q2, q3
     torch.cuda.empty_cache()
 
-    bounds = kernel_bounds(plan, ana[7])
-    for name, (b, by) in bounds.items():
-        say(f"order 12 bound {name}: {b:.3f} ms ({by})")
+    bounds = kernel_bounds(plan)
+    for name, b in bounds.items():
+        say(f"order 12 bound {name}: {b['bound_ms']:.3f} ms ({b['bound_by']}) "
+            f"on {b['elems']:.4e} elements; {b['full_bound_ms']:.3f} ms on "
+            f"the full triangle; issue floor {b['floor_ms']:.3f} ms "
+            f"({SLOTS_PER_ELEMENT[name]} slots per element)")
     v10 = {k.split()[1]: v for k, v in variants10.items()
            if "phi only" not in k}
     v12 = {k.split()[1]: v for k, v in rows12.items() if "phi only" not in k}
@@ -921,11 +959,14 @@ def main():
     torch.cuda.empty_cache()
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, **extra):
+        b = bounds[name]
         return dict(name=name, route="cuda",
                     source=f"calclens_tpu_torch/csrc/{source}",
                     replaces=replaces, launches=launches, max_abs_err=err,
-                    ms=ms, plain_ms=plain_ms, bound_ms=bounds[name][0],
-                    bound_by=bounds[name][1], library_ms=None, **extra)
+                    ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
+                    bound_by=b["bound_by"], library_ms=None,
+                    full_bound_ms=b["full_bound_ms"], floor_ms=b["floor_ms"],
+                    **extra)
 
     # the variant kernels' twins are timed at order 10 (at order 12 they
     # take minutes), their errors are the order-12 row checks
@@ -976,6 +1017,9 @@ def main():
         if k["name"] in p1["shares"]:
             _, s_rec, s_rs = p1["shares"][k["name"]]
             k["shares_of_ceilings"] = dict(rec=s_rec, rec_store=s_rs)
+        if k["name"] in p1["steady"]:
+            k["steady_sass_per_element"] = \
+                p1["steady"][k["name"]]["per_element"]
     check(all(math.isfinite(k[f]) for k in kernels
               for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")),
           "non-finite kernel measurement")

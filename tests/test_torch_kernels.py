@@ -8,7 +8,7 @@ no GPU.  Run on a machine with the card:
 
 (--noconftest: tests/conftest.py sets up jax, which the card's machine does
 not have.)  Inputs are random alm with a red spectrum and random ring sums
-made with numpy at HEALPix orders 4-9.  Tolerance: max |kernel - twin| /
+made with numpy at HEALPix orders 4-10.  Tolerance: max |kernel - twin| /
 max |twin| < 1e-5 per output column.  Kernel and twin round the lambda
 recurrence alike; they differ only in the order (and FMA contraction) of
 the float32 sums over up to 3 nside terms, measured at <= 4e-7 on an H100
@@ -51,15 +51,18 @@ def _alm(plan, seed):
     return torch.tensor(alm.astype(np.complex64), device=plan.device)
 
 
-@pytest.mark.parametrize("order", [4, 6, 8])
+@pytest.mark.parametrize("order", [4, 6, 8, 10])
 def test_synth_kernel_matches_twin(cuda_device, order):
+    """K2 with the plan's cutoff (active from order 8 on) against the twin
+    with the same cutoff."""
     plan = SHTPlan(order, cuda_device, dtype=torch.float32)
     streams = TL.mx_prep(plan.nl, plan.nm, _alm(plan, order), torch.float32)
+    geo = (plan.cth, plan.ln_sth, plan.logc, plan.mcut(TL.SYNTH_TILE_J))
     before = _ext.launches["legendre_synth"]
-    got = TL.synth_cuda(streams, plan.cth, plan.ln_sth, plan.logc)
+    got = TL.synth_cuda(streams, *geo)
     torch.cuda.synchronize()
     assert _ext.launches["legendre_synth"] == before + 1
-    ref = TL.synth_plain(streams, plan.cth, plan.ln_sth, plan.logc)
+    ref = TL.synth_plain(streams, *geo)
     assert got.shape == ref.shape == (plan.nm, 16, plan.J)
     for c in range(16):
         assert _relerr(got[:, c], ref[:, c]) < TOL, c
@@ -82,17 +85,19 @@ def test_analysis_kernel_matches_twin(cuda_device, order):
     assert _relerr(re, rre) < TOL and _relerr(im, rim) < TOL
 
 
-@pytest.mark.parametrize("order", [4, 6, 8])
+@pytest.mark.parametrize("order", [4, 6, 8, 10])
 def test_synth_phi_kernel_matches_twin(cuda_device, order):
-    """K2's potential-only form: 4 columns, its own launch counter."""
+    """K2's potential-only form: 4 columns, its own launch counter; the
+    plan's cutoff as for K2."""
     plan = SHTPlan(order, cuda_device, dtype=torch.float32)
     streams = TL.mx_prep(plan.nl, plan.nm, _alm(plan, 300 + order),
                          torch.float32, derivs=False)
+    geo = (plan.cth, plan.ln_sth, plan.logc, plan.mcut(TL.SYNTH_TILE_J))
     before = _ext.launches["legendre_synth_phi"]
-    got = TL.synth_cuda(streams, plan.cth, plan.ln_sth, plan.logc)
+    got = TL.synth_cuda(streams, *geo)
     torch.cuda.synchronize()
     assert _ext.launches["legendre_synth_phi"] == before + 1
-    ref = TL.synth_plain(streams, plan.cth, plan.ln_sth, plan.logc)
+    ref = TL.synth_plain(streams, *geo)
     assert got.shape == ref.shape == (plan.nm, 4, plan.J)
     for c in range(4):
         assert _relerr(got[:, c], ref[:, c]) < TOL, c
@@ -155,6 +160,75 @@ def test_analysis_kernel_honours_tile_cutoff(cuda_device):
         assert _relerr(re, rre) < TOL and _relerr(im, rim) < TOL
 
 
+def _synth_both_forms(plan, rings, mcut, seed):
+    """K2 and K2-4col on the ring pairs `rings` (a slice) with cutoff
+    `mcut` against their twins: each column within TOL; entries beyond the
+    cutoff exactly 0; the single-degree row m = nl - 1 within TOL."""
+    cth, ln_sth = (x[rings].contiguous() for x in (plan.cth, plan.ln_sth))
+    J = cth.shape[0]
+    m = torch.arange(plan.nm, device=cth.device)
+    cut = m[:, None] >= mcut.long().repeat_interleave(TL.SYNTH_TILE_J)[:J]
+    for derivs in (True, False):
+        streams = TL.mx_prep(plan.nl, plan.nm, _alm(plan, seed), torch.float32,
+                             derivs=derivs)
+        got = TL.synth_cuda(streams, cth, ln_sth, plan.logc, mcut)
+        ref = TL.synth_plain(streams, cth, ln_sth, plan.logc, mcut)
+        assert got.shape == ref.shape == (plan.nm, 16 if derivs else 4, J)
+        for c in range(got.shape[1]):
+            assert _relerr(got[:, c], ref[:, c]) < TOL, (derivs, c)
+        assert not bool(got.permute(1, 0, 2)[:, cut].any())
+        assert _relerr(got[-1], ref[-1]) < TOL
+
+
+def test_synth_kernel_ragged_rings_and_degrees(cuda_device):
+    """A ring count that fills no block (300 of order 8's ring pairs: two
+    full 128-ring tiles and a ragged one) and an odd band limit (nl = 301,
+    so nl - m takes every residue of the 8-degree groups), with the rule's
+    cutoff on those rings, which cuts the first tile."""
+    plan = SHTPlan(8, cuda_device, lmax=300, dtype=torch.float32)
+    rings = slice(0, 300)
+    mcut = torch.as_tensor(TL.synth_mcut(plan.sth_host[rings], plan.nl,
+                                         plan.nm), device=cuda_device)
+    assert int(mcut[0]) < plan.nm
+    _synth_both_forms(plan, rings, mcut, 600)
+
+
+def test_synth_kernel_uncut_polar_caps(cuda_device):
+    """No cutoff on the 512 most polar ring pairs of order 10: rows whose
+    scale counter stays below 0 for hundreds of degrees (or for good), so
+    the warps switch from the careful to the bare recurrence at different
+    degrees, or never."""
+    plan = SHTPlan(10, cuda_device, dtype=torch.float32)
+    mcut = torch.full((512 // TL.SYNTH_TILE_J,), plan.nm, dtype=torch.int32,
+                      device=cuda_device)
+    _synth_both_forms(plan, slice(0, 512), mcut, 601)
+
+
+@pytest.mark.parametrize("lmax,rings", [(1000, 1024), (777, 700)])
+def test_analysis_kernel_ragged_degrees_and_rings(cuda_device, lmax, rings):
+    """K1 (and K4) at band limits whose nl - m takes every residue of
+    K1's 16-degree sums, on all of order 9's ring pairs and on a ragged 700
+    of them, with a forced cutoff (tile 0 cut at m = 40, tile 1 at 700)
+    and with the rule's."""
+    plan = SHTPlan(9, cuda_device, lmax=lmax, dtype=torch.float32)
+    rng = np.random.default_rng(lmax)
+    E, O = (torch.tensor((rng.normal(size=(plan.nm, rings))
+                          + 1j * rng.normal(size=(plan.nm, rings))
+                          ).astype(np.complex64), device=cuda_device)
+            for _ in range(2))
+    planes = [x.contiguous() for x in (E.real, E.imag, O.real, O.imag)]
+    geo = tuple(x[:rings].contiguous()
+                for x in (plan.cth, plan.ln_sth)) + (plan.logc,)
+    rule = torch.as_tensor(TL.analysis_mcut(plan.sth_host[:rings], plan.nl,
+                                            plan.nm), device=cuda_device)
+    forced = torch.tensor([40, 700], dtype=torch.int32, device=cuda_device)
+    for mcut in (rule, forced):
+        rre, rim = TL.analysis_plain(*planes, *geo, mcut, plan.nl)
+        for launch in (TL.analysis_cuda, TL.analysis_dot_cuda):
+            re, im = launch(*planes, *geo, mcut, plan.nl)
+            assert _relerr(re, rre) < TOL and _relerr(im, rim) < TOL
+
+
 def test_kernels_refuse_float64_cuda_tensors(cuda_device):
     plan = SHTPlan(3, cuda_device, dtype=torch.float64)
     x = torch.zeros((plan.nm, plan.J), dtype=torch.float64,
@@ -168,7 +242,8 @@ def test_kernels_refuse_float64_cuda_tensors(cuda_device):
                     device=cuda_device)
     for streams in ((s, s, s, s), (s, s)):
         with pytest.raises(TypeError, match="float32 only"):
-            TL.synth_columns(streams, plan.cth, plan.ln_sth, plan.logc)
+            TL.synth_columns(streams, plan.cth, plan.ln_sth, plan.logc,
+                             plan.mcut(TL.SYNTH_TILE_J))
     with pytest.raises(TypeError, match="float32 only"):
         TL.synth_vpu_columns(s, s, plan.cth, plan.sth, plan.cot,
                              plan.inv_sth, True)

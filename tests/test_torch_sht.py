@@ -263,7 +263,7 @@ def test_kernel_wrappers_refuse_non_cuda_tensors():
     s = torch.zeros((tp.nm, tp.nl))
     for streams in ((s, s, s, s), (s, s)):
         with pytest.raises(ValueError, match="not on CUDA"):
-            TL.synth_cuda(streams, *geo)
+            TL.synth_cuda(streams, *geo, tp.mcut(TL.SYNTH_TILE_J))
     for derivs in (True, False):
         with pytest.raises(ValueError, match="not on CUDA"):
             TL.synth_vpu_cuda(s, s, tp.cth, tp.sth, tp.cot, tp.inv_sth,

@@ -20,7 +20,8 @@ import torch
 import jax.numpy as jnp
 
 from calclens_tpu_torch import tools
-from calclens_tpu_torch.sht.legendre import ANALYSIS_TILE_J, analysis_mcut
+from calclens_tpu_torch.sht.legendre import (ANALYSIS_TILE_J, SYNTH_TILE_J,
+                                             analysis_mcut, synth_mcut)
 from calclens_tpu_torch.sht.plan import SHTPlan
 from calclens_tpu_torch.tools import exp_gather as G
 from calclens_tpu_torch.tools import roofline_legendre as R
@@ -165,26 +166,75 @@ def test_gather_cuda_wrappers_refuse_cpu_tensors():
         tools.require_cuda("cpu")
 
 
-@pytest.mark.parametrize("order", [3, 5])
+@pytest.mark.parametrize("order", [3, 5, 8])
 def test_element_counts_match_brute_force(order):
     """production's element counts: every (l, m, j) that the kernels'
-    loops reach, counted one by one."""
+    loops reach, counted one ring at a time: the triangle for K3, below
+    the 512-ring tiles' cutoff for K1 and K4, below the 128-ring tiles'
+    cutoff for K2 and K2-4col (which cuts at order 8 only)."""
     plan = SHTPlan(order, "cpu", dtype=torch.float32)
     nl, nm, J = plan.nl, plan.nm, plan.J
-    l = np.arange(nl)[:, None, None]
-    m = np.arange(nm)[None, :, None]
-    j = np.arange(J)[None, None, :]
-    tri = l >= m
-    mcut = analysis_mcut(plan.sth_host, nl, nm)
-    below = m < mcut[j // ANALYSIS_TILE_J]
-    synth = int(np.broadcast_to(tri, (nl, nm, J)).sum())
-    ana = int((tri & below).sum())
+    tri = np.arange(nl)[:, None] >= np.arange(nm)[None, :]
+    m = np.arange(nm)[None, :]
+    j = np.arange(J)
+    ana_cut = analysis_mcut(plan.sth_host, nl, nm)[j // ANALYSIS_TILE_J]
+    syn_cut = synth_mcut(plan.sth_host, nl, nm)[j // SYNTH_TILE_J]
+    ana = np.array([(tri & (m < c)).sum() for c in ana_cut])  # per ring
+    syn = np.array([(tri & (m < c)).sum() for c in syn_cut])
+    assert (syn.sum() < tri.sum() * J) == (order == 8)
     got = R.element_counts(plan)
-    assert got["legendre_analysis"] == got["legendre_analysis_dot"] == ana
-    for k in ("legendre_synth", "legendre_synth_phi", "legendre_synth_vpu"):
-        assert got[k] == synth
+    assert got["legendre_analysis"] == got["legendre_analysis_dot"] == ana.sum()
+    assert got["legendre_synth"] == got["legendre_synth_phi"] == syn.sum()
+    assert got["legendre_synth_vpu"] == tri.sum() * J
     sl = slice(J - J // 8, J)
     part = R.element_counts(plan, sl)
-    assert part["legendre_synth"] == int(
-        np.broadcast_to(tri, (nl, nm, J))[:, :, sl].sum())
-    assert part["legendre_analysis"] == int((tri & below)[:, :, sl].sum())
+    assert part["legendre_synth_vpu"] == tri.sum() * (J // 8)
+    assert part["legendre_synth"] == syn[sl].sum()
+    assert part["legendre_analysis"] == ana[sl].sum()
+
+
+def test_steady_loop_sass_follows_the_steady_path():
+    """steady_loop_sass on a made-up listing: the innermost loop with a
+    vote and a predicated backward branch (not the divergent-vote fallback
+    that jumps back unconditionally), walked from its head through each
+    predicated branch's fall-through and each unconditional jump."""
+    body = """
+        Function : _Z24legendre_analysis_kernelPKf
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   FMUL R3, R4, R5 ;
+        /*0020*/              @!P0 BRA 0x60 ;
+        /*0030*/                   FFMA R6, R7, R8, R6 ;
+        /*0040*/                   BRA 0x80 ;
+        /*0050*/                   NOP ;
+        /*0060*/                   FSETP.GT.AND P1, PT, |R3|, 4.29e9, PT ;
+        /*0070*/                   VOTE.ALL P0, P0 ;
+        /*0080*/                   IADD3 R9, R9, 0x10, RZ ;
+        /*0090*/              @!P2 BRA 0x10 ;
+        /*00a0*/                   EXIT ;
+        /*00b0*/                   VOTE.ALL P0, P0 ;
+        /*00c0*/                   BRA 0x60 ;
+"""
+    got = R.steady_loop_sass(body)
+    assert list(got) == ["legendre_analysis"]
+    r = got["legendre_analysis"]
+    assert r["group"] == 6
+    assert r["ops"] == {"FMUL": 1, "BRA": 3, "FFMA": 1, "IADD3": 1}
+    _, rings, group = R.STEADY_KERNELS["legendre_analysis_kernel"]
+    assert r["per_element"] == 6 / group / rings
+
+
+def test_legendre_variants_edit_the_sources_once():
+    """Every edit of tools/legendre_variants.py names text that occurs
+    exactly once in its source, so each variant differs from the built
+    kernels by just its edits; the tool needs a CUDA device."""
+    from calclens_tpu_torch import _ext
+    from calclens_tpu_torch.tools import legendre_variants as V
+
+    assert V.VARIANTS["as built"] == []
+    for name, edits in V.VARIANTS.items():
+        for src, text, new in edits:
+            with open(os.path.join(_ext.SRC_DIR, src)) as fp:
+                assert fp.read().count(text) == 1, (name, src, text)
+            assert new != text
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        V.run(4, "cpu")
