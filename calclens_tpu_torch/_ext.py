@@ -38,7 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel name -> launches since the last reset_launches()
 launches = {"legendre_analysis": 0, "legendre_analysis_dot": 0,
             "legendre_synth": 0, "legendre_synth_phi": 0,
-            "legendre_synth_vpu": 0, "roofline_probe": 0, "gather_rows": 0,
+            "legendre_synth_vpu": 0, "legendre_synth_vpu_phi": 0,
+            "legendre_chain_seed": 0, "roofline_probe": 0, "gather_rows": 0,
             "gather_lanes": 0, "gather_onehot": 0}
 
 # C launcher signatures: "p" = device pointer, "i" = int, "l" = long long,
@@ -52,8 +53,11 @@ _SIGNATURES = {
     "legendre_synth_launch": "ppppppppp" + "iii" + "s",
     # a_re, a_im, cth, ln_sth, logc, mcut, out, nl, nm, J, stream
     "legendre_synth_phi_launch": "ppppppp" + "iii" + "s",
-    # a_re, a_im, cth, sth, cot, inv_sth, out, nl, nm, J, derivs, stream
-    "legendre_synth_vpu_launch": "ppppppp" + "iiii" + "s",
+    # a_re, a_im, cth, cot, inv_sth, seed, seed_k, mcut, out, nl, nm, J,
+    # derivs, stream
+    "legendre_synth_vpu_launch": "ppppppppp" + "iiii" + "s",
+    # sth, seed, seed_k, nm, J, stream
+    "legendre_chain_seed_launch": "ppp" + "ii" + "s",
     # geo, out, rows, TJ, LB, LBLK, mode, stream
     "roofline_probe_launch": "pp" + "iiiii" + "s",
     # tab, idx, out, n, stream

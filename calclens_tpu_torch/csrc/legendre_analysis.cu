@@ -26,7 +26,8 @@
 // registers and sums their products locally.
 //  - The seed row l == m is peeled off the loop; a warp then runs its
 //    degrees in groups of 16, each in one of three modes chosen by a vote
-//    after the previous group (legendre_common.cuh): the recurrence alone
+//    after the previous group (legendre_common.cuh's analysis_sweep, which
+//    K4 shares; this file supplies the partial sums): the recurrence alone
 //    while every ring's lambda is 0 (scale k <= -2), then the careful
 //    recurrence (rescale test, scale factor), then, once all its rings are
 //    at k == 0, the bare 4-operation recurrence.  All three give the
@@ -53,35 +54,27 @@
 
 namespace {
 
-using calclens::coeffs;
 using calclens::diag_seed;
-using calclens::Mode;
-using calclens::rec_step;
-using calclens::rescale_rings;
-using calclens::seed_rings;
-using calclens::warp_mode;
+using calclens::Rings;
 
 constexpr int kThreads = 128;                       // threads per block
 constexpr int kRings = 4;                           // rings per thread
 constexpr int kTileJ = kThreads * kRings;  // 512 rings: the mcut tile
 constexpr int kChunkL = kThreads;          // degrees per coefficient chunk
-constexpr int kRedL = 16;                  // degrees per cross-thread sum
-constexpr int kGroup = kRedL;  // degrees between two votes; divides kRedL
+constexpr int kRedL = 16;  // degrees per cross-thread sum and per vote
 // floats per degree row of the partials: kThreads (re, im) pairs + 16, so
 // the 8 threads that read one row in a quarter-warp hit distinct banks
 constexpr int kRedRow = 2 * kThreads + 16;
 constexpr int kRowVec = 2 * kThreads / 4;      // float4 of partials per row
 constexpr int kSumThreads = kThreads / kRedL;  // threads summing one degree
 
-struct Analysis {
-  float c[kRings], pp[kRings], pc[kRings], cf[kRings];
-  int k[kRings];
+struct Analysis : Rings<kRings> {
   float er[kRings], ei[kRings], orr[kRings], oi[kRings];
 
   // P = (l - m) mod 2: the degree's partial (re, im) of this thread's rings
   template <int P>
-  __device__ __forceinline__ void store(const float (&lam)[kRings],
-                                        float* red) {
+  __device__ __forceinline__ void emit(float* red, const float (&lam)[kRings],
+                                       const float (&)[kRings]) {
     const float(&sr)[kRings] = P ? orr : er;
     const float(&si)[kRings] = P ? oi : ei;
     float pr = lam[0] * sr[0], pim = lam[0] * si[0];
@@ -93,43 +86,8 @@ struct Analysis {
     *reinterpret_cast<float2*>(red) = make_float2(pr, pim);
   }
 
-  template <int P, Mode kMode>
-  __device__ __forceinline__ void degree(float2 ab, float* red) {
-    rec_step(ab.x, ab.y, c, pp, pc);
-    if constexpr (kMode == Mode::kSteady) {
-      store<P>(pc, red);
-    } else {
-      rescale_rings(pp, pc, k, cf);
-      if constexpr (kMode == Mode::kCareful) {
-        float lam[kRings];
-#pragma unroll
-        for (int q = 0; q < kRings; ++q) lam[q] = __fmul_rn(pc[q], cf[q]);
-        store<P>(lam, red);
-      } else {  // every lambda is 0
-        *reinterpret_cast<float2*>(red) = make_float2(0.0f, 0.0f);
-      }
-    }
-  }
-
-  // degrees i .. i + kGroup - 1 (i even: degree i has P = 0) with
-  // coefficients coef[i..], partials into red rows 0 .. kGroup - 1; with
-  // kSeed, degree i is the seed row
-  template <Mode kMode, bool kSeed = false>
-  __device__ __forceinline__ void group(const float4* coef2, int i,
-                                        float* red, const float (&sv)[kRings],
-                                        const int (&sk)[kRings]) {
-#pragma unroll
-    for (int u = 0; u < kGroup; u += 2) {
-      const float4 ab = coef2[(i + u) / 2];  // degrees i + u, i + u + 1
-      if (kSeed && u == 0) {
-        float lam[kRings];
-        seed_rings(sv, sk, pp, pc, k, cf, lam);
-        store<0>(lam, red);
-      } else {
-        degree<0, kMode>(make_float2(ab.x, ab.y), red + u * kRedRow);
-      }
-      degree<1, kMode>(make_float2(ab.z, ab.w), red + (u + 1) * kRedRow);
-    }
+  __device__ __forceinline__ void emit_zero(float* red) {
+    *reinterpret_cast<float2*>(red) = make_float2(0.0f, 0.0f);
   }
 };
 
@@ -184,60 +142,32 @@ legendre_analysis_kernel(const float* __restrict__ ere,
   const int sum_row = t / kSumThreads;
   const int sum_col = t % kSumThreads;
 
-  Mode mode = Mode::kCareful;
   int buf = 0;
-  for (int l0 = m; l0 < nl; l0 += kChunkL) {
-    __syncthreads();  // the previous chunk's coefficient readers are done
-    {
-      const int l = l0 + t;  // degrees past nl are staged as zeros
-      float a = 0.0f, b = 0.0f;
-      if (l < nl) coeffs(static_cast<float>(l), mf, a, b);
-      coef[t] = make_float2(a, b);
-    }
-    __syncthreads();
-    const float4* coef2 = reinterpret_cast<const float4*>(coef);
-    const int nc = min(kChunkL, nl - l0);
-    for (int s0 = 0; s0 < nc; s0 += kRedL) {
-#pragma unroll 1
-      for (int g = 0; g < kRedL; g += kGroup) {  // once, as built
-        float* rg = &red[buf][g][2 * t];
-        if (l0 == m && s0 + g == 0) {
-          s.group<Mode::kCareful, true>(coef2, 0, rg, sv, sk);
-          mode = warp_mode(s.cf);
-        } else if (mode == Mode::kSteady) {
-          s.group<Mode::kSteady>(coef2, s0 + g, rg, sv, sk);
-        } else {
-          if (mode == Mode::kZero) {
-            s.group<Mode::kZero>(coef2, s0 + g, rg, sv, sk);
-          } else {
-            s.group<Mode::kCareful>(coef2, s0 + g, rg, sv, sk);
-          }
-          mode = warp_mode(s.cf);
+  calclens::analysis_sweep<kRedL, kRedRow>(
+      s, coef, m, nl, sv, sk, [&] { return &red[buf][0][2 * t]; },
+      [&](int lb, bool) {
+        __syncthreads();  // the partials of these kRedL degrees are stored
+        const float4* row =
+            reinterpret_cast<const float4*>(&red[buf][sum_row][0]);
+        float sr = 0.0f, si = 0.0f;
+#pragma unroll
+        for (int v = sum_col; v < kRowVec; v += kSumThreads) {
+          const float4 x = row[v];
+          sr += x.x + x.z;
+          si += x.y + x.w;
         }
-      }
-      __syncthreads();  // the partials of these kRedL degrees are stored
-      const float4* row =
-          reinterpret_cast<const float4*>(&red[buf][sum_row][0]);
-      float sr = 0.0f, si = 0.0f;
 #pragma unroll
-      for (int v = sum_col; v < kRowVec; v += kSumThreads) {
-        const float4 x = row[v];
-        sr += x.x + x.z;
-        si += x.y + x.w;
-      }
-#pragma unroll
-      for (int off = kSumThreads / 2; off > 0; off >>= 1) {
-        sr += __shfl_xor_sync(0xffffffffu, sr, off);
-        si += __shfl_xor_sync(0xffffffffu, si, off);
-      }
-      if (sum_col == 0 && s0 + sum_row < nc) {
-        const size_t o = static_cast<size_t>(m) * nl + l0 + s0 + sum_row;
-        atomicAdd(alm_re + o, sr);
-        atomicAdd(alm_im + o, si);
-      }
-      buf ^= 1;  // the next block of partials goes to the other buffer
-    }
-  }
+        for (int off = kSumThreads / 2; off > 0; off >>= 1) {
+          sr += __shfl_xor_sync(0xffffffffu, sr, off);
+          si += __shfl_xor_sync(0xffffffffu, si, off);
+        }
+        if (sum_col == 0 && lb + sum_row < nl) {
+          const size_t o = static_cast<size_t>(m) * nl + lb + sum_row;
+          atomicAdd(alm_re + o, sr);
+          atomicAdd(alm_im + o, si);
+        }
+        buf ^= 1;  // the next block of partials goes to the other buffer
+      });
 }
 
 }  // namespace

@@ -13,46 +13,104 @@
 // route: the recurrence first STORES lambda for a block of degrees, then the
 // block is contracted over the rings against the parity-resolved sources.
 // The TPU kernel held a [32 m, 128 l, 512 j] lambda tile (8 MB of VMEM) and
-// contracted it on the MXU at HIGHEST precision; a Hopper block has 227 KB
-// of shared memory, so the tile here is one m times 16 degrees times 512
-// rings (33 KB), and the contraction stays in FP32 FMA on the CUDA cores
-// (TF32 would lose the digits that the comparison with K1 needs; tensor
-// cores are later work).
+// contracted it on the MXU at HIGHEST precision; here a block is one m times
+// a 512-ring tile, each warp stores 16 degrees of its 128 rings and
+// contracts them on the tensor cores.
 //
-// What bounds it on the H100: per (l, m, j) the recurrence costs ~4 FP32
-// ops, one shared-memory store and, in the contraction, one load and two
-// FMAs (the parity picks two of the four sources); E and O are read once and
-// alm is written once, so memory does not bound it.  The shared-memory
-// traffic of the stored tile and the per-block barriers are the cost of the
-// route over K1's.
-// Design: a block is one m times a 512-ring tile (blocks at or beyond the
-// tile's cutoff exit at once).  Each of its 128 threads runs the recurrence
-// for 4 rings (j = q * 128 + t, coalesced) and stores lambda for 16 degrees
-// into the tile; after a barrier, 8 threads share each degree's two dot
-// products (re, im) over the 512 rings, strided by 8, and a 3-step
-// warp-shuffle tree sums them.  Rows are padded to 520 floats so the four
-// degrees a warp reads hit distinct banks.  The 512-ring tiles of a degree
-// are combined with atomicAdd into the zeroed alm buffer, as in K1: for
-// J > 512 the last bits of alm can change from run to run.
+// What bounds it on the H100: instruction issue on the CUDA cores.  Per
+// (l, m, j) element the recurrence costs 4 rounded operations there (no
+// FMA, as the twin rounds them); the 2 products (re, im) run on the
+// tensor cores, where even 3 TF32 products each take about a third of the
+// recurrence's time at the card's peaks.  The route adds the store of
+// lambda, its load and its split for the tensor cores on the CUDA cores.
+// E and O are read once and alm is written once, so device memory does
+// not bound it.
+//
+// Design:
+//  - the store phase is K1's sweep (legendre_common.cuh's analysis_sweep,
+//    which this file gives its store and contraction): each thread carries
+//    the recurrence of 4 rings, the recurrence coefficients of 128 degrees
+//    are computed once per block into shared memory, the seed row l == m is
+//    peeled off the loop, and a warp runs each group of 16 degrees in one
+//    of three modes chosen by a vote (legendre_common.cuh): the recurrence
+//    alone while every ring's lambda is 0 (nothing is stored or
+//    contracted), the careful recurrence, and once all its rings are at
+//    k == 0 the bare one.  A thread stores its 4 rings' lambda of a degree
+//    as one float4;
+//  - the contraction runs on the tensor cores: mma.sync m16n8k8 with TF32
+//    operands, 16 degrees x 8 rings times 8 rings x 8 columns, the columns
+//    being the four sources (S0, S1) x (re, im) split into a TF32 high part
+//    and the rest.  lambda is split the same way and each of its parts is
+//    multiplied into a sum of its own, so the four products hi.hi, hi.lo,
+//    lo.hi and lo.lo keep each product to 2^-21 (the TPU's 6-pass HIGHEST
+//    does the same with bf16 parts; plain TF32 would lose ~3 digits).  A
+//    warp contracts only the 128 rings that it stored itself, so store and
+//    contraction are separated by __syncwarp alone, and the sources'
+//    fragments are built once per block and kept in registers.  The same
+//    tile contracted in FP32 FMAs on the CUDA cores (a row of
+//    tools/legendre_variants.py) was 6 % slower;
+//  - each degree keeps the pair of its l parity; the four warps' partial
+//    sums of a block of degrees meet in shared memory (one barrier per 16
+//    degrees) and the 512-ring tiles of a degree are combined with
+//    atomicAdd into the zeroed alm buffer, as in K1: for J > 512 the last
+//    bits of alm can change from run to run.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "legendre_common.cuh"
 
 namespace {
 
-using calclens::coeffs;
 using calclens::diag_seed;
-using calclens::lam_step;
+using calclens::Rings;
 
 constexpr int kThreads = 128;
-constexpr int kRingsPerThread = 4;
-constexpr int kTileJ = kThreads * kRingsPerThread;  // 512 rings: the mcut tile
-constexpr int kBlockL = 16;                 // degrees stored per contraction
-constexpr int kStride = kTileJ + 8;         // padded row (bank spread)
-constexpr int kSplit = kThreads / kBlockL;  // threads per degree's dot
+constexpr int kWarps = kThreads / 32;
+constexpr int kRings = 4;                   // rings per thread
+constexpr int kWarpJ = 32 * kRings;         // rings a warp stores
+constexpr int kTileJ = kWarps * kWarpJ;     // 512 rings: the mcut tile
+constexpr int kChunkL = kThreads;           // degrees per coefficient chunk
+constexpr int kBlockL = 16;  // degrees per contraction and per vote
+// floats per stored degree row: 128 rings + 16, so that the float4 reads of
+// rows g and g + 1 in a quarter-warp hit distinct banks
+constexpr int kRow = kWarpJ + 16;
 
-static_assert(kSplit == 8, "the shuffle tree below sums groups of 8 lanes");
+// x = hi + lo to 2^-21 of x, both TF32 operands of mma: hi is x rounded
+// to 10 mantissa bits (to nearest, ties away: add half a unit to the bits,
+// clear the 13 below), lo = x - hi exactly, |lo| <= 2^-11 |x|.  The tensor
+// cores read the top 19 bits of an operand, so lo enters truncated, within
+// 2^-10 of itself.  Three instructions per value; on sm_90
+// cvt.rna.tf32.f32 becomes four (with a test for infinities that lambda
+// never holds).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// d += a b for one m16n8k8 TF32 tile, float32 sums
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a thread stores its 4 rings' lambda of a degree as one float4
+struct Store : Rings<kRings> {
+  template <int P>
+  __device__ __forceinline__ void emit(float* row, const float (&lam)[kRings],
+                                       const float (&)[kRings]) {
+    *reinterpret_cast<float4*>(row) =
+        make_float4(lam[0], lam[1], lam[2], lam[3]);
+  }
+
+  // every lambda is 0: nothing is stored or contracted
+  __device__ __forceinline__ void emit_zero(float*) {}
+};
 
 __global__ void __launch_bounds__(kThreads)
 legendre_analysis_dot_kernel(const float* __restrict__ ere,
@@ -70,87 +128,125 @@ legendre_analysis_dot_kernel(const float* __restrict__ ere,
   const int m = blockIdx.y;
   if (m >= mcut[jt]) return;  // whole (m, tile) below f32 significance
 
-  __shared__ float lam_s[kBlockL][kStride];
-  __shared__ float src[4][kStride];  // S0 re, S0 im, S1 re, S1 im
-  __shared__ float coef_a[kBlockL];
-  __shared__ float coef_b[kBlockL];
+  __shared__ __align__(16) float2 coef[kChunkL];  // (a, b) per degree
+  __shared__ __align__(16) float lam_s[kWarps][kBlockL][kRow];
+  __shared__ float2 part[2][kWarps][kBlockL];  // per-warp (re, im) sums
 
   const int t = threadIdx.x;
+  const int w = t >> 5;
+  const int lane = t & 31;
   const float mf = static_cast<float>(m);
   const bool m_even = (m & 1) == 0;
-  const float logc_m = logc[m];
+  const size_t mrow = static_cast<size_t>(m) * J;
+  const int jw = jt * kTileJ + w * kWarpJ;  // the warp's first ring
 
-  float c[kRingsPerThread], pp[kRingsPerThread], pc[kRingsPerThread];
-  float sv[kRingsPerThread];
-  int k[kRingsPerThread], sk[kRingsPerThread];
+  // ring q of a thread: jw + 32 q + lane, stored at column 4 lane + q
+  Store s;
+  float sv[kRings];
+  int sk[kRings];
 #pragma unroll
-  for (int q = 0; q < kRingsPerThread; ++q) {
-    const int jl = q * kThreads + t;
-    const int j = jt * kTileJ + jl;
-    float er = 0.0f, ei = 0.0f, orr = 0.0f, oi = 0.0f;
-    c[q] = 0.0f;
+  for (int q = 0; q < kRings; ++q) {
+    const int j = jw + 32 * q + lane;
+    s.c[q] = 0.0f;
     sv[q] = 0.0f;
     sk[q] = 0;
     if (j < J) {
-      const size_t o = static_cast<size_t>(m) * J + j;
-      er = ere[o];
-      ei = eim[o];
-      orr = ore[o];
-      oi = oim[o];
-      c[q] = cth[j];
-      diag_seed(logc_m, mf, ln_sth[j], sv[q], sk[q]);
+      s.c[q] = cth[j];
+      diag_seed(logc[m], mf, ln_sth[j], sv[q], sk[q]);
     }
-    src[0][jl] = m_even ? er : orr;
-    src[1][jl] = m_even ? ei : oi;
-    src[2][jl] = m_even ? orr : er;
-    src[3][jl] = m_even ? oi : ei;
-    pp[q] = pc[q] = 0.0f;
-    k[q] = 0;
   }
 
-  const int deg = t / kSplit;  // the degree of the block this thread sums
-  const int sub = t % kSplit;  // its share of the rings: sub, sub + 8, ...
-  for (int l0 = m; l0 < nl; l0 += kBlockL) {
-    const int nc = min(kBlockL, nl - l0);
-    __syncthreads();  // the previous contraction is done with the tile
-    if (t < nc) {
-      coeffs(static_cast<float>(l0 + t), mf, coef_a[t], coef_b[t]);
-    }
-    __syncthreads();
-    for (int i = 0; i < nc; ++i) {
-      const float a = coef_a[i];
-      const float b = coef_b[i];
+  // the sources at column v = 4 p' + q of the warp's rows: ring
+  // jw + 32 q + p'.  The B fragment of k-step 2p + h (rows kk = tig,
+  // tig + 4 of the 8-ring step) is columns 16 p + 4 tig + 2 h + (0, 1);
+  // column n = g of B is source g & 3 (S0 re, S0 im, S1 re, S1 im), its
+  // high part for g < 4 and its low part for g >= 4.
+  const int g = lane >> 2, tig = lane & 3;
+  uint32_t bf[8][4];
+  {
+    const float* s0r = m_even ? ere : ore;
+    const float* s0i = m_even ? eim : oim;
+    const float* s1r = m_even ? ore : ere;
+    const float* s1i = m_even ? oim : eim;
+    const float* src = (g & 3) == 0 ? s0r : (g & 3) == 1 ? s0i
+                       : (g & 3) == 2 ? s1r : s1i;
 #pragma unroll
-      for (int q = 0; q < kRingsPerThread; ++q) {
-        // l == m is the diagonal seed row (a block-uniform branch)
-        lam_s[i][q * kThreads + t] = lam_step(l0 + i == m, a, b, c[q], sv[q],
-                                              sk[q], pp[q], pc[q], k[q]);
-      }
-    }
-    __syncthreads();
-    float pr = 0.0f, pim = 0.0f;
-    if (deg < nc) {
-      const int par = (l0 + deg) & 1;
-      const float* lr = lam_s[deg];
-      const float* sr = src[2 * par];
-      const float* si = src[2 * par + 1];
-#pragma unroll 8
-      for (int jj = sub; jj < kTileJ; jj += kSplit) {
-        pr += lr[jj] * sr[jj];
-        pim += lr[jj] * si[jj];
-      }
-    }
+    for (int p = 0; p < 8; ++p) {
 #pragma unroll
-    for (int off = kSplit / 2; off > 0; off >>= 1) {
-      pr += __shfl_xor_sync(0xffffffffu, pr, off);
-      pim += __shfl_xor_sync(0xffffffffu, pim, off);
-    }
-    if (sub == 0 && deg < nc) {
-      const size_t o = static_cast<size_t>(m) * nl + l0 + deg;
-      atomicAdd(alm_re + o, pr);
-      atomicAdd(alm_im + o, pim);
+      for (int q = 0; q < kRings; ++q) {
+        const int j = jw + 32 * q + 4 * p + tig;
+        const float x = j < J ? src[mrow + j] : 0.0f;
+        uint32_t hi, lo;
+        split(x, hi, lo);
+        bf[p][q] = g < 4 ? hi : lo;
+      }
     }
   }
+
+  int buf = 0;
+  calclens::analysis_sweep<kBlockL, kRow>(
+      s, coef, m, nl, sv, sk, [&] { return &lam_s[w][0][4 * lane]; },
+      [&](int lb, bool stored) {
+        __syncwarp();  // the warp's lambda of these 16 degrees is stored
+        if (!stored) {
+          if (lane < kBlockL) part[buf][w][lane] = make_float2(0.0f, 0.0f);
+        } else {
+          // the 16 degrees' sums over the warp's rings, lambda's high and
+          // low parts in two sums: two independent chains
+          float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          float e[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          const float* r0 = &lam_s[w][g][4 * tig];
+          const float* r1 = &lam_s[w][g + 8][4 * tig];
+#pragma unroll
+          for (int p = 0; p < 8; ++p) {
+            const float4 x = *reinterpret_cast<const float4*>(r0 + 16 * p);
+            const float4 y = *reinterpret_cast<const float4*>(r1 + 16 * p);
+            uint32_t ah[4], al[4];
+            // k-step 2p: columns (tig, tig + 4) = stored (x, y).(x, y)
+            split(x.x, ah[0], al[0]);
+            split(y.x, ah[1], al[1]);
+            split(x.y, ah[2], al[2]);
+            split(y.y, ah[3], al[3]);
+            mma_tf32(d, ah, bf[p][0], bf[p][1]);
+            mma_tf32(e, al, bf[p][0], bf[p][1]);
+            // k-step 2p + 1: stored (x, y).(z, w)
+            split(x.z, ah[0], al[0]);
+            split(y.z, ah[1], al[1]);
+            split(x.w, ah[2], al[2]);
+            split(y.w, ah[3], al[3]);
+            mma_tf32(d, ah, bf[p][2], bf[p][3]);
+            mma_tf32(e, al, bf[p][2], bf[p][3]);
+          }
+          // d = rows (g, g + 8) x columns (2 tig, 2 tig + 1): tig 0 and 1
+          // hold S0 and S1 (re, im) of the high parts, tig 2 and 3 of the
+          // low
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            d[c] += e[c];
+            d[c] += __shfl_xor_sync(0xffffffffu, d[c], 2);
+          }
+          // rows g and g + 8 share the parity of degree lb + g
+          if (tig == ((lb + g) & 1)) {
+            part[buf][w][g] = make_float2(d[0], d[1]);
+            part[buf][w][g + 8] = make_float2(d[2], d[3]);
+          }
+        }
+        __syncthreads();  // every warp's partial sums of these degrees are in
+        if (t < 2 * kBlockL) {
+          const int dg = t >> 1;
+          if (lb + dg < nl) {
+            float v = 0.0f;
+#pragma unroll
+            for (int u = 0; u < kWarps; ++u) {
+              const float2 x = part[buf][u][dg];
+              v += (t & 1) ? x.y : x.x;
+            }
+            const size_t o = static_cast<size_t>(m) * nl + lb + dg;
+            atomicAdd(((t & 1) ? alm_im : alm_re) + o, v);
+          }
+        }
+        buf ^= 1;  // the next partial sums go to the other buffer
+      });
 }
 
 }  // namespace

@@ -183,4 +183,239 @@ __device__ __forceinline__ Mode warp_mode(const float (&cf)[R]) {
   return __all_sync(0xffffffffu, zero) ? Mode::kZero : Mode::kCareful;
 }
 
+// ---------------------------------------------------------------------------
+// The sweep of K1-K4 over the degrees, on top of the steps above.  A kernel
+// derives its per-thread state from Rings<R> and supplies only what it does
+// with one degree's lambda:
+//
+//   template <int P> void emit(Out o, const float (&lam)[R],
+//                              const float (&lam_prev)[R]);
+//   void emit_zero(Out o);  // the zero mode: every lambda is 0
+//
+// P = (l - m) mod 2, lam and lam_prev are lambda_l and lambda_{l-1} of its
+// rings, and Out addresses the degree: K2 and K3 get the degree's staged
+// inputs, K1 and K4 its output row.  K2 and K3 run synth_sweep, K1 and K4
+// analysis_sweep.
+// ---------------------------------------------------------------------------
+
+template <int R>
+struct Rings {
+  static constexpr int kR = R;
+  float c[R], pp[R], pc[R], cf[R];  // cos theta; recurrence state and scale
+  int k[R];
+};
+
+template <Mode M>
+struct ModeTag {
+  static constexpr Mode value = M;
+};
+
+// One degree with coefficients (a, b) in mode M: the recurrence, then its
+// lambda_l and lambda_{l-1} to emit<P>: pc and pp themselves in the steady
+// mode (cf == 1, so both are exact), both times cf after the rescale test in
+// the careful mode; emit_zero in the zero mode.
+template <int P, Mode M, class S, class Out>
+__device__ __forceinline__ void sweep_degree(S& s, float a, float b, Out o) {
+  rec_step(a, b, s.c, s.pp, s.pc);
+  if constexpr (M == Mode::kSteady) {
+    s.template emit<P>(o, s.pc, s.pp);
+  } else {
+    rescale_rings(s.pp, s.pc, s.k, s.cf);
+    if constexpr (M == Mode::kCareful) {
+      float lam[S::kR], lam_prev[S::kR];
+#pragma unroll
+      for (int q = 0; q < S::kR; ++q) {
+        lam[q] = __fmul_rn(s.pc[q], s.cf[q]);
+        lam_prev[q] = __fmul_rn(s.pp[q], s.cf[q]);
+      }
+      s.template emit<P>(o, lam, lam_prev);
+    } else {
+      s.emit_zero(o);
+    }
+  }
+}
+
+// The seed row l == m from the diagonal seeds (sv, sk): lambda_mm to
+// emit<0>, with lambda_{m-1,m} = pp = 0.
+template <class S, class Out>
+__device__ __forceinline__ void sweep_seed(S& s, const float (&sv)[S::kR],
+                                           const int (&sk)[S::kR], Out o) {
+  float lam[S::kR];
+  seed_rings(sv, sk, s.pp, s.pc, s.k, s.cf, lam);
+  s.template emit<0>(o, lam, s.pp);
+}
+
+// Runs group(ModeTag<mode>) in the warp's mode, then votes the next one; a
+// steady warp stays steady (k only grows, and is 0 on every ring).  Returns
+// false when the group ran in the zero mode.
+template <class S, class Group>
+__device__ __forceinline__ bool vote_group(const S& s, Mode& mode,
+                                           Group&& group) {
+  if (mode == Mode::kSteady) {
+    group(ModeTag<Mode::kSteady>{});
+    return true;
+  }
+  const bool zero = mode == Mode::kZero;
+  if (zero) {
+    group(ModeTag<Mode::kZero>{});
+  } else {
+    group(ModeTag<Mode::kCareful>{});
+  }
+  mode = warp_mode(s.cf);
+  return !zero;
+}
+
+// --- K2 and K3: a block is one m times kWarps warps of 32 R consecutive
+// rings (a warp's ring tile, the unit of the m cutoff); it stages kChunk
+// degrees at a time, V float4 per degree, the first float4 (a, b, ., .).
+
+// Degrees i .. i + G - 1 of the staged chunk sh in mode M, unrolled by 2
+// (i even, so degree i has P = 0); with kSeed degree i is the seed row.
+template <int G, int V, Mode M, bool kSeed, class S>
+__device__ __forceinline__ void synth_group(S& s, const float4* sh, int i,
+                                            const float (&sv)[S::kR],
+                                            const int (&sk)[S::kR]) {
+  const float4* g = sh + i * V;
+#pragma unroll
+  for (int u = 0; u < G; u += 2) {
+    const float4* d0 = g + u * V;
+    const float4* d1 = d0 + V;
+    // both degrees' coefficients first: on the H100 that made K2's
+    // 4-column form 2 % faster (fewer register copies in its careful
+    // degrees) and K3's potential-only form 3 % slower than with each load
+    // beside its degree; the other sweeps moved by less than 1 %
+    const float4 ab0 = d0[0], ab1 = d1[0];
+    if (kSeed && u == 0) {
+      sweep_seed(s, sv, sk, d0);
+    } else {
+      sweep_degree<0, M>(s, ab0.x, ab0.y, d0);
+    }
+    sweep_degree<1, M>(s, ab1.x, ab1.y, d1);
+  }
+}
+
+// The warp's tile of a block of K2 or K3: ring q of the thread is
+// j0 + 32 q; a warp is active if its tile holds rings and lies below its
+// cutoff mcut[tile]; a block with no active warp stages nothing (l_end = m)
+// and its warps write their zeros.
+struct SynthTile {
+  int tile, j0, l_end;
+  bool active;
+};
+
+template <int kWarps, int kTileJ>
+__device__ __forceinline__ SynthTile synth_tile(const int* mcut, int m,
+                                                int nl, int J) {
+  SynthTile w;
+  const int lane = threadIdx.x & 31;
+  w.tile = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  w.j0 = w.tile * kTileJ + lane;
+  w.active = w.j0 - lane < J && m < mcut[w.tile];
+  w.l_end = __syncthreads_or(w.active) ? nl : m;
+  return w;
+}
+
+// The sweep of degrees m .. nl - 1: per chunk, thread t stages degree
+// l0 + t by stage(l, sh[t]) (l may pass nl: it stages zeros, so the last
+// chunk is padded to whole groups), then an active warp runs the chunk in
+// groups of G: the seed group first, then a vote after each group that was
+// not steady.
+template <int G, int V, int kChunk, class S, class Stage>
+__device__ __forceinline__ void synth_sweep(S& s, float4 (&sh)[kChunk][V],
+                                            int m, int nl,
+                                            const SynthTile& w,
+                                            const float (&sv)[S::kR],
+                                            const int (&sk)[S::kR],
+                                            Stage&& stage) {
+  const int t = threadIdx.x;
+  Mode mode = Mode::kCareful;
+  for (int l0 = m; l0 < w.l_end; l0 += kChunk) {
+    __syncthreads();  // the previous chunk's readers are done
+    stage(l0 + t, sh[t]);
+    __syncthreads();
+    if (!w.active) continue;  // warp-uniform
+    const float4* c = &sh[0][0];
+    const int nc = min(kChunk, nl - l0);
+    int i = 0;
+    if (l0 == m) {
+      synth_group<G, V, Mode::kCareful, true>(s, c, 0, sv, sk);
+      mode = warp_mode(s.cf);
+      i = G;
+    }
+    for (; i < nc; i += G) {
+      vote_group(s, mode, [&](auto tag) {
+        synth_group<G, V, decltype(tag)::value, false>(s, c, i, sv, sk);
+      });
+    }
+  }
+}
+
+// --- K1 and K4: a block is one m times a ring tile; the recurrence
+// coefficients of kChunk degrees are staged once per chunk, and degree
+// i + u of a group of G emits into rows + u * kStride.
+
+// Degrees i .. i + G - 1 in mode M with coefficient pairs coef2[i / 2 ..]
+// (two degrees per float4), unrolled by 2; with kSeed degree i is the seed
+// row.
+template <int G, int kStride, Mode M, bool kSeed, class S>
+__device__ __forceinline__ void analysis_group(S& s, const float4* coef2,
+                                               int i, float* rows,
+                                               const float (&sv)[S::kR],
+                                               const int (&sk)[S::kR]) {
+#pragma unroll
+  for (int u = 0; u < G; u += 2) {
+    const float4 ab = coef2[(i + u) / 2];  // degrees i + u, i + u + 1
+    if (kSeed && u == 0) {
+      sweep_seed(s, sv, sk, rows);
+    } else {
+      sweep_degree<0, M>(s, ab.x, ab.y, rows + u * kStride);
+    }
+    sweep_degree<1, M>(s, ab.z, ab.w, rows + (u + 1) * kStride);
+  }
+}
+
+// The sweep of degrees m .. nl - 1 for degree m's block: per chunk the
+// coefficients (thread t stages degree l0 + t, zeros past nl), then groups
+// of G degrees, each emitting into rows() and followed by
+// after(first degree of the group, stored), stored being false when the
+// group ran in the zero mode.  after may hold barriers: every warp of the
+// block runs every group.
+template <int G, int kStride, int kChunk, class S, class Rows, class After>
+__device__ __forceinline__ void analysis_sweep(S& s, float2 (&coef)[kChunk],
+                                               int m, int nl,
+                                               const float (&sv)[S::kR],
+                                               const int (&sk)[S::kR],
+                                               Rows&& rows, After&& after) {
+  const int t = threadIdx.x;
+  const float mf = static_cast<float>(m);
+  Mode mode = Mode::kCareful;
+  for (int l0 = m; l0 < nl; l0 += kChunk) {
+    __syncthreads();  // the previous chunk's coefficient readers are done
+    {
+      const int l = l0 + t;
+      float a = 0.0f, b = 0.0f;
+      if (l < nl) coeffs(static_cast<float>(l), mf, a, b);
+      coef[t] = make_float2(a, b);
+    }
+    __syncthreads();
+    const float4* coef2 = reinterpret_cast<const float4*>(coef);
+    const int nc = min(kChunk, nl - l0);
+    for (int i = 0; i < nc; i += G) {
+      float* r = rows();
+      bool stored = true;
+      if (l0 == m && i == 0) {
+        analysis_group<G, kStride, Mode::kCareful, true>(s, coef2, 0, r, sv,
+                                                         sk);
+        mode = warp_mode(s.cf);
+      } else {
+        stored = vote_group(s, mode, [&](auto tag) {
+          analysis_group<G, kStride, decltype(tag)::value, false>(
+              s, coef2, i, r, sv, sk);
+        });
+      }
+      after(l0 + i, stored);
+    }
+  }
+}
+
 }  // namespace calclens

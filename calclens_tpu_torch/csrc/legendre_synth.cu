@@ -36,7 +36,8 @@
 //    and l(l+1), with the recurrence coefficients in shared memory;
 //  - the seed row l == m is peeled off the loop; after it a warp runs its
 //    degrees in groups of 8 (16 for the 4 columns) in one of three modes,
-//    chosen by a vote after each group (legendre_common.cuh): while every
+//    chosen by a vote after each group (legendre_common.cuh's synth_sweep,
+//    which K3 shares; this file supplies the column sums): while every
 //    ring's lambda is 0 (scale k <= -2) the recurrence alone, without the
 //    column FMAs; then the careful recurrence (rescale test, scale factor);
 //    once every ring of the warp is at k == 0 the bare 4-operation
@@ -59,11 +60,8 @@ namespace {
 
 using calclens::coeffs;
 using calclens::diag_seed;
-using calclens::Mode;
-using calclens::rec_step;
-using calclens::rescale_rings;
-using calclens::seed_rings;
-using calclens::warp_mode;
+using calclens::Rings;
+using calclens::SynthTile;
 
 constexpr int kRings = 4;                 // rings per thread
 constexpr int kWarps = 4;
@@ -74,20 +72,19 @@ constexpr int kChunkL = kThreads;         // degrees per shared chunk
 
 // kStreams = 8 (16 columns, with derivatives) or 2 (4 columns, potential)
 template <int kStreams>
-struct Synth {
+struct Synth : Rings<kRings> {
   static constexpr int kVec = kStreams == 8 ? 3 : 1;  // float4 per degree
   // degrees between two votes: 16 for the 4 columns; 8 for the 16, whose
   // 16-degree group took 129 registers and ran slower
   static constexpr int kGroup = kStreams == 8 ? 8 : 16;
 
-  float c[kRings], pp[kRings], pc[kRings], cf[kRings];
-  int k[kRings];
   float acc[2][kRings][kStreams];  // [(l - m) mod 2][ring][stream]
 
   // s: the degree's staged float4s; P = (l - m) mod 2
   template <int P>
-  __device__ __forceinline__ void add(const float4* s,
-                                      const float (&lam)[kRings]) {
+  __device__ __forceinline__ void emit(const float4* s,
+                                       const float (&lam)[kRings],
+                                       const float (&)[kRings]) {
     const float4 s0 = s[0];
 #pragma unroll
     for (int q = 0; q < kRings; ++q) {
@@ -109,49 +106,7 @@ struct Synth {
     }
   }
 
-  template <int P, Mode kMode>
-  __device__ __forceinline__ void degree(const float4* s) {
-    const float4 s0 = s[0];
-    rec_step(s0.x, s0.y, c, pp, pc);
-    if constexpr (kMode == Mode::kSteady) {
-      add<P>(s, pc);
-    } else {
-      rescale_rings(pp, pc, k, cf);
-      if constexpr (kMode == Mode::kCareful) {
-        float lam[kRings];
-#pragma unroll
-        for (int q = 0; q < kRings; ++q) lam[q] = __fmul_rn(pc[q], cf[q]);
-        add<P>(s, lam);
-      }
-    }
-  }
-
-  // degrees i .. i + kGroup - 1 of the chunk sh [kChunkL][kVec]; i even,
-  // so degree i has P = 0
-  template <Mode kMode>
-  __device__ __forceinline__ void group(const float4* sh, int i) {
-    const float4* g = sh + i * kVec;
-#pragma unroll
-    for (int u = 0; u < kGroup; u += 2) {
-      degree<0, kMode>(g + u * kVec);
-      degree<1, kMode>(g + (u + 1) * kVec);
-    }
-  }
-
-  // the first group of the first chunk: the seed row l == m, then careful
-  __device__ __forceinline__ void seed_group(const float4* sh,
-                                             const float (&sv)[kRings],
-                                             const int (&sk)[kRings]) {
-    float lam[kRings];
-    seed_rings(sv, sk, pp, pc, k, cf, lam);
-    add<0>(sh, lam);
-    degree<1, Mode::kCareful>(sh + kVec);
-#pragma unroll
-    for (int u = 2; u < kGroup; u += 2) {
-      degree<0, Mode::kCareful>(sh + u * kVec);
-      degree<1, Mode::kCareful>(sh + (u + 1) * kVec);
-    }
-  }
+  __device__ __forceinline__ void emit_zero(const float4*) {}
 };
 
 template <int kStreams>
@@ -168,18 +123,10 @@ legendre_synth_kernel(const float* __restrict__ a_re,  // [nm, nl]
                       int nl, int J) {
   using S = Synth<kStreams>;
   constexpr int kVec = S::kVec;
-  constexpr int kGroup = S::kGroup;
   __shared__ float4 sh[kChunkL][kVec];
 
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int tile = blockIdx.x * kWarps + (t >> 5);
   const int m = blockIdx.y;
-  const int j0 = tile * kTileJ + lane;  // ring q of the thread: j0 + 32 q
-  const bool active = j0 - lane < J && m < mcut[tile];
-  // a block with no active warp skips the sweep and writes zeros
-  const int l_end = __syncthreads_or(active) ? nl : m;
-
+  const SynthTile w = calclens::synth_tile<kWarps, kTileJ>(mcut, m, nl, J);
   const float mf = static_cast<float>(m);
   const size_t row = static_cast<size_t>(m) * nl;
   S s;
@@ -187,11 +134,11 @@ legendre_synth_kernel(const float* __restrict__ a_re,  // [nm, nl]
   int sk[kRings];
 #pragma unroll
   for (int q = 0; q < kRings; ++q) {
-    const int j = j0 + 32 * q;
+    const int j = w.j0 + 32 * q;
     s.c[q] = 0.0f;
     sv[q] = 0.0f;
     sk[q] = 0;
-    if (active && j < J) {
+    if (w.active && j < J) {
       s.c[q] = cth[j];
       diag_seed(logc[m], mf, ln_sth[j], sv[q], sk[q]);
     }
@@ -201,53 +148,29 @@ legendre_synth_kernel(const float* __restrict__ a_re,  // [nm, nl]
     }
   }
 
-  Mode mode = Mode::kCareful;
-  for (int l0 = m; l0 < l_end; l0 += kChunkL) {
-    __syncthreads();  // the previous chunk's readers are done
-    {
-      const int l = l0 + t;  // degrees past nl are staged as zeros
-      float4 v0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), v1 = v0, v2 = v0;
-      if (l < nl) {
-        const float lf = static_cast<float>(l);
-        float ca, cb;
-        coeffs(lf, mf, ca, cb);
-        const float ar = a_re[row + l], ai = a_im[row + l];
-        v0 = make_float4(ca, cb, ar, ai);
+  calclens::synth_sweep<S::kGroup, kVec>(
+      s, sh, m, nl, w, sv, sk, [&](int l, float4 (&d)[kVec]) {
+        float4 v0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), v1 = v0, v2 = v0;
+        if (l < nl) {
+          const float lf = static_cast<float>(l);
+          float ca, cb;
+          coeffs(lf, mf, ca, cb);
+          const float ar = a_re[row + l], ai = a_im[row + l];
+          v0 = make_float4(ca, cb, ar, ai);
+          if constexpr (kStreams == 8) {
+            const float l2 = __fmul_rn(lf, lf + 1.0f);
+            v1 = make_float4(__fmul_rn(ar, lf), __fmul_rn(ai, lf),
+                             h_re[row + l], h_im[row + l]);
+            v2 = make_float4(__fmul_rn(ar, l2), __fmul_rn(ai, l2), 0.0f,
+                             0.0f);
+          }
+        }
+        d[0] = v0;
         if constexpr (kStreams == 8) {
-          const float l2 = __fmul_rn(lf, lf + 1.0f);
-          v1 = make_float4(__fmul_rn(ar, lf), __fmul_rn(ai, lf),
-                           h_re[row + l], h_im[row + l]);
-          v2 = make_float4(__fmul_rn(ar, l2), __fmul_rn(ai, l2), 0.0f, 0.0f);
+          d[1] = v1;
+          d[2] = v2;
         }
-      }
-      sh[t][0] = v0;
-      if constexpr (kStreams == 8) {
-        sh[t][1] = v1;
-        sh[t][2] = v2;
-      }
-    }
-    __syncthreads();
-    if (!active) continue;  // warp-uniform
-    const int nc = min(kChunkL, nl - l0);
-    int i = 0;
-    if (l0 == m) {
-      s.seed_group(&sh[0][0], sv, sk);
-      mode = warp_mode(s.cf);
-      i = kGroup;
-    }
-    for (; i < nc; i += kGroup) {
-      if (mode == Mode::kSteady) {
-        s.template group<Mode::kSteady>(&sh[0][0], i);
-      } else {
-        if (mode == Mode::kZero) {
-          s.template group<Mode::kZero>(&sh[0][0], i);
-        } else {
-          s.template group<Mode::kCareful>(&sh[0][0], i);
-        }
-        mode = warp_mode(s.cf);
-      }
-    }
-  }
+      });
 
   // even-l sums are the (l - m)-even ones for even m, the odd ones for odd
   // m; a warp beyond its cutoff writes its zeros
@@ -255,7 +178,7 @@ legendre_synth_kernel(const float* __restrict__ a_re,  // [nm, nl]
   float* o = out + static_cast<size_t>(m) * (2 * kStreams) * J;
 #pragma unroll
   for (int q = 0; q < kRings; ++q) {
-    const int j = j0 + 32 * q;
+    const int j = w.j0 + 32 * q;
     if (j >= J) continue;
 #pragma unroll
     for (int i = 0; i < kStreams; ++i) {

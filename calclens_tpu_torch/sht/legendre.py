@@ -13,14 +13,15 @@ Synthesis, sum_l lambda_lm(theta_j) s(l, m) per ring pair:
     beyond the per-tile turning-point cutoff;
   * K3 (csrc/legendre_synth_vpu.cu; replaces pallas_legendre.py::
     _synth_kernel): l-parity buckets of a lambda, lambda' and lambda''
-    formed per degree, with lambda_mm seeded by a chain of products.
+    formed per degree, with lambda_mm seeded by a chain of products (a
+    pre-pass on the card walks it once per ring pair), 0 beyond K2's
+    per-tile cutoff.
 
 Each kernel has a plain PyTorch twin here: a Python loop over l on
 [rows, J] tensors that computes the kernel's own math (the diagonal seed,
-the 2^64 scale counter, the per-j-tile turning-point cutoffs of K1, K2
-and K4) with the same float32 roundings, op for op, as the kernels'
-recurrence (csrc/legendre_common.cuh): near the poles the recurrence
-amplifies a rounding difference by up to ~1/sin(theta), so only an
+the 2^64 scale counter, the per-j-tile turning-point cutoffs of K1-K4)
+with the same float32 roundings, op for op, as the kernels' recurrence
+(csrc/legendre_common.cuh): near the poles the recurrence amplifies a rounding difference by up to ~1/sin(theta), so only an
 evaluation that rounds alike can be held to float32 accuracy.  A twin
 computes every m row by default; the twins of K2, K3 and K4 take `m` (an
 int64 tensor of the m value of each input row) to compute some rows only,
@@ -45,7 +46,7 @@ _Y00 = 0.28209479177387814  # lambda_00 = 1 / sqrt(4 pi)
 
 # rings per analysis block: K1's and K4's tile, and the unit of their m cutoff
 ANALYSIS_TILE_J = 512
-# rings per warp of K2: the unit of its m cutoff
+# rings per warp of K2 and K3: the unit of their m cutoff
 SYNTH_TILE_J = 128
 # degrees whose lambda K4 stores before each contraction
 DOT_BLOCK_L = 16
@@ -165,7 +166,7 @@ def _check_cuda_f32(name, tensors, shapes):
     for key, x in tensors.items():
         if x.device.type != "cuda":
             raise ValueError(f"{name}: {key} is on {x.device}, not on CUDA")
-        want = torch.int32 if key == "mcut" else torch.float32
+        want = torch.int32 if key in ("mcut", "seed_k") else torch.float32
         if x.dtype != want:
             raise TypeError(f"{name}: {key} is {x.dtype}; the kernel takes "
                             f"{want} only")
@@ -219,7 +220,7 @@ def analysis_mcut(sth_host, nl: int, nm: int):
 
 
 def synth_mcut(sth_host, nl: int, nm: int):
-    """K2's cutoff: tile_mcut on its 128-ring tiles."""
+    """K2's and K3's cutoff: tile_mcut on their 128-ring tiles."""
     return tile_mcut(sth_host, nl, nm, SYNTH_TILE_J)
 
 
@@ -489,13 +490,30 @@ def q_from_columns(plan, c, m=None):
 # K3: synthesis by l-parity buckets
 # ----------------------------------------------------------------------------
 
+def chain_seed_cuda(sth, nm: int):
+    """Launch K3's seed pre-pass (`legendre_chain_seed`) on sth's CUDA
+    device and PyTorch's current stream: chain_seed of every m < nm as
+    ([nm, J] float32 values, [nm, J] int32 counters); float32 only."""
+    name = "legendre_chain_seed"
+    J = sth.shape[0]
+    _check_problem(name, nm, J, 1)
+    _check_cuda_f32(name, dict(sth=sth), dict(sth=(J,)))
+    seed = torch.empty((nm, J), dtype=torch.float32, device=sth.device)
+    seed_k = torch.empty((nm, J), dtype=torch.int32, device=sth.device)
+    _launch(name, "legendre_chain_seed_launch", sth.device, sth.data_ptr(),
+            seed.data_ptr(), seed_k.data_ptr(), nm, J)
+    return seed, seed_k
+
+
 def synth_vpu_plain(a_re, a_im, cth, sth, cot, inv_sth, derivs: bool,
-                    m=None):
+                    m=None, mcut=None, tile_j: int = SYNTH_TILE_J):
     """K3's twin.  a_re, a_im [rows, nl] (the TRANSPOSED alm of
-    mx_prep(..., derivs=False)); cth, sth, cot, inv_sth [J].  Returns the
-    buckets [rows, 2 nacc, J], nacc = 6 with derivatives (a_re, a_im) x
-    (lambda, lambda', lambda'') or 2 without: column 2 s holds slot s summed
-    over even l (bucket A), column 2 s + 1 over odd l (bucket B).
+    mx_prep(..., derivs=False)); cth, sth, cot, inv_sth [J]; mcut int32
+    [ceil(J / tile_j)] or None (no cutoff).  Returns the buckets
+    [rows, 2 nacc, J], nacc = 6 with derivatives (a_re, a_im) x (lambda,
+    lambda', lambda'') or 2 without: column 2 s holds slot s summed over
+    even l (bucket A), column 2 s + 1 over odd l (bucket B); 0 where the
+    row's m is at or beyond the cutoff of the ring's tile.
 
     lambda' = l cot lambda - c_lm lambda_{l-1} / sin,
     lambda'' = (m^2/sin^2 - l(l+1)) lambda - cot lambda',
@@ -530,36 +548,48 @@ def synth_vpu_plain(a_re, a_im, cth, sth, cot, inv_sth, derivs: bool,
             b[3].addcmul_(ai, lamp)
             b[4].addcmul_(ar, lampp)
             b[5].addcmul_(ai, lampp)
+    if mcut is not None:
+        acc = torch.where(_below_cut(mcut, m, J, tile_j)[None, None], acc, 0.0)
     # [parity, slot] -> column 2 slot + parity
     return acc.permute(2, 1, 0, 3).reshape(rows, 2 * nacc, J).contiguous()
 
 
-def synth_vpu_cuda(a_re, a_im, cth, sth, cot, inv_sth, derivs: bool):
-    """Launch K3 on the tensors' CUDA device and PyTorch's current stream.
-    Same contract as synth_vpu_plain; float32 only."""
-    name = "legendre_synth_vpu"
+def synth_vpu_cuda(a_re, a_im, cth, sth, cot, inv_sth, derivs: bool, mcut,
+                   seed=None):
+    """Launch K3 (`legendre_synth_vpu` with derivatives,
+    `legendre_synth_vpu_phi` without) on the tensors' CUDA device and
+    PyTorch's current stream, after its seed pre-pass (chain_seed_cuda)
+    unless `seed` holds that pre-pass's (values, counters) for these rings.
+    Same contract as synth_vpu_plain with its SYNTH_TILE_J tiles; float32
+    only."""
+    name = "legendre_synth_vpu" if derivs else "legendre_synth_vpu_phi"
     nm, nl = a_re.shape
     J = cth.shape[0]
     _check_problem(name, nm, J, nl)
     _check_cuda_f32(
         name, dict(a_re=a_re, a_im=a_im, cth=cth, sth=sth, cot=cot,
-                   inv_sth=inv_sth),
+                   inv_sth=inv_sth, mcut=mcut),
         dict(a_re=(nm, nl), a_im=(nm, nl), cth=(J,), sth=(J,), cot=(J,),
-             inv_sth=(J,)))
+             inv_sth=(J,), mcut=(-(-J // SYNTH_TILE_J),)))
+    seed, seed_k = chain_seed_cuda(sth, nm) if seed is None else seed
+    _check_cuda_f32(name, dict(a_re=a_re, seed=seed, seed_k=seed_k),
+                    dict(a_re=(nm, nl), seed=(nm, J), seed_k=(nm, J)))
     out = torch.empty((nm, 12 if derivs else 4, J), dtype=torch.float32,
                       device=a_re.device)
     _launch(name, "legendre_synth_vpu_launch", a_re.device,
-            a_re.data_ptr(), a_im.data_ptr(), cth.data_ptr(), sth.data_ptr(),
-            cot.data_ptr(), inv_sth.data_ptr(), out.data_ptr(), nl, nm, J,
-            int(derivs))
+            a_re.data_ptr(), a_im.data_ptr(), cth.data_ptr(), cot.data_ptr(),
+            inv_sth.data_ptr(), seed.data_ptr(), seed_k.data_ptr(),
+            mcut.data_ptr(), out.data_ptr(), nl, nm, J, int(derivs))
     return out
 
 
-def synth_vpu_columns(a_re, a_im, cth, sth, cot, inv_sth, derivs: bool):
+def synth_vpu_columns(a_re, a_im, cth, sth, cot, inv_sth, derivs: bool,
+                      mcut):
     """K3 wrapper: the kernel for CUDA tensors, the twin for CPU tensors."""
     if a_re.device.type == "cpu":
-        return synth_vpu_plain(a_re, a_im, cth, sth, cot, inv_sth, derivs)
-    return synth_vpu_cuda(a_re, a_im, cth, sth, cot, inv_sth, derivs)
+        return synth_vpu_plain(a_re, a_im, cth, sth, cot, inv_sth, derivs,
+                               mcut=mcut)
+    return synth_vpu_cuda(a_re, a_im, cth, sth, cot, inv_sth, derivs, mcut)
 
 
 def q_from_buckets(plan, c, m=None):

@@ -102,15 +102,16 @@ def legendre_synthesis(plan: SHTPlan, alm, derivs: bool = True):
     d_theta, d_theta_theta) when derivs, else [1, nm, J] (phi): kernel K2
     (plan.synth_kernel "k2") or K3 ("k3") for CUDA tensors, its twin for CPU
     tensors (calclens_tpu/sht/transforms.py::_legendre_synth_dispatch).  K2
-    leaves 0 beyond its per-tile turning-point cutoff (plan.mcut), where
-    lambda is below float32 significance; the JAX package cuts its streamed
-    synthesis on ring windows by the same rule (_geo_view and
+    and K3 leave 0 beyond their per-tile turning-point cutoff (plan.mcut),
+    where lambda is below float32 significance; the JAX package cuts its
+    streamed synthesis on ring windows by the same rule (_geo_view and
     _legendre_synth_dispatch)."""
     if plan.synth_kernel == "k3":
         a_re, a_im = legendre.mx_prep(plan.nl, plan.nm, alm, plan.dtype,
                                       derivs=False)
         c = legendre.synth_vpu_columns(a_re, a_im, plan.cth, plan.sth,
-                                       plan.cot, plan.inv_sth, derivs)
+                                       plan.cot, plan.inv_sth, derivs,
+                                       plan.mcut(legendre.SYNTH_TILE_J))
         del a_re, a_im
         return legendre.q_from_buckets(plan, c)
     if plan.synth_kernel != "k2":

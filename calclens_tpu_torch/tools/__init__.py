@@ -7,7 +7,7 @@
 `roofline_legendre` measures the ceilings of the Legendre sweep (P1) and
 each Legendre kernel's share of them; `exp_gather` measures gathers from a
 table held on chip (P2-P4) beside torch's own `tab[idx]`;
-`legendre_variants` times design variants of K1 and K2 built from edited
+`legendre_variants` times design variants of K1-K4 built from edited
 copies of their sources.  All need a CUDA device: a measurement that finds
 none fails.  Nothing is compiled or
 launched when these modules are imported.

@@ -1,15 +1,18 @@
-"""Design variants of the Legendre sweeps K1 and K2, timed on the card.
+"""Design variants of the Legendre sweeps K1-K4, timed on the card.
 
     python -m calclens_tpu_torch.tools.legendre_variants [--order 12]
 
 Each variant is the kernels' sources (csrc/) with a few lines replaced,
 built into its own library under build/variants/ and loaded beside the
-port's; K2, K2-4col and K1 of every variant run on the same inputs (random
-alm and ring sums from a numpy seed, roofline_legendre._production_inputs)
-and the plan's ring geometry and cutoffs, and are timed with CUDA events.
+port's; K2, K2-4col, K1, K3 (with derivatives and without, on a seed
+table that its pre-pass wrote once) and K4 of every variant run on the
+same inputs (random alm and ring sums from a numpy seed,
+roofline_legendre._production_inputs) and the plan's ring geometry and
+cutoffs, and are timed with CUDA events.
 The unchanged sources also run on an all-equatorial geometry (cos theta =
 0, no cutoff), where every warp is in its steady mode from the first group
-on: the steady loop's own rate.  Each variant's outputs are held to the
+on: the steady loop's own rate; and on the plan's rings without the
+128-ring cutoff of K2 and K3.  Each variant's outputs are held to the
 unchanged kernels' (max |difference| / max |unchanged| <= REL_BOUND), and a
 variant that computes another function raises.  The last line printed is
 a JSON object of every number.
@@ -29,6 +32,55 @@ import torch
 from .. import _ext
 from . import cuda_ms, require_cuda
 
+# K4 with its tile contracted in FP32 FMAs on the CUDA cores instead of the
+# tensor cores: the sources staged in shared memory in the stored order (S0
+# re, S1 re, S0 im, S1 im), two lanes per degree, each summing half of the
+# warp's 128 rings (the loop's start staggered by degree pair, for the
+# banks); the tensor-core branch stays in the source, unreached
+_K4_FP32_SOURCES = """  __shared__ __align__(16) float src_s[kWarps][4][kRow];
+  {
+    const float* src[4] = {m_even ? ere : ore, m_even ? ore : ere,
+                           m_even ? eim : oim, m_even ? oim : eim};
+#pragma unroll
+    for (int q = 0; q < kRings; ++q) {
+      const int j = jw + 32 * q + lane;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        src_s[w][r][4 * lane + q] = j < J ? src[r][mrow + j] : 0.0f;
+      }
+    }
+  }
+  int buf = 0;
+"""
+_K4_FP32_CONTRACTION = """        } else if (true) {
+          const int dg = lane >> 1, h = lane & 1;
+          const int par = (lb + dg) & 1;
+          const float* lr = &lam_s[w][dg][4 * h];
+          const float* sr = &src_s[w][par][4 * h];
+          const float* si = &src_s[w][2 + par][4 * h];
+          float pr = 0.0f, pim = 0.0f;
+#pragma unroll
+          for (int it = 0; it < kWarpJ / 8; ++it) {
+            const int v = 8 * ((it + (dg >> 1)) & (kWarpJ / 8 - 1));
+            const float4 x = *reinterpret_cast<const float4*>(lr + v);
+            const float4 a = *reinterpret_cast<const float4*>(sr + v);
+            const float4 b = *reinterpret_cast<const float4*>(si + v);
+            pr += x.x * a.x;
+            pr += x.y * a.y;
+            pr += x.z * a.z;
+            pr += x.w * a.w;
+            pim += x.x * b.x;
+            pim += x.y * b.y;
+            pim += x.z * b.z;
+            pim += x.w * b.w;
+          }
+          pr += __shfl_xor_sync(0xffffffffu, pr, 1);
+          pim += __shfl_xor_sync(0xffffffffu, pim, 1);
+          if (h == 0) part[buf][w][dg] = make_float2(pr, pim);
+        } else {
+          // the 16 degrees' sums over the warp's rings, lambda's high and
+"""
+
 # name -> [(source, text, replacement)]
 VARIANTS = {
     "as built": [],
@@ -41,15 +93,17 @@ VARIANTS = {
     "K2-16 16-degree groups": [("legendre_synth.cu",
                                 "kGroup = kStreams == 8 ? 8 : 16;",
                                 "kGroup = 16;")],
-    "K1 8-degree groups": [("legendre_analysis.cu",
-                            "constexpr int kGroup = kRedL;",
-                            "constexpr int kGroup = 8;")],
     "K1 64 threads x 8 rings": [("legendre_analysis.cu",
                                  "constexpr int kThreads = 128;",
                                  "constexpr int kThreads = 64;"),
                                 ("legendre_analysis.cu",
                                  "constexpr int kRings = 4;",
                                  "constexpr int kRings = 8;")],
+    "K4 FP32 contraction": [
+        ("legendre_analysis_dot.cu", "  int buf = 0;\n", _K4_FP32_SOURCES),
+        ("legendre_analysis_dot.cu",
+         "        } else {\n          // the 16 degrees' sums over the "
+         "warp's rings, lambda's high and\n", _K4_FP32_CONTRACTION)],
 }
 # a variant's outputs against the built kernels', relative to their max:
 # the twins' bound (a variant changes the order of the sums, or K2's cutoff
@@ -58,11 +112,14 @@ REL_BOUND = 1e-5
 # rings per K2 warp (its cutoff tile) of each variant
 _K2_TILE = {"K2 2 rings per thread": 64}
 _SIGNATURES = ("legendre_synth_launch", "legendre_synth_phi_launch",
-               "legendre_analysis_launch")
+               "legendre_analysis_launch", "legendre_chain_seed_launch",
+               "legendre_synth_vpu_launch", "legendre_analysis_dot_launch")
+_SOURCES = ("legendre_synth.cu", "legendre_analysis.cu",
+            "legendre_synth_vpu.cu", "legendre_analysis_dot.cu")
 
 
 def build(name, edits, out_dir):
-    """The K1/K2 library of one variant: csrc/ copied to out_dir, edited,
+    """The K1-K4 library of one variant: csrc/ copied to out_dir, edited,
     one nvcc per source as _ext builds.  Returns (ctypes library, {SASS
     function: ptxas' register line})."""
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -78,7 +135,7 @@ def build(name, edits, out_dir):
             fp.write(code.replace(text, new))
     nvcc = _ext._nvcc()
     objs, procs = [], []
-    for src in ("legendre_synth.cu", "legendre_analysis.cu"):
+    for src in _SOURCES:
         obj = os.path.join(out_dir, src + ".o")
         objs.append(obj)
         procs.append(subprocess.Popen(
@@ -107,10 +164,12 @@ def build(name, edits, out_dir):
 
 
 def time_variant(lib, plan, streams, ana, geo):
-    """kernel -> (ms, output) of K2, K2-4col and K1 from `lib` on ring
-    geometry geo = (cth, ln_sth, K2 cutoff, K1 cutoff); K1's time includes
-    zeroing its output, as analysis_cuda's does."""
-    cth, ln_sth, mcut2, mcut1 = geo
+    """kernel -> (ms, output) of K2, K2-4col, K1, K3 (both forms) and K4
+    from `lib` on ring geometry geo = (cth, ln_sth, sth, cot, 1/sth, K2's
+    cutoff, K3's 128-ring cutoff, the 512-ring cutoff); K1's and K4's times
+    include zeroing their output, as the wrappers' do; K3 reads a seed table
+    that its pre-pass wrote once before."""
+    cth, ln_sth, sth, cot, inv, mcut2, mcut3, mcut1 = geo
     nl, nm, J = plan.nl, plan.nm, plan.J
     dev = plan.device
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -126,15 +185,33 @@ def time_variant(lib, plan, streams, ana, geo):
             _ext.check(fn(*(x.data_ptr() for x in ss), *g, mcut2.data_ptr(),
                           res.data_ptr(), nl, nm, J, stream), name)
         out[name] = (cuda_ms(call, 3), res)
-    alm = torch.zeros((2, nm, nl), device=dev)
+    seed = torch.empty((nm, J), device=dev)
+    seed_k = torch.empty((nm, J), dtype=torch.int32, device=dev)
+    _ext.check(lib.legendre_chain_seed_launch(
+        sth.data_ptr(), seed.data_ptr(), seed_k.data_ptr(), nm, J, stream),
+        "legendre_chain_seed")
+    for name, derivs in (("legendre_synth_vpu", 1),
+                         ("legendre_synth_vpu_phi", 0)):
+        res = torch.empty((nm, 12 if derivs else 4, J), device=dev)
 
-    def k1():
-        alm.zero_()
-        _ext.check(lib.legendre_analysis_launch(
-            *(x.data_ptr() for x in ana[:4]), *g, mcut1.data_ptr(),
-            alm[0].data_ptr(), alm[1].data_ptr(), nl, nm, J, stream),
-            "legendre_analysis")
-    out["legendre_analysis"] = (cuda_ms(k1, 3), alm)
+        def k3(derivs=derivs, res=res, name=name):
+            _ext.check(lib.legendre_synth_vpu_launch(
+                *(x.data_ptr() for x in streams[:2]), cth.data_ptr(),
+                cot.data_ptr(), inv.data_ptr(), seed.data_ptr(),
+                seed_k.data_ptr(), mcut3.data_ptr(), res.data_ptr(), nl, nm,
+                J, derivs, stream), name)
+        out[name] = (cuda_ms(k3, 3), res)
+    for name, fn in (("legendre_analysis", lib.legendre_analysis_launch),
+                     ("legendre_analysis_dot",
+                      lib.legendre_analysis_dot_launch)):
+        alm = torch.zeros((2, nm, nl), device=dev)
+
+        def ka(fn=fn, alm=alm, name=name):
+            alm.zero_()
+            _ext.check(fn(*(x.data_ptr() for x in ana[:4]), *g,
+                          mcut1.data_ptr(), alm[0].data_ptr(),
+                          alm[1].data_ptr(), nl, nm, J, stream), name)
+        out[name] = (cuda_ms(ka, 3), alm)
     return out
 
 
@@ -147,6 +224,8 @@ def run(order=12, device="cuda"):
     plan = SHTPlan(order, dev, dtype=torch.float32)
     streams, ana = _production_inputs(plan)
     zero = torch.zeros_like(plan.cth)
+    one = torch.ones_like(plan.cth)
+    rings = (plan.cth, plan.ln_sth, plan.sth, plan.cot, plan.inv_sth)
 
     def full(tile):
         return torch.full((-(-plan.J // tile),), plan.nm, dtype=torch.int32,
@@ -157,11 +236,15 @@ def run(order=12, device="cuda"):
     for i, (name, edits) in enumerate(VARIANTS.items()):
         lib, ptxas = build(name, edits, os.path.join(out_root, str(i)))
         k2_tile = _K2_TILE.get(name, TL.SYNTH_TILE_J)
-        geos = {"rings": (plan.cth, plan.ln_sth, plan.mcut(k2_tile),
+        geos = {"rings": (*rings, plan.mcut(k2_tile),
+                          plan.mcut(TL.SYNTH_TILE_J),
                           plan.mcut(TL.ANALYSIS_TILE_J))}
         if not edits:
-            geos["equator"] = (zero, zero, full(k2_tile),
+            geos["equator"] = (zero, zero, one, zero, one, full(k2_tile),
+                               full(TL.SYNTH_TILE_J),
                                full(TL.ANALYSIS_TILE_J))
+            geos["uncut"] = (*rings, full(k2_tile), full(TL.SYNTH_TILE_J),
+                             plan.mcut(TL.ANALYSIS_TILE_J))
         for gname, geo in geos.items():
             got = time_variant(lib, plan, streams, ana, geo)
             if ref is None:
@@ -169,7 +252,7 @@ def run(order=12, device="cuda"):
             r = {k: dict(ms=ms, rel=float((res - ref[k]).abs().max()
                                           / ref[k].abs().max()))
                  for k, (ms, res) in got.items()}
-            if gname == "equator":
+            if gname == "equator":  # another function: nothing to hold
                 r = {k: dict(ms=v["ms"]) for k, v in r.items()}
             elif max(v["rel"] for v in r.values()) > REL_BOUND:
                 raise RuntimeError(f"variant {name!r} computes another "

@@ -12,11 +12,11 @@ the wall" a claim that a measurement can prove false:
      (`rec`), the same with every degree's value stored into K4's shared
      tile (`rec+store`), the stores alone (`store`), and 16 FP32 FMAs per
      element from shared memory (`dot`);
-  2. `production(order)` times the port's K1, K2, K2-4col, K3 and K4 at that
-     order through their wrappers in sht/legendre.py, counts the elements
-     each computes exactly (`element_counts`), and prints each kernel's
-     share of the `rec` and `rec+store` ceilings; K2 also on a polar and a
-     belt range of J/8 ring pairs each.
+  2. `production(order)` times the port's K1, K2, K2-4col, K3 (both forms)
+     and K4 at that order through their wrappers in sht/legendre.py,
+     counts the elements each computes exactly (`element_counts`), and
+     prints each kernel's share of the `rec` and `rec+store` ceilings; K2
+     also on a polar and a belt range of J/8 ring pairs each.
 
 A kernel at >= ~80 % of the rec+store ceiling is done by measurement: the
 rest of its time is the recurrence and its stores at the speed this card
@@ -192,7 +192,13 @@ def _sass():
 # thread, degrees per group between two votes)
 STEADY_KERNELS = {"legendre_synth_kernelILi8": ("legendre_synth", 4, 8),
                   "legendre_synth_kernelILi2": ("legendre_synth_phi", 4, 16),
-                  "legendre_analysis_kernel": ("legendre_analysis", 4, 16)}
+                  "legendre_analysis_kernel": ("legendre_analysis", 4, 16),
+                  "legendre_synth_vpu_kernelILi6": ("legendre_synth_vpu", 4,
+                                                    8),
+                  "legendre_synth_vpu_kernelILi2": ("legendre_synth_vpu_phi",
+                                                    4, 16),
+                  "legendre_analysis_dot_kernel": ("legendre_analysis_dot",
+                                                   4, 16)}
 
 
 def _instructions(body):
@@ -216,8 +222,9 @@ def _instructions(body):
 def _steady_path(ins, head, tail):
     """The path from `head` to the backward branch at `tail` that runs no
     rescale test (FSETP, FMNMX) and no vote, staying inside the loop and
-    visiting no address twice; of several, the one with the most FFMA, then
-    the shortest.  None if there is none."""
+    visiting no address twice; of several, the one with the most FFMA and
+    HMMA (the column sums; K4's contraction), then the shortest.  None if
+    there is none."""
     at = {a: i for i, (a, _, _, _) in enumerate(ins)}
     best = None
     stack = [(at[head], [], frozenset())]
@@ -232,7 +239,7 @@ def _steady_path(ins, head, tail):
             seen = seen | {a}
             path = path + [base]
             if a == tail:
-                key = (path.count("FFMA"), -len(path))
+                key = (path.count("FFMA") + path.count("HMMA"), -len(path))
                 if best is None or key > best[0]:
                     best = (key, path)
                 break
@@ -247,12 +254,13 @@ def _steady_path(ins, head, tail):
 
 
 def steady_loop_sass(sass=None):
-    """The SASS instructions of the redesigned K1 and K2 loops once every
-    ring of a warp is at scale k == 0: in the innermost loop that holds a
-    vote (one group of degrees; for K1 with its cross-thread sum), the
-    path from its head to its predicated backward branch that runs no
-    rescale test and no vote.  Returns kernel -> dict(group, per_degree,
-    per_element, ops)."""
+    """The SASS instructions of the redesigned K1-K4 loops once every ring
+    of a warp is at scale k == 0: in the innermost loop that holds a vote
+    (one group of degrees; for K1 with its cross-thread sum, for K4 with
+    its contraction), the path from its head to its predicated backward
+    branch that runs no rescale test and no vote.  Returns kernel ->
+    dict(group, per_degree, per_element, cuda_core_per_element, ops), the
+    last per element without the tensor cores' HMMA."""
     import re
     from collections import Counter
 
@@ -274,9 +282,11 @@ def steady_loop_sass(sass=None):
         path = _steady_path(ins, head, tail)
         if path is None:
             continue
+        ops = Counter(path)
         out[kernel] = dict(group=len(path), per_degree=len(path) / group,
                            per_element=len(path) / group / rings,
-                           ops=dict(Counter(path)))
+                           cuda_core_per_element=(len(path) - ops["HMMA"])
+                           / group / rings, ops=dict(ops))
     return out
 
 
@@ -339,11 +349,10 @@ def ceilings(device="cuda"):
 def element_counts(plan, rings=None):
     """(l, m, j) elements each Legendre kernel computes at this plan, over
     the ring pairs `rings` (a slice; all by default), following the port's
-    own loops: the triangle l >= m over every ring for K3; for K1 and K4
-    only the (m, 512-ring tile) pairs below the tile's turning-point cutoff
-    (sht/legendre.analysis_mcut), for K2 and K2-4col those below the cutoff
-    of their 128-ring tiles (synth_mcut).  Rings beyond J are not
-    counted."""
+    own loops: for K1 and K4 only the (m, 512-ring tile) pairs below the
+    tile's turning-point cutoff (sht/legendre.analysis_mcut), for K2 and K3
+    (both forms each) those below the cutoff of their 128-ring tiles
+    (synth_mcut).  Rings beyond J are not counted."""
     from ..sht.legendre import (ANALYSIS_TILE_J, SYNTH_TILE_J, analysis_mcut,
                                 synth_mcut)
 
@@ -351,14 +360,13 @@ def element_counts(plan, rings=None):
     tri_m = np.maximum(nl - np.arange(nm), 0).astype(np.int64)
     cum = np.concatenate([[0], np.cumsum(tri_m)])  # cum[c] = sum over m < c
     j = np.arange(J)[rings if rings is not None else slice(None)]
-    full = int(cum[-1]) * len(j)
     ana = int(cum[analysis_mcut(plan.sth_host, nl, nm)[j // ANALYSIS_TILE_J]]
               .sum())
     synth = int(cum[synth_mcut(plan.sth_host, nl, nm)[j // SYNTH_TILE_J]]
                 .sum())
     return {"legendre_analysis": ana, "legendre_analysis_dot": ana,
             "legendre_synth": synth, "legendre_synth_phi": synth,
-            "legendre_synth_vpu": full}
+            "legendre_synth_vpu": synth, "legendre_synth_vpu_phi": synth}
 
 
 def shares(kernel_ms, counts, ceil):
@@ -391,8 +399,8 @@ def _production_inputs(plan, seed=0):
 
 
 def production(order=12, device="cuda", ceil=None):
-    """Times K1, K2, K2-4col, K3 (with derivatives) and K4 at `order`
-    through their wrappers, and K2 on the polar and the belt J/8 ring
+    """Times K1, K2, K2-4col, K3 (both forms, on a seed table written
+    before) and K4 at `order` through their wrappers, and K2 on the polar and the belt J/8 ring
     pairs; prints each one's element rate and, given `ceil` (the result of
     ceilings()), its share of the rec and rec+store ceilings."""
     from ..sht import legendre as TL
@@ -404,12 +412,16 @@ def production(order=12, device="cuda", ceil=None):
     a2 = streams[:2]
     g2 = (plan.cth, plan.ln_sth, plan.logc, plan.mcut(TL.SYNTH_TILE_J))
     g3 = (plan.cth, plan.sth, plan.cot, plan.inv_sth)
+    seed = TL.chain_seed_cuda(plan.sth, plan.nm)  # K3 timed without it
     calls = {
         "legendre_analysis": lambda: TL.analysis_cuda(*ana, plan.nl),
         "legendre_analysis_dot": lambda: TL.analysis_dot_cuda(*ana, plan.nl),
         "legendre_synth": lambda: TL.synth_cuda(streams, *g2),
         "legendre_synth_phi": lambda: TL.synth_cuda(a2, *g2),
-        "legendre_synth_vpu": lambda: TL.synth_vpu_cuda(*a2, *g3, True),
+        "legendre_synth_vpu": lambda: TL.synth_vpu_cuda(*a2, *g3, True,
+                                                        g2[3], seed),
+        "legendre_synth_vpu_phi": lambda: TL.synth_vpu_cuda(*a2, *g3, False,
+                                                            g2[3], seed),
     }
     ms = {}
     for name, fn in calls.items():

@@ -11,19 +11,21 @@ of which must pass:
   2. build: the hand-written kernels (calclens_tpu_torch/csrc/*.cu) are
      compiled for sm_90a from the checkout, one nvcc per source;
   3. kernels vs twins: K1 (Legendre analysis), K2 (synthesis with
-     derivatives, 16 columns) and K2's potential-only form (4 columns),
-     both with their per-tile turning-point cutoff, K3
-     (bucketed synthesis, with and without derivatives) and K4
-     (stored-lambda analysis) against their plain PyTorch twins on the
-     card, on band-limited random inputs from a numpy seed, at orders 8 and
-     10, bound max|kernel - twin| / max|twin| < 1e-5 per output column;
-     all timed at order 10;
+     derivatives, 16 columns) and K2's potential-only form (4 columns), K3
+     (bucketed synthesis, with and without derivatives), all three with
+     their per-tile turning-point cutoff, and K4 (stored-lambda analysis,
+     contracted on the tensor cores) against their plain PyTorch twins on
+     the card, on band-limited random inputs from a numpy seed, at orders 8
+     and 10, bound max|kernel - twin| / max|twin| < 1e-5 per output column;
+     K3's seed pre-pass against the twin's chain, bit for bit; all timed at
+     order 10;
   4. CUDA vs CPU trace: the port's Raytracer at SHTOrder 7 / rayOrder 6,
      float32, three planes of seeded particles at pixel centres, once on
      the CPU (twins) and once on the card (kernels); the packed ray buffers
      must agree within 5e-4 of each quantity's max |value| after every
      plane.  Run twice: with the default kernels (K2, K1) and with the
-     variant (K3, K4); each CUDA run must have launched its two kernels.
+     variant (K3 with its seed pre-pass, K4); each CUDA run must have
+     launched its kernels.
      Then Raytracer.run, with MapRedshiftList and OutputPath, on the CPU
      and on the card (8 planes): the driver writes the lens maps after
      planes 1 and 2, and the card's Convergence_ and Rays_ files agree
@@ -32,22 +34,26 @@ of which must pass:
      (12,582,912 rays), 2^21 particles, float32, through Raytracer.step:
      one warm-up plane and three timed planes, with the kernel launch counts
      of exactly that run, the peak device memory and finite rays; then the
-     variant headline (K3, K4): one warm-up plane and two timed planes, K3
-     and K4 launched and K1 and K2 not, and the distance of its rays from
-     the default run's rays after the same planes.  After the default
-     run's planes, the driver's lens maps at LensMapOrder 8: the card's
-     [7, npix] sums against a float64 host accumulation of the same rays
-     (counts exact, the rest within 1e-5 of each row's max), and the
-     Convergence_ and Rays_ FITS files read back;
+     variant headline (K3, K4): one warm-up plane and two timed planes, K3,
+     its seed pre-pass and K4 launched and K1 and K2 not, and the distance
+     of its rays from the default run's rays after the same planes.  After
+     the default run's planes, the driver's lens maps at LensMapOrder 8:
+     the card's [7, npix] sums against a float64 host accumulation of the
+     same rays (counts exact, the rest within 1e-5 of each row's max), and
+     the Convergence_ and Rays_ FITS files read back;
   6. the kernels at the headline shape: K1 and K2 against their twins
-     (same 1e-5 bound); K2's 4-column form, K3 and K4 against their twins
-     on a set of m rows (all rings, all degrees; the full twins would take
-     minutes); K4 against K1 on the same inputs; alm2map (K2, 4 columns)
-     against alm2allmaps(...)[0] (K2, 16 columns), its launch counted; K3's
+     (same 1e-5 bound); K2's 4-column form, K3 in both forms and K4 against
+     their twins on a set of m rows (all rings, all degrees; the full twins
+     would take minutes); K3's seed table against the twin's chain, bit for
+     bit; K4 against K1 on the same inputs; alm2map (K2, 4 columns) against
+     alm2allmaps(...)[0] (K2, 16 columns), and the same with K3 (its
+     potential-only form against its 12 buckets), launches counted; K3's
      distance from K2 printed (the two seed lambda_mm differently), and
      each one's distance from float64 twins on the m rows, polar caps and
-     belt apart; every kernel timed with CUDA events beside its bound from
-     the shapes (K2's also on the full triangle) and its issue floor;
+     belt apart; every kernel timed with CUDA events (K3 on a seed table
+     written before, its pre-pass alone) beside its bound from the shapes
+     (K2's and K3's also on the full triangle; K4's the longer of its
+     CUDA-core and tensor-core operations) and its issue floor;
   7. P1, the Legendre roofline probe (csrc/roofline_probe.cu): each mode
      (rec, rec+store, store, dot) against its plain version at two shapes
      where the recurrence stays finite, one of them the timed layout (1e-6
@@ -58,8 +64,8 @@ of which must pass:
      modes' from the card's shared-memory peak; each Legendre kernel's
      share of the rec and rec+store ceilings from its order-12 time of
      phase 6 and the tool's exact element counts; the SASS of the
-     rec+store loop keeps its stores; the SASS instructions of K1's and
-     K2's steady loops per element;
+     rec+store loop keeps its stores; the SASS instructions of the steady
+     loops of K1-K4 per element (for K4 also without its HMMA);
   8. P2-P4, the gather probes (csrc/gather_probe.cu), through the tool's
      run() at N = 2^23: each bit-exact against torch's tab[idx], timed
      beside it, launches counted.
@@ -107,28 +113,43 @@ PROBE_CHECKS = (dict(MT=4, LBLK=2, LB=8, TM=32, TJ=512),
 CHECK_ROWS = (0, 1, 2, 3, 511, 2048, 6143, 10001, 12287)
 
 # The card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): FP32 outside
-# the tensor cores, and device memory.
+# the tensor cores, dense TF32 on the tensor cores, and device memory.
 FP32_PEAK = 67e12   # FLOP/s
+TF32_PEAK = 495e12  # FLOP/s
 HBM_RATE = 3.35e12  # bytes/s
-# FP32 operations per (l, m, j) element that the function needs (a fused
-# multiply-add counts 2): the recurrence 5 (three multiplies, a
-# subtraction, the scale multiply); K1 and K4 add 2 FMAs (re, im); K2 8
-# FMAs (16 columns) or 2 (4 columns).  K3 with derivatives computes the
-# same (qN, qS) as K2: its lambda' and lambda'' sums follow, summed by
+# FP32 operations per (l, m, j) element that the function needs on the CUDA
+# cores (a fused multiply-add counts 2): the recurrence 5 (three
+# multiplies, a subtraction, the scale multiply); K1 adds 2 FMAs (re, im);
+# K2 8 FMAs (16 columns) or 2 (4 columns).  K3 with derivatives computes
+# the same (qN, qS) as K2: its lambda' and lambda'' sums follow, summed by
 # parts, from sums of a*lambda, l*a*lambda and l(l+1)*a*lambda, so the
 # function needs K2's 21, although K3 forms lambda' and lambda'' per
-# degree (11 more).  Per-degree coefficients are shared by a block's rings
-# and not counted.
-FLOPS_PER_ELEMENT = {"legendre_analysis": 9, "legendre_analysis_dot": 9,
+# degree (11 more); without derivatives K2-4col's 9.  K4 contracts on the
+# tensor cores, so only its recurrence (5) runs on the CUDA cores; its 2
+# products per element are charged in TF32_FLOPS_PER_ELEMENT.  Per-degree
+# coefficients are shared by a block's rings and not counted.  K3's seed
+# pre-pass: 2 multiplies per (m, ring).
+FLOPS_PER_ELEMENT = {"legendre_analysis": 9, "legendre_analysis_dot": 5,
                      "legendre_synth": 21, "legendre_synth_phi": 9,
-                     "legendre_synth_vpu": 21}
-# Issue slots per element that the rounding contract needs: the recurrence's
-# 4 operations, each rounded (no FMA), and one slot per column FMA (K1/K4 2,
-# K2 8, K2-4col 2; K3 as K2).  The card issues at most one warp instruction
-# per scheduler and clock: 132 SMs x 4 schedulers x 32 lanes x 1980 MHz.
-SLOTS_PER_ELEMENT = {"legendre_analysis": 6, "legendre_analysis_dot": 6,
-               "legendre_synth": 12, "legendre_synth_phi": 6,
-               "legendre_synth_vpu": 12}
+                     "legendre_synth_vpu": 21, "legendre_synth_vpu_phi": 9,
+                     "legendre_chain_seed": 2}
+# TF32 tensor-core operations per element: K4's 2 float32 products (re,
+# im), each at least 3 TF32 products (hi.hi + hi.lo + lo.hi) to keep
+# float32 accuracy, 2 operations each.  A kernel's operations take the
+# longer of its CUDA-core and its tensor-core time.
+TF32_FLOPS_PER_ELEMENT = {"legendre_analysis_dot": 12}
+# Issue slots per element that the rounding contract needs on the CUDA
+# cores: the recurrence's 4 operations, each rounded (no FMA), and one slot
+# per column FMA (K1 2, K2 8, K2-4col 2; K4's products run on the tensor
+# cores: none).  K3 forms lambda' (5 rounded operations: l cot, times
+# lambda, c_lm lambda_{l-1}, times 1/sin, the difference) and lambda'' (4:
+# m^2/sin^2 - l(l+1), times lambda, cot lambda', the difference) per degree
+# and adds 6 bucket FMAs: 19 with derivatives, 4 + 2 = 6 without.  The card
+# issues at most one warp instruction per scheduler and clock: 132 SMs x 4
+# schedulers x 32 lanes x 1980 MHz.
+SLOTS_PER_ELEMENT = {"legendre_analysis": 6, "legendre_analysis_dot": 4,
+                     "legendre_synth": 12, "legendre_synth_phi": 6,
+                     "legendre_synth_vpu": 19, "legendre_synth_vpu_phi": 6}
 SLOT_RATE = 132 * 4 * 32 * 1980e6  # thread-instructions/s
 
 
@@ -242,6 +263,9 @@ def variant_calls(plan, streams, ana):
     mcut = plan.mcut(TL.SYNTH_TILE_J)
     g2 = (plan.cth, plan.ln_sth, plan.logc, mcut)
     g3 = (plan.cth, plan.sth, plan.cot, plan.inv_sth)
+    # K3 runs on its seed table, written once here: its times leave out the
+    # pre-pass, which is timed on its own (check_seed_table)
+    seed = TL.chain_seed_cuda(plan.sth, plan.nm)
 
     def rows(x, m):
         return x if m is None else x[m]
@@ -252,7 +276,7 @@ def variant_calls(plan, streams, ana):
 
     def k3_twin(derivs):
         return lambda m: TL.synth_vpu_plain(rows(a2[0], m), rows(a2[1], m),
-                                            *g3, derivs, m=m)
+                                            *g3, derivs, m=m, mcut=mcut)
 
     def k4_twin(m):
         return TL.analysis_dot_plain(*(rows(x, m) for x in ana[:4]),
@@ -264,11 +288,11 @@ def variant_calls(plan, streams, ana):
         "K2-4col legendre_synth_phi": (
             lambda: TL.synth_cuda(a2, *g2), k2phi_twin, col_errs),
         "K3 legendre_synth_vpu": (
-            lambda: TL.synth_vpu_cuda(*a2, *g3, True), k3_twin(True),
-            col_errs),
-        "K3 legendre_synth_vpu (phi only)": (
-            lambda: TL.synth_vpu_cuda(*a2, *g3, False), k3_twin(False),
-            col_errs),
+            lambda: TL.synth_vpu_cuda(*a2, *g3, True, mcut, seed),
+            k3_twin(True), col_errs),
+        "K3-phi legendre_synth_vpu_phi": (
+            lambda: TL.synth_vpu_cuda(*a2, *g3, False, mcut, seed),
+            k3_twin(False), col_errs),
         "K4 legendre_analysis_dot": (
             lambda: TL.analysis_dot_cuda(*ana, plan.nl), k4_twin, pair_errs),
     }
@@ -311,16 +335,37 @@ def check_variant_rows(plan, streams, ana, reps):
     return out
 
 
+def check_seed_table(plan, reps):
+    """K3's seed pre-pass against the twin's chain (chain_seed of every m)
+    on the card: bit for bit, values and counters.  Returns (max abs error,
+    pre-pass ms as the mean of `reps` launches, twin ms)."""
+    import torch
+    from calclens_tpu_torch.sht import legendre as TL
+    from calclens_tpu_torch.tools import cuda_ms
+
+    got, got_k = TL.chain_seed_cuda(plan.sth, plan.nm)
+    m = torch.arange(plan.nm, device=plan.device)
+    (ref, ref_k), twin_ms = timed_once(lambda: TL.chain_seed(m, plan.sth))
+    check(torch.equal(got, ref) and torch.equal(got_k, ref_k),
+          f"K3 seed table off the chain at order {plan.order}")
+    err = float((got - ref).abs().max())
+    del got, got_k, ref, ref_k
+    return err, cuda_ms(lambda: TL.chain_seed_cuda(plan.sth, plan.nm),
+                        reps), twin_ms
+
+
 def kernel_bounds(plan):
     """name -> dict(bound_ms, bound_by, full_bound_ms, floor_ms, elems) at
-    this plan's shape.  The bound is the larger of the FP32 operations over
-    FP32_PEAK and the bytes that must move (each input read once, each
+    this plan's shape.  The bound is the larger of the operations' time
+    (FP32 over FP32_PEAK, or K4's tensor-core TF32 over TF32_PEAK where that
+    is longer) and the bytes that must move (each input read once, each
     output written once) over HBM_RATE, on the elements these inputs need
-    (roofline_legendre.element_counts: the triangle l >= m for K3; for K1
-    and K4 only the (m, 512-ring tile) pairs below the tile's turning-point
-    cutoff, for K2 and K2-4col those below their 128-ring tiles' cutoff);
-    full_bound_ms is the same on the full triangle (K2's before its cutoff).
-    floor_ms: SLOTS_PER_ELEMENT per element over SLOT_RATE."""
+    (roofline_legendre.element_counts: for K1 and K4 only the (m, 512-ring
+    tile) pairs below the tile's turning-point cutoff, for K2 and K3 (both
+    forms) those below their 128-ring tiles' cutoff); full_bound_ms is the
+    same on the full triangle (before the cutoff).  floor_ms:
+    SLOTS_PER_ELEMENT per element over SLOT_RATE.  K3's seed pre-pass
+    computes nm J (m, ring) pairs and writes 8 bytes for each (no floor)."""
     from calclens_tpu_torch.sht.legendre import ANALYSIS_TILE_J as T1
     from calclens_tpu_torch.tools import roofline_legendre as R
 
@@ -336,12 +381,15 @@ def kernel_bounds(plan):
         "legendre_synth": f4 * (4 * tri + 16 * nm * J + 2 * J),
         "legendre_synth_phi": f4 * (2 * tri + 4 * nm * J + 2 * J),
         "legendre_synth_vpu": f4 * (2 * tri + 12 * nm * J + 4 * J),
+        "legendre_synth_vpu_phi": f4 * (2 * tri + 4 * nm * J + 4 * J),
+        "legendre_chain_seed": f4 * (2 * nm * J + J),
     }
     nbytes["legendre_analysis_dot"] = nbytes["legendre_analysis"]
     elems = R.element_counts(plan)
 
     def bound(name, n):
-        t_ops = n * FLOPS_PER_ELEMENT[name] / FP32_PEAK
+        t_ops = n * max(FLOPS_PER_ELEMENT[name] / FP32_PEAK,
+                        TF32_FLOPS_PER_ELEMENT.get(name, 0) / TF32_PEAK)
         t_mem = nbytes[name] / HBM_RATE
         return (1e3 * max(t_ops, t_mem),
                 "operations" if t_ops >= t_mem else "bytes")
@@ -354,6 +402,10 @@ def kernel_bounds(plan):
                          floor_ms=1e3 * SLOTS_PER_ELEMENT[name] * n
                          / SLOT_RATE,
                          elems=n)
+    b, by = bound("legendre_chain_seed", nm * J)
+    out["legendre_chain_seed"] = dict(bound_ms=b, bound_by=by,
+                                      full_bound_ms=b, floor_ms=None,
+                                      elems=nm * J)
     return out
 
 
@@ -435,7 +487,8 @@ def pixel_centre_particles(cfg, cosmo, plane, n, seed):
 
 # the kernels each pair of selectors runs on the plane step
 PATH_KERNELS = {("k2", "k1"): ("legendre_synth", "legendre_analysis"),
-                ("k3", "k4"): ("legendre_synth_vpu", "legendre_analysis_dot")}
+                ("k3", "k4"): ("legendre_synth_vpu", "legendre_analysis_dot",
+                               "legendre_chain_seed")}
 
 
 def trace_cuda_vs_cpu(synth, analysis):
@@ -751,10 +804,11 @@ def probe_phase(dev, kernel_ms, plan):
     for name, r in steady.items():
         say(f"{name} steady loop SASS (cuobjdump): {r['group']} instructions "
             f"per group, {r['per_degree']:.3f} per degree and thread, "
-            f"{r['per_element']:.3f} per element (floor "
+            f"{r['per_element']:.3f} per element, "
+            f"{r['cuda_core_per_element']:.3f} without HMMA (floor "
             f"{SLOTS_PER_ELEMENT[name]}); {r['ops']}")
-    check(sorted(steady) == ["legendre_analysis", "legendre_synth",
-                             "legendre_synth_phi"],
+    check(sorted(steady) == sorted(R.STEADY_KERNELS[k][0]
+                                   for k in R.STEADY_KERNELS),
           f"steady loops not found in the SASS: {sorted(steady)}")
     return dict(launches=launches, modes=modes, shares=sh_, shape=dict(sh),
                 steady=steady)
@@ -838,6 +892,10 @@ def main():
             check(k[0] < VARIANT_BOUND, f"{name} off its twin at order "
                   f"{order}: {k[0]:.3e}")
         variants10 = variants
+        seed10 = check_seed_table(plan, reps)
+        say(f"order {order} K3 seed pre-pass legendre_chain_seed: equal to "
+            f"the twin's chain bit for bit; kernel {seed10[1]:.3f} ms, twin "
+            f"{seed10[2]:.1f} ms")
         del plan, streams, ana
         torch.cuda.empty_cache()
 
@@ -891,6 +949,10 @@ def main():
             f"{k[1]:.3e} (bound {VARIANT_BOUND:g}); kernel {k[2]:.2f} ms")
         check(k[0] < VARIANT_BOUND, f"{name} off its twin on rows at "
               f"order 12: {k[0]:.3e}")
+    seed12 = check_seed_table(plan, reps=3)
+    say(f"order 12 K3 seed pre-pass legendre_chain_seed: equal to the twin's "
+        f"chain bit for bit; kernel {seed12[1]:.3f} ms, twin "
+        f"{seed12[2]:.1f} ms")
     # K4 against K1: the same lambda bits, sums in another order
     k4vk1 = pair_errs(TL.analysis_dot_cuda(*ana, plan.nl),
                       TL.analysis_cuda(*ana, plan.nl))
@@ -909,6 +971,21 @@ def main():
         f"{phi_err:.3e} (bound {VARIANT_BOUND:g}); launches "
         f"{phi_launches}")
     check(phi_err < VARIANT_BOUND, f"alm2map off alm2allmaps: {phi_err:.3e}")
+    # the same with K3: its potential-only form against its 12 buckets
+    plan.synth_kernel = "k3"
+    ref_phi = T.alm2allmaps(plan, alm)[0]
+    _ext.reset_launches()
+    phi = T.alm2map(plan, alm)
+    torch.cuda.synchronize()
+    phi3_launches = _ext.launches["legendre_synth_vpu_phi"]
+    check(phi3_launches == 1 and _ext.launches["legendre_chain_seed"] == 1,
+          f"alm2map with K3 launched {dict(_ext.launches)}")
+    phi3_err = rel_err(phi, ref_phi)
+    plan.synth_kernel = "k2"
+    say(f"order 12 alm2map (K3 potential-only) vs alm2allmaps[0] (K3): rel "
+        f"{phi3_err:.3e} (bound {VARIANT_BOUND:g}); launches {phi3_launches}")
+    check(phi3_err < VARIANT_BOUND,
+          f"alm2map with K3 off alm2allmaps: {phi3_err:.3e}")
     del phi, ref_phi
     # K3 against K2 on the same alm: printed, not bounded
     q2 = T.legendre_synthesis(plan, alm, True)
@@ -937,13 +1014,14 @@ def main():
 
     bounds = kernel_bounds(plan)
     for name, b in bounds.items():
+        floor = ("" if b["floor_ms"] is None else
+                 f"; issue floor {b['floor_ms']:.3f} ms "
+                 f"({SLOTS_PER_ELEMENT[name]} slots per element)")
         say(f"order 12 bound {name}: {b['bound_ms']:.3f} ms ({b['bound_by']}) "
             f"on {b['elems']:.4e} elements; {b['full_bound_ms']:.3f} ms on "
-            f"the full triangle; issue floor {b['floor_ms']:.3f} ms "
-            f"({SLOTS_PER_ELEMENT[name]} slots per element)")
-    v10 = {k.split()[1]: v for k, v in variants10.items()
-           if "phi only" not in k}
-    v12 = {k.split()[1]: v for k, v in rows12.items() if "phi only" not in k}
+            f"the full triangle{floor}")
+    v10 = {k.split()[1]: v for k, v in variants10.items()}
+    v12 = {k.split()[1]: v for k, v in rows12.items()}
 
     # 7. P1, the Legendre roofline probe; the kernels' shares of its
     # ceilings from the order-12 times above (not timed again)
@@ -987,6 +1065,15 @@ def main():
               hv["counts"]["legendre_synth_vpu"],
               v12["legendre_synth_vpu"][1], v12["legendre_synth_vpu"][2],
               v10["legendre_synth_vpu"][3], plain_order=10),
+        entry("legendre_synth_vpu_phi", "legendre_synth_vpu.cu",
+              "calclens_tpu/sht/pallas_legendre.py:49",
+              phi3_launches, v12["legendre_synth_vpu_phi"][1],
+              v12["legendre_synth_vpu_phi"][2],
+              v10["legendre_synth_vpu_phi"][3], plain_order=10),
+        entry("legendre_chain_seed", "legendre_synth_vpu.cu",
+              "calclens_tpu/sht/pallas_legendre.py:49",
+              hv["counts"]["legendre_chain_seed"], seed12[0], seed12[1],
+              seed12[2]),
         entry("legendre_analysis_dot", "legendre_analysis_dot.cu",
               "calclens_tpu/sht/pallas_legendre.py:477",
               hv["counts"]["legendre_analysis_dot"],
@@ -1018,8 +1105,10 @@ def main():
             _, s_rec, s_rs = p1["shares"][k["name"]]
             k["shares_of_ceilings"] = dict(rec=s_rec, rec_store=s_rs)
         if k["name"] in p1["steady"]:
-            k["steady_sass_per_element"] = \
-                p1["steady"][k["name"]]["per_element"]
+            st = p1["steady"][k["name"]]
+            k["steady_sass_per_element"] = st["per_element"]
+            k["steady_sass_cuda_cores_per_element"] = \
+                st["cuda_core_per_element"]
     check(all(math.isfinite(k[f]) for k in kernels
               for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")),
           "non-finite kernel measurement")

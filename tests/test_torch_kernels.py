@@ -1,5 +1,5 @@
 """The hand-written CUDA kernels (K1, K2 with 16 and 4 columns, K3 in both
-forms, K4, the probes P1-P4) against their plain PyTorch twins, and the
+forms with its seed pre-pass, K4, the probes P1-P4) against their plain PyTorch twins, and the
 lens-map accumulation on the card against the CPU, on the card.  Marked
 `cuda`; each test skips (inside the `cuda_device` fixture) when torch sees
 no GPU.  Run on a machine with the card:
@@ -12,7 +12,8 @@ made with numpy at HEALPix orders 4-10.  Tolerance: max |kernel - twin| /
 max |twin| < 1e-5 per output column.  Kernel and twin round the lambda
 recurrence alike; they differ only in the order (and FMA contraction) of
 the float32 sums over up to 3 nside terms, measured at <= 4e-7 on an H100
-through order 12."""
+through order 12; K4 contracts high and low TF32 parts of lambda and of
+its sources on the tensor cores, ~1e-6 from its twin and from K1."""
 import numpy as np
 import pytest
 import torch
@@ -106,16 +107,22 @@ def test_synth_phi_kernel_matches_twin(cuda_device, order):
 @pytest.mark.parametrize("order", [4, 6, 8])
 @pytest.mark.parametrize("derivs", [True, False])
 def test_synth_vpu_kernel_matches_twin(cuda_device, order, derivs):
-    """K3: every bucket column against the twin (same chain seed)."""
+    """K3: every bucket column against the twin (same chain seed, the
+    plan's cutoff, active from order 8 on); one launch of the form's kernel
+    and one of the seed pre-pass."""
     plan = SHTPlan(order, cuda_device, dtype=torch.float32)
     a_re, a_im = TL.mx_prep(plan.nl, plan.nm, _alm(plan, 400 + order),
                             torch.float32, derivs=False)
     geo = (plan.cth, plan.sth, plan.cot, plan.inv_sth)
-    before = _ext.launches["legendre_synth_vpu"]
-    got = TL.synth_vpu_cuda(a_re, a_im, *geo, derivs)
+    mcut = plan.mcut(TL.SYNTH_TILE_J)
+    name = "legendre_synth_vpu" if derivs else "legendre_synth_vpu_phi"
+    before = dict(_ext.launches)
+    got = TL.synth_vpu_cuda(a_re, a_im, *geo, derivs, mcut)
     torch.cuda.synchronize()
-    assert _ext.launches["legendre_synth_vpu"] == before + 1
-    ref = TL.synth_vpu_plain(a_re, a_im, *geo, derivs)
+    assert _ext.launches[name] == before[name] + 1
+    assert (_ext.launches["legendre_chain_seed"]
+            == before["legendre_chain_seed"] + 1)
+    ref = TL.synth_vpu_plain(a_re, a_im, *geo, derivs, mcut=mcut)
     ncol = 12 if derivs else 4
     assert got.shape == ref.shape == (plan.nm, ncol, plan.J)
     for c in range(ncol):
@@ -204,6 +211,114 @@ def test_synth_kernel_uncut_polar_caps(cuda_device):
     _synth_both_forms(plan, slice(0, 512), mcut, 601)
 
 
+@pytest.mark.parametrize("order", [8, 10])
+def test_chain_seed_prepass_is_bit_exact(cuda_device, order):
+    """K3's seed pre-pass equals the twin's chain (chain_seed of every m)
+    bit for bit, values and scale counters; one launch."""
+    plan = SHTPlan(order, cuda_device, dtype=torch.float32)
+    before = _ext.launches["legendre_chain_seed"]
+    seed, seed_k = TL.chain_seed_cuda(plan.sth, plan.nm)
+    torch.cuda.synchronize()
+    assert _ext.launches["legendre_chain_seed"] == before + 1
+    ref, ref_k = TL.chain_seed(torch.arange(plan.nm), plan.sth)
+    assert torch.equal(seed, ref) and torch.equal(seed_k, ref_k)
+    assert int(seed_k.min()) < 0  # the rescale is exercised
+
+
+def test_synth_vpu_kernel_reads_a_given_seed_table(cuda_device):
+    """K3 given its pre-pass's table launches no pre-pass of its own and
+    gives the same buckets, bit for bit (no atomics: deterministic)."""
+    plan = SHTPlan(8, cuda_device, dtype=torch.float32)
+    mcut = plan.mcut(TL.SYNTH_TILE_J)
+    a_re, a_im = TL.mx_prep(plan.nl, plan.nm, _alm(plan, 604), torch.float32,
+                            derivs=False)
+    geo = (plan.cth, plan.sth, plan.cot, plan.inv_sth)
+    table = TL.chain_seed_cuda(plan.sth, plan.nm)
+    for derivs in (True, False):
+        own = TL.synth_vpu_cuda(a_re, a_im, *geo, derivs, mcut)
+        before = _ext.launches["legendre_chain_seed"]
+        given = TL.synth_vpu_cuda(a_re, a_im, *geo, derivs, mcut, table)
+        torch.cuda.synchronize()
+        assert _ext.launches["legendre_chain_seed"] == before
+        assert torch.equal(own, given)
+    with pytest.raises(TypeError, match="seed_k"):
+        TL.synth_vpu_cuda(a_re, a_im, *geo, True, mcut,
+                          (table[0], table[1].float()))
+
+
+def _synth_vpu_both_forms(plan, rings, mcut, seed):
+    """K3 with and without derivatives on the ring pairs `rings` (a slice)
+    with cutoff `mcut` against its twin, as _synth_both_forms holds K2."""
+    geo = tuple(x[rings].contiguous()
+                for x in (plan.cth, plan.sth, plan.cot, plan.inv_sth))
+    J = geo[0].shape[0]
+    m = torch.arange(plan.nm, device=geo[0].device)
+    cut = m[:, None] >= mcut.long().repeat_interleave(TL.SYNTH_TILE_J)[:J]
+    a_re, a_im = TL.mx_prep(plan.nl, plan.nm, _alm(plan, seed), torch.float32,
+                            derivs=False)
+    for derivs in (True, False):
+        got = TL.synth_vpu_cuda(a_re, a_im, *geo, derivs, mcut)
+        ref = TL.synth_vpu_plain(a_re, a_im, *geo, derivs, mcut=mcut)
+        assert got.shape == ref.shape == (plan.nm, 12 if derivs else 4, J)
+        for c in range(got.shape[1]):
+            assert _relerr(got[:, c], ref[:, c]) < TOL, (derivs, c)
+        assert not bool(got.permute(1, 0, 2)[:, cut].any())
+        assert _relerr(got[-1], ref[-1]) < TOL
+
+
+def test_synth_vpu_kernel_ragged_rings_and_degrees(cuda_device):
+    """K3 on the ragged rings and odd band limit of
+    test_synth_kernel_ragged_rings_and_degrees (300 ring pairs of order 8,
+    nl = 301), with the rule's cutoff on those rings."""
+    plan = SHTPlan(8, cuda_device, lmax=300, dtype=torch.float32)
+    rings = slice(0, 300)
+    mcut = torch.as_tensor(TL.synth_mcut(plan.sth_host[rings], plan.nl,
+                                         plan.nm), device=cuda_device)
+    assert int(mcut[0]) < plan.nm
+    _synth_vpu_both_forms(plan, rings, mcut, 602)
+
+
+def test_synth_vpu_kernel_uncut_polar_caps(cuda_device):
+    """K3 without a cutoff on the 512 most polar ring pairs of order 10,
+    where the scale counters stay below 0 for hundreds of degrees (a ring
+    can reach k == -1 inside a zero-mode group) and the warps switch modes
+    at different degrees, or never."""
+    plan = SHTPlan(10, cuda_device, dtype=torch.float32)
+    mcut = torch.full((512 // TL.SYNTH_TILE_J,), plan.nm, dtype=torch.int32,
+                      device=cuda_device)
+    _synth_vpu_both_forms(plan, slice(0, 512), mcut, 603)
+
+
+# m rows on which K4 is held to its twin at large orders (chip_smoke.py's)
+CHECK_ROWS = (0, 1, 2, 3, 511, 2048, 6143, 10001, 12287)
+
+
+@pytest.mark.parametrize("order", [8, 10, 12])
+def test_analysis_dot_tensor_cores_match_twin_and_k1(cuda_device, order):
+    """K4's tensor-core contraction (TF32 parts, float32 accuracy) on the
+    CHECK_ROWS rows below nm: against the twin run on those rows alone and
+    against K1, 1e-5 of max; one launch."""
+    plan = SHTPlan(order, cuda_device, dtype=torch.float32)
+    rng = np.random.default_rng(700 + order)
+    E, O = (torch.tensor((rng.normal(size=(plan.nm, plan.J))
+                          + 1j * rng.normal(size=(plan.nm, plan.J))
+                          ).astype(np.complex64), device=cuda_device)
+            for _ in range(2))
+    args = TL.analysis_inputs(plan, E, O)
+    before = _ext.launches["legendre_analysis_dot"]
+    re, im = TL.analysis_dot_cuda(*args, plan.nl)
+    torch.cuda.synchronize()
+    assert _ext.launches["legendre_analysis_dot"] == before + 1
+    m = torch.tensor([r for r in CHECK_ROWS if r < plan.nm],
+                     device=cuda_device)
+    rre, rim = TL.analysis_dot_plain(*(x[m] for x in args[:4]), plan.cth,
+                                     plan.ln_sth, plan.logc[m], args[7],
+                                     plan.nl, m=m)
+    assert _relerr(re[m], rre) < TOL and _relerr(im[m], rim) < TOL
+    kre, kim = TL.analysis_cuda(*args, plan.nl)
+    assert _relerr(re, kre) < TOL and _relerr(im, kim) < TOL
+
+
 @pytest.mark.parametrize("lmax,rings", [(1000, 1024), (777, 700)])
 def test_analysis_kernel_ragged_degrees_and_rings(cuda_device, lmax, rings):
     """K1 (and K4) at band limits whose nl - m takes every residue of
@@ -246,7 +361,7 @@ def test_kernels_refuse_float64_cuda_tensors(cuda_device):
                              plan.mcut(TL.SYNTH_TILE_J))
     with pytest.raises(TypeError, match="float32 only"):
         TL.synth_vpu_columns(s, s, plan.cth, plan.sth, plan.cot,
-                             plan.inv_sth, True)
+                             plan.inv_sth, True, plan.mcut(TL.SYNTH_TILE_J))
     with pytest.raises(TypeError, match="float32 only"):
         TL.analysis_dot_columns(x, x, x, x, plan.cth, plan.ln_sth,
                                 plan.logc, mcut, plan.nl)

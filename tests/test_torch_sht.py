@@ -252,7 +252,7 @@ def test_fold_unfold_pairs_match_jax():
 def test_kernel_wrappers_refuse_non_cuda_tensors():
     """The launchers never run a CPU tensor: the dispatching wrappers send
     CPU tensors to the twins, the kernel entry points (K1, K2 with 16 and 4
-    columns, K3 in both forms, K4) raise."""
+    columns, K3 in both forms with its seed pre-pass, K4) raise."""
     tp = SHTPlan(2, "cpu", dtype=torch.float32)
     x = torch.zeros((tp.nm, tp.J))
     mcut = torch.tensor(TL.analysis_mcut(tp.sth_host, tp.nl, tp.nm))
@@ -267,4 +267,6 @@ def test_kernel_wrappers_refuse_non_cuda_tensors():
     for derivs in (True, False):
         with pytest.raises(ValueError, match="not on CUDA"):
             TL.synth_vpu_cuda(s, s, tp.cth, tp.sth, tp.cot, tp.inv_sth,
-                              derivs)
+                              derivs, tp.mcut(TL.SYNTH_TILE_J))
+    with pytest.raises(ValueError, match="not on CUDA"):
+        TL.chain_seed_cuda(tp.sth, tp.nm)

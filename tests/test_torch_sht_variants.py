@@ -88,6 +88,22 @@ def test_k3_chain_seed_rows_match_full_table():
                                   np.float32(0.28209479177387814))
 
 
+@pytest.mark.parametrize("order", [4, 6])
+def test_k3_seed_table_rows_match_chain_seed(order):
+    """The seed table that K3's pre-pass computes, the chain walked once
+    over every m < nm (chain_seed of all rows), equals chain_seed of each
+    row's m alone, row by row, bit for bit."""
+    tp = SHTPlan(order, "cpu", dtype=torch.float32)
+    seed, seed_k = TL.chain_seed(torch.arange(tp.nm), tp.sth)
+    assert seed.shape == seed_k.shape == (tp.nm, tp.J)
+    assert seed.dtype == torch.float32 and seed_k.dtype == torch.int32
+    for m in (0, 1, 2, tp.nm // 2, tp.nm - 1):
+        v, k = TL.chain_seed(torch.tensor([m]), tp.sth)
+        assert torch.equal(seed[m], v[0]) and torch.equal(seed_k[m], k[0]), m
+    # far from the equator the chain underflows into its scale counter
+    assert int(seed_k[-1, 0]) < 0
+
+
 def test_k4_twin_matches_pallas_dot_kernel():
     jp = _jplan(4)
     tp = SHTPlan(4, "cpu", dtype=torch.float32)

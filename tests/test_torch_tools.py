@@ -169,9 +169,9 @@ def test_gather_cuda_wrappers_refuse_cpu_tensors():
 @pytest.mark.parametrize("order", [3, 5, 8])
 def test_element_counts_match_brute_force(order):
     """production's element counts: every (l, m, j) that the kernels'
-    loops reach, counted one ring at a time: the triangle for K3, below
-    the 512-ring tiles' cutoff for K1 and K4, below the 128-ring tiles'
-    cutoff for K2 and K2-4col (which cuts at order 8 only)."""
+    loops reach, counted one ring at a time: below the 512-ring tiles'
+    cutoff for K1 and K4, below the 128-ring tiles' cutoff for K2 and K3 in
+    both forms (which cuts at order 8 only)."""
     plan = SHTPlan(order, "cpu", dtype=torch.float32)
     nl, nm, J = plan.nl, plan.nm, plan.J
     tri = np.arange(nl)[:, None] >= np.arange(nm)[None, :]
@@ -185,10 +185,11 @@ def test_element_counts_match_brute_force(order):
     got = R.element_counts(plan)
     assert got["legendre_analysis"] == got["legendre_analysis_dot"] == ana.sum()
     assert got["legendre_synth"] == got["legendre_synth_phi"] == syn.sum()
-    assert got["legendre_synth_vpu"] == tri.sum() * J
+    assert got["legendre_synth_vpu"] == got["legendre_synth_vpu_phi"] \
+        == syn.sum()
     sl = slice(J - J // 8, J)
     part = R.element_counts(plan, sl)
-    assert part["legendre_synth_vpu"] == tri.sum() * (J // 8)
+    assert part["legendre_synth_vpu"] == syn[sl].sum()
     assert part["legendre_synth"] == syn[sl].sum()
     assert part["legendre_analysis"] == ana[sl].sum()
 
@@ -221,6 +222,31 @@ def test_steady_loop_sass_follows_the_steady_path():
     assert r["ops"] == {"FMUL": 1, "BRA": 3, "FFMA": 1, "IADD3": 1}
     _, rings, group = R.STEADY_KERNELS["legendre_analysis_kernel"]
     assert r["per_element"] == 6 / group / rings
+
+
+def test_steady_loop_sass_counts_tensor_core_instructions_apart():
+    """K4's steady loop holds its contraction's HMMA: per_element counts
+    every instruction of the path, cuda_core_per_element all but HMMA."""
+    body = """
+        Function : _Z28legendre_analysis_dot_kernelPKf
+        /*0000*/                   FMUL R3, R4, R5 ;
+        /*0010*/                   STS.128 [R2], R4 ;
+        /*0020*/                   LDS.128 R8, [R2] ;
+        /*0030*/                   HMMA.1688.F32.TF32 R12, R8, R20, R12 ;
+        /*0040*/                   HMMA.1688.F32.TF32 R16, R8, R22, R16 ;
+        /*0050*/              @!P0 BRA 0x80 ;
+        /*0060*/                   VOTE.ALL P0, P0 ;
+        /*0070*/                   FSETP.GT.AND P1, PT, |R3|, 4.29e9, PT ;
+        /*0080*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0090*/              @!P2 BRA 0x0 ;
+        /*00a0*/                   EXIT ;
+"""
+    r = R.steady_loop_sass(body)["legendre_analysis_dot"]
+    _, rings, group = R.STEADY_KERNELS["legendre_analysis_dot_kernel"]
+    assert r["ops"] == {"FMUL": 1, "STS": 1, "LDS": 1, "HMMA": 2, "BRA": 2,
+                        "BAR": 1}
+    assert r["per_element"] == 8 / group / rings
+    assert r["cuda_core_per_element"] == 6 / group / rings
 
 
 def test_legendre_variants_edit_the_sources_once():
