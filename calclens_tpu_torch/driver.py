@@ -26,6 +26,7 @@ from .healpix import torchhp
 from .poisson import empty_plane_step_packed, plane_scalars, plane_step_packed
 from .rays import soa
 from .sht.plan import SHTPlan
+from .utils.profile import Profiler, sync
 
 
 def gauss_beam(fwhm_rad: float, lmax: int):
@@ -93,7 +94,6 @@ def _check_supported(cfg):
         (not _full_sky(cfg), "a cut-sky ra/dec box", 6),
         (bool(cfg.GalsFileList), "GalsFileList", 8),
         (bool(cfg.RayOutputName), "RayOutputName", 10),
-        (cfg.Profile, "Profile (per-phase timing rows)", 10),
         (bool(cfg.CMBLensing), "CMBLensing", 9),
         (cfg.DebugIO, "DebugIO (field-map dumps)", 10),
     ]
@@ -149,6 +149,11 @@ class Raytracer:
         self.timings = []
         # particle arrays are padded to bucket multiples (zero-mass entries)
         self.part_bucket = 4096
+        # per-phase profiler (reference profile.c tags), filled in
+        # cfg.Profile mode, where the plane step runs phase by phase with a
+        # device sync at each boundary
+        self.profiler = Profiler()
+        self.phase_rows = []
 
     # ------------------------------------------------------------------
     def init_rays(self):
@@ -241,13 +246,19 @@ class Raytracer:
         pp = plane_params(self.cfg, self.cosmo, plane_num)
         if pos is None:
             pos, mass = self.load_particles(plane_num)
+            if self.cfg.Profile:
+                self._note_phase(plane_num, "PARTIO",
+                                 time.perf_counter() - t0)
         scal = plane_scalars(pp, self.dtype, self.device)
         maps = None
         if len(pos):
             pos_d, mass_d = self._pad_particles(pos, mass)
+            kw = ({"phase": self._timed_phase(plane_num)} if self.cfg.Profile
+                  else {})
             packed, maps = plane_step_packed(
                 self.plan, self.tab, self.rays_packed, pos_d, mass_d,
-                self.cfg.BornApprx, with_maps, scal)
+                self.cfg.BornApprx, with_maps, scal,
+                scheme=self.cfg.DepositScheme, **kw)
         else:
             # empty planes keep the beta chord (see calclens_tpu/driver.py)
             packed = empty_plane_step_packed(self.cfg.BornApprx,
@@ -258,6 +269,38 @@ class Raytracer:
         self.current_plane = plane_num + 1
         self.timings.append((plane_num, time.perf_counter() - t0))
         return maps
+
+    # ------------------------------------------------------------------
+    def _phase_row(self, plane_num):
+        """The plane's dict of phase times in phase_rows (added if new)."""
+        for p, r in self.phase_rows:
+            if p == plane_num:
+                return r
+        row = {}
+        self.phase_rows.append((plane_num, row))
+        return row
+
+    def _note_phase(self, plane_num, tag, dt):
+        """Add a phase time to the plane's timing.0 row and the profiler."""
+        row = self._phase_row(plane_num)
+        row[tag] = row.get(tag, 0.0) + dt
+        self.profiler.add(tag, dt)
+
+    def _timed_phase(self, plane_num):
+        """plane_step_packed's phase hook in Profile mode: each phase
+        (DEPOSIT, SHTSOLVE = analysis + filter, SHT = the six-map synthesis,
+        RAYPROP = interpolation + propagation) timed on the host clock up to
+        a device sync of its output (the reference's per-plane phase rows,
+        shtpoissonsolve.c:521-576 + profile.c).  The step makes the same
+        calls as without Profile, so it gives the same numbers."""
+        def phase(tag, fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            sync(out)
+            self._note_phase(plane_num, tag, time.perf_counter() - t0)
+            return out
+
+        return phase
 
     # ------------------------------------------------------------------
     def restart_path(self):
@@ -326,13 +369,18 @@ class Raytracer:
                       f"[dist={pp.rad:.2f} Mpc/h, z={pp.zlens:.2f}] "
                       f"{self.timings[-1][1]:.3f}s", file=sys.stderr)
             if p in map_planes and cfg.OutputPath:
+                tio = time.perf_counter()
                 self._write_map_outputs()
                 self.map_num += 1
+                if cfg.Profile:
+                    self._note_phase(p, "RAYIO", time.perf_counter() - tio)
             now = time.perf_counter()
             step_t = self.timings[-1][1]
             if cfg.OutputPath and (
                     now - t_last_restart > cfg.WallTimeBetweenRestart):
                 self.save_restart()
+                if cfg.Profile:
+                    self._note_phase(p, "RESTART", time.perf_counter() - now)
                 t_last_restart = now
             if now - t_start > cfg.WallTimeLimit - 5.0 * step_t:
                 # graceful preemption (raytrace.c:143-149)
@@ -345,9 +393,27 @@ class Raytracer:
 
     def write_timing(self):
         """Per-plane step times (the reference's timing.0 rows,
-        raytrace.c:54-64, 338-343)."""
+        raytrace.c:54-64, 338-343).  In cfg.Profile mode the rows carry the
+        reference-style per-phase columns (Deposit, SHTSolve = analysis +
+        filter, SHT = derivative synthesis, RayProp = interpolation +
+        propagation, PartIO, GridSearch, RayIO, Restart) and the profiler's
+        totals go to the `timing` file."""
         path = os.path.join(self.cfg.OutputPath, "timing.0")
+        phases = ("DEPOSIT", "SHTSOLVE", "SHT", "RAYPROP", "PARTIO",
+                  "GRIDSEARCH", "RAYIO", "RESTART")
+        prow = dict(self.phase_rows)
         with open(path, "w") as fp:
-            fp.write("# plane StepTime[s]\n")
-            for p, t in self.timings:
-                fp.write(f"{p} {t:.6f}\n")
+            if self.cfg.Profile:
+                fp.write("# plane StepTime " +
+                         " ".join(t.title() for t in phases) + "\n")
+                for p, t in self.timings:
+                    r = prow.get(p, {})
+                    fp.write(f"{p} {t:.6f} " +
+                             " ".join(f"{r.get(k, 0.0):.6f}" for k in phases)
+                             + "\n")
+            else:
+                fp.write("# plane StepTime[s]\n")
+                for p, t in self.timings:
+                    fp.write(f"{p} {t:.6f}\n")
+        if self.cfg.Profile:
+            self.profiler.write(os.path.join(self.cfg.OutputPath, "timing"))

@@ -6,8 +6,9 @@ onto the poissonOrder RING map -> scale by densfact/pixarea and subtract the
 background -> map2alm -> alm *= -1/(l(l+1)) (monopole zeroed) -> alm2allmaps
 (phi + 5 covariant derivatives) -> bilinear + parallel-transport
 interpolation onto the rays (alpha -= grad phi, U += hess phi) -> geodesic
-propagation to the next plane.  Eager torch: each stage runs as it is
-called; temporaries are dropped as soon as the next stage has its input.
+propagation to the next plane, as four phase_* calls.  Eager torch: each
+stage runs as it is called; temporaries are dropped as soon as the next
+stage has its input.
 """
 
 from __future__ import annotations
@@ -58,45 +59,67 @@ def _poisson_filter(plan: SHTPlan, alm):
     return alm * inv.to(plan.dtype)
 
 
-def solve_potential_stacked(plan: SHTPlan, density):
-    """Scaled surface-density map -> the six field maps stacked [6, npix]
-    (phi and its covariant derivatives)."""
-    alm = _poisson_filter(plan, T.map2alm(plan, density))
+# ----------------------------------------------------------------------------
+# the plane step cut at the reference's phase boundaries (calclens_tpu/
+# poisson.py phase_*): the driver's Profile mode times each phase with a
+# device sync between them (profile.c tags; shtpoissonsolve.c:521-576), and
+# the fused step is the same four calls without the syncs
+# ----------------------------------------------------------------------------
+
+def phase_deposit(plan: SHTPlan, pos, mass, scheme: str, scal: PlaneScalars):
+    """Particles -> scaled surface-density map [npix] (DEPOSIT)."""
+    if scheme == "CIC":
+        raise NotImplementedError("calclens_tpu_torch does not run "
+                                  "DepositScheme CIC yet: it arrives with "
+                                  "ROADMAP Queue 1, slice 6")
+    if scheme == "SPH":
+        raise NotImplementedError("calclens_tpu_torch does not run "
+                                  "DepositScheme SPH yet: it arrives with "
+                                  "ROADMAP Queue 1, slice 7")
+    pixarea = 4.0 * math.pi / plan.npix
+    density = dep.deposit_ngp(plan.order, pos, mass, plan.npix)
+    return dep.scale_density(density, scal.densfact, scal.backdens, pixarea)
+
+
+def phase_analysis(plan: SHTPlan, density):
+    """density -> Poisson-filtered alm (SHTSOLVE: map2alm + -1/l(l+1))."""
+    return _poisson_filter(plan, T.map2alm(plan, density))
+
+
+def phase_synthesis(plan: SHTPlan, alm):
+    """alm -> the six field maps stacked [6, npix] (SHT: alm2allmaps)."""
     return T.alm2allmaps(plan, alm)
 
 
-def solve_potential(plan: SHTPlan, density):
-    """Scaled surface-density map -> FieldMaps (phi and covariant derivs)."""
-    return FieldMaps(*solve_potential_stacked(plan, density).unbind(0))
-
-
-def _solve_maps(plan, pos, mass, scal):
-    """NGP deposit + spectral solve -> stacked [6, npix] field maps."""
-    pixarea = 4.0 * math.pi / plan.npix
-    density = dep.deposit_ngp(plan.order, pos, mass, plan.npix)
-    density = dep.scale_density(density, scal.densfact, scal.backdens,
-                                pixarea)
-    return solve_potential_stacked(plan, density)
-
-
-def _ray_side_packed(tab, maps, packed, scal, born):
-    """Interpolation + propagation on the packed [21, N] buffer, global
-    gather from the whole maps, in column chunks."""
+def phase_rayside(tab, packed, maps, scal: PlaneScalars, born: bool):
+    """Zero the per-plane rows, interpolate the stacked maps to the rays
+    and propagate (INTERP + RAYPROP), on the packed buffer in column
+    chunks with the global gather from the whole maps."""
     def block(b):
         return soa.interp_and_prop_chunk(tab, maps, b, scal.wp, scal.wpm1,
                                          scal.wpm2, born)
 
-    return soa.chunked(block, packed, RAY_CHUNK)
+    return soa.chunked(block, soa.zero_plane_rows(packed), RAY_CHUNK)
+
+
+def _call(tag, fn, *args):
+    return fn(*args)
 
 
 def plane_step_packed(plan: SHTPlan, tab, packed, pos, mass, born: bool,
-                      with_maps: bool, scal: PlaneScalars):
-    """One lens-plane step on the packed ray buffer: zero the per-plane
-    rows, deposit + SHT Poisson solve, interpolate to the rays,
-    propagate to the next plane.  Returns (packed', FieldMaps or None)."""
-    packed = soa.zero_plane_rows(packed)
-    maps = _solve_maps(plan, pos, mass, scal)
-    packed = _ray_side_packed(tab, maps, packed, scal, born)
+                      with_maps: bool, scal: PlaneScalars, scheme="NGP",
+                      phase=_call):
+    """One lens-plane step on the packed ray buffer: deposit, SHT Poisson
+    solve, interpolation to the rays, propagation to the next plane (the
+    four phase_* calls, each made as phase(tag, fn, *args): a plain call by
+    default, a timed one in the driver's Profile mode).  Returns (packed',
+    FieldMaps or None)."""
+    density = phase("DEPOSIT", phase_deposit, plan, pos, mass, scheme, scal)
+    alm = phase("SHTSOLVE", phase_analysis, plan, density)
+    del density
+    maps = phase("SHT", phase_synthesis, plan, alm)
+    del alm
+    packed = phase("RAYPROP", phase_rayside, tab, packed, maps, scal, born)
     return packed, (FieldMaps(*maps.unbind(0)) if with_maps else None)
 
 

@@ -9,12 +9,18 @@ factorization at one padded FFT length L:
 
 Chirp phases use the exact integer reduction t^2 mod 2n, so the phase error
 stays at float rounding level even for t^2 ~ 2^30 (nside <= 8192).
+
+The tables (w and FFT_L(v)) depend only on the ring lengths and the shapes,
+never on the data: TableCache builds them once per key, for the distinct
+ring lengths only (a HEALPix map has about nside + 1 of them against 4 nside
+rings), and czt_blocked gathers each block's rows from them.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -48,33 +54,87 @@ def czt_tables(n, N, K, L, sign, cdtype, Nk=None):
     return w, torch.fft.fft(vc, dim=1)
 
 
-def czt(x, n, K, L, sign, cdtype, Nk=None):
+class TableCache:
+    """Tables that depend on the geometry alone (chirp tables, phase tables,
+    gather indices), each built once per key on first use and kept.
+    `builds` counts the tables built; nbytes(kind) sums the bytes of the
+    tables whose key starts with `kind` (all of them when None)."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._tables = {}
+        self.builds = 0
+
+    def get(self, key, build):
+        """The table under `key`, from build() the first time."""
+        hit = self._tables.get(key)
+        if hit is None:
+            hit = self._tables[key] = build()
+            self.builds += 1
+        return hit
+
+    def chirp(self, name, n, N, K, L, sign, cdtype, Nk=None):
+        """czt tables of the rings `name` names, of lengths n (host [R]),
+        for their distinct lengths only: (w [D, tmax], Vf [D, L], rows
+        [R]), row r's tables being row rows[r] of w and Vf.  The key is
+        the name and the shapes: n is read only when the tables are
+        built."""
+        def build():
+            uniq, inv = np.unique(np.asarray(n, dtype=np.int64),
+                                  return_inverse=True)
+            w, Vf = czt_tables(torch.as_tensor(uniq, device=self.device),
+                               N, K, L, sign, cdtype, Nk=Nk)
+            return w, Vf, torch.as_tensor(inv.reshape(-1), device=self.device)
+
+        return self.get(("czt", name, int(N), int(K), int(L), int(sign), Nk,
+                         cdtype), build)
+
+    def nbytes(self, kind=None):
+        def size(t):
+            if isinstance(t, torch.Tensor):
+                return t.numel() * t.element_size()
+            if isinstance(t, tuple):
+                return sum(size(x) for x in t)
+            return getattr(t, "nbytes", 0)  # host arrays; ints count 0
+
+        return sum(size(t) for k, t in self._tables.items()
+                   if kind is None or k[0] == kind)
+
+
+def czt(x, K, tables):
     """Chirp-Z transform of each row of x.
 
     x : [..., R, N] rows (complex or real); entries at j >= Nk must be 0.
         Leading axes are streams sharing the same rings (and tables).
-    n : [R] per-row DFT length.   K : output frequencies per row.
-    sign : +1 evaluates sum_j x_j e^{+2i pi jk/n}, -1 the forward DFT.
-    Nk : see czt_tables.
+    K : output frequencies per row.
+    tables : (w [R, >= max(N, K)], Vf [R, L]) of these rows, as czt_tables
+        gives them (their sign, Nk and dtype are the transform's).
     Returns [..., R, K] complex.
     """
     N = x.shape[-1]
-    w, Vf = czt_tables(n, N, K, L, sign, cdtype, Nk=Nk)
-    a = torch.zeros(x.shape[:-1] + (L,), dtype=cdtype, device=x.device)
-    a[..., :N] = x.to(cdtype) * w[..., :N]
+    w, Vf = tables
+    a = torch.zeros(x.shape[:-1] + Vf.shape[-1:], dtype=Vf.dtype,
+                    device=x.device)
+    a[..., :N] = x.to(Vf.dtype) * w[..., :N]
     X = torch.fft.ifft(torch.fft.fft(a, dim=-1) * Vf, dim=-1)
     return X[..., :K] * w[..., :K]
 
 
-def czt_blocked(x, n, K, L, sign, cdtype, block, real=False):
-    """Apply czt in row blocks of `block` rings to bound peak memory
-    (leading stream axes ride along whole).  real=True keeps only the real
-    part of each block's output, so the full complex result never exists."""
+def czt_blocked(x, n, K, L, sign, cdtype, block, cache, name, real=False,
+                Nk=None):
+    """czt of x [..., R, N] over rings n [R] (host) in row blocks of
+    `block` rings, to bound peak memory (leading stream axes ride along
+    whole).  The tables come from `cache` (a TableCache) under `name`:
+    each block gathers its rows' w and Vf.  real=True keeps only the real
+    part of each block's output, so the full complex result never
+    exists."""
     R = x.shape[-2]
     if R % block:
         raise ValueError(f"{R} rows are not a multiple of block {block}")
+    w, Vf, rows = cache.chirp(name, n, x.shape[-1], K, L, sign, cdtype, Nk=Nk)
     outs = []
     for i in range(0, R, block):
-        X = czt(x[..., i: i + block, :], n[i: i + block], K, L, sign, cdtype)
+        r = rows[i: i + block]
+        X = czt(x[..., i: i + block, :], K, (w[r], Vf[r]))
         outs.append(X.real.contiguous() if real else X)
     return torch.cat(outs, dim=-2) if len(outs) > 1 else outs[0]

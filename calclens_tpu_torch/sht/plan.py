@@ -4,9 +4,10 @@ Port of calclens_tpu/sht/plan.py (the reference's healpixsht_plan,
 healpix_shtrans.c:54-160) for one device.  Per-ring quantities are padded to
 nrings_pad rows; the northern ring-pair tables (index j: ring j north, ring
 nrings-1-j south, j == J-1 the equator) live on the plan's device in the
-plan's dtype.  O(npix) index tables are never built on the host: the ring
-<-> map index maps are computed on the device from O(nrings) tables when
-they are needed.
+plan's dtype.  The tables of the ring stage that depend on the geometry
+alone (chirp tables, the [nrings_pad, nm] phase tables, the ring <-> map
+gather indices) are built on the device at their first use and kept in
+the plan's TableCache (`plan.tables`), so later calls rebuild none of them.
 """
 
 from __future__ import annotations
@@ -18,6 +19,13 @@ import numpy as np
 import torch
 
 from ..healpix import core as hp
+from .czt import TableCache
+
+# the synthesis ring stages (transforms.synthesis_rings)
+SYNTHESIS_RINGS_MODES = ("uniform", "v2")
+# the faster of the two on the H100 at order 12 (chip_smoke.py phase 9
+# checks that it stays so)
+DEFAULT_SYNTHESIS_RINGS_MODE = "v2"
 
 
 class SHTPlan:
@@ -34,12 +42,20 @@ class SHTPlan:
         corrections per ring pair (1.0 = uniform).
     window : optional l-space window b_l applied in the Poisson filter.
 
-    Two attributes select the Legendre kernels, as the JAX package's
+    Four attributes select kernels and ring stages, as the JAX package's
     switches do (a caller may set them on a built plan):
     synth_kernel : "k2" (default) or "k3" (JAX: plan.use_pallas_mx = False).
     analysis_kernel : "k1" (default) or "k4", which the environment variable
         CALCLENS_ANA_DOT=1 selects when the plan is built (JAX reads it when
         calclens_tpu/sht/pallas_legendre.py is imported).
+    synthesis_rings_mode : the synthesis ring stage, one of
+        SYNTHESIS_RINGS_MODES (default DEFAULT_SYNTHESIS_RINGS_MODE):
+        "uniform" (one chirp-Z over all rings) or "v2" (belt irfft + cap
+        chirp-Z buckets by length octave).  The JAX package's third mode,
+        "hybrid" (belt irfft + one chirp-Z over all cap rings), is not
+        ported: v2 beats it on the H100 (PERF.md).
+    use_rings_v2 : the analysis ring stage: True (default) the bucketed
+        stage of sht/rings.py, False the uniform chirp-Z over all rings.
     """
 
     def __init__(self, order, device, lmax=None, dtype=torch.float32,
@@ -111,6 +127,7 @@ class SHTPlan:
         # per-ring tables [nrings_pad] (host, in the plan dtype)
         self.sth_ring = np.sin(theta).astype(ndt)
         self.cot_ring = (np.cos(theta) / np.sin(theta)).astype(ndt)
+        self.n_host = npr  # ring lengths, host copy for the table builds
         self.n_dev = dev(npr, torch.int64)
         self.shift_dev = dev(shifted, torch.int64)
 
@@ -133,17 +150,22 @@ class SHTPlan:
             self.window_dev = None
         self._ring_stage = None
         self._mcut = {}
+        self.tables = TableCache(self.device)
+        self.synthesis_rings_mode = DEFAULT_SYNTHESIS_RINGS_MODE
+        self.use_rings_v2 = True
         self.synth_kernel = "k2"
         self.analysis_kernel = ("k4" if os.environ.get("CALCLENS_ANA_DOT",
                                                        "0") == "1" else "k1")
 
     def ring_stage(self):
-        """The analysis ring-DFT stage (sht/rings.py), built on first use."""
+        """The bucketed ring-DFT stage (sht/rings.py), built on first use;
+        it keeps its tables in the plan's TableCache."""
         if self._ring_stage is None:
             from .rings import RingStage
 
             self._ring_stage = RingStage(self.order, self.nm, self.nrings_pad,
-                                         self.device, dtype=self.dtype)
+                                         self.device, self.tables,
+                                         dtype=self.dtype)
         return self._ring_stage
 
     def mcut(self, tile_j):
@@ -158,25 +180,70 @@ class SHTPlan:
                 device=self.device)
         return self._mcut[tile_j]
 
-    def _pix2ring(self):
-        """(ring index, offset in ring) of every map pixel, on the device."""
-        p = torch.arange(self.npix, dtype=torch.int64, device=self.device)
-        sp = torch.as_tensor(self.startpix[: self.nrings], device=self.device)
-        r = torch.searchsorted(sp, p, right=True) - 1
-        return r, p - sp[r]
-
     def rings_to_map(self, X):
         """[..., nrings_pad, P] ring matrix -> [..., npix] RING-ordered map."""
-        r, off = self._pix2ring()
-        idx = r * self.P + off
-        del r, off
+        idx = self.tables.get(("rings_to_map",), lambda: pix2ring_index(
+            self.startpix[: self.nrings],
+            np.arange(self.nrings, dtype=np.int64) * self.P, self.npix,
+            self.device))
         flat = X.reshape(X.shape[:-2] + (self.nrings_pad * self.P,))
-        return flat[..., idx]
+        return flat.index_select(-1, idx)
+
+    def map_to_rings(self, m):
+        """[..., npix] RING-ordered map -> [..., nrings_pad, P] ring matrix,
+        zero beyond each ring's length and on the padding rings."""
+        def build():
+            j = torch.arange(self.P, device=self.device)[None, :]
+            rows = torch.arange(self.nrings_pad, device=self.device)[:, None]
+            mask = (j < self.n_dev[:, None]) & (rows < self.nrings)
+            sp = torch.as_tensor(self.startpix, device=self.device)[:, None]
+            idx = torch.where(mask, sp + j, 0).to(torch.int32).reshape(-1)
+            return idx, mask
+
+        idx, mask = self.tables.get(("map_to_rings",), build)
+        X = m.index_select(-1, idx).reshape(m.shape[:-1] + mask.shape)
+        return torch.where(mask, X, 0.0)
 
     def ring_phase(self, sign):
-        """exp(sign * i * m * phi0_r) [nrings_pad, nm] complex; the integer
-        m * shift product is reduced mod 2n before the float conversion."""
-        n = self.n_dev[:, None]
-        t = (self.m_int[None, :] * self.shift_dev[:, None]) % (2 * n)
-        ph = (math.pi * sign) * (t.to(self.dtype) / n.to(self.dtype))
-        return torch.complex(torch.cos(ph), torch.sin(ph))
+        """exp(sign * i * m * phi0_r) [nrings_pad, nm] complex."""
+        return self.tables.get(("ring_phase", sign), lambda: phase_table(
+            self.m_int, self.n_dev, self.shift_dev, sign, self.dtype))
+
+    def synthesis_phase(self):
+        """(2 - delta_m0) exp(i m phi0_r) [nrings_pad, nm]: the synthesis
+        sum's m-fold weight and ring phase in one table, so a call pays one
+        multiply (Y = Q * table)."""
+        return self.tables.get(("synthesis_phase",), lambda: phase_table(
+            self.m_int, self.n_dev, self.shift_dev, +1, self.dtype,
+            mfold=True))
+
+
+def phase_table(m, n, shift, sign, dtype, mfold=False):
+    """exp(sign * i * pi * m * shift_r / n_r) [rows, nm] complex for m [nm]
+    and per-row n, shift [rows] (int64, on one device): the ring phase
+    e^{sign i m phi0_r}.  The integer m * shift product is reduced mod 2n
+    before the float conversion, so the cos/sin arguments stay below 2 pi
+    at every m.  mfold=True multiplies by the synthesis weight 2 - delta_m0
+    (exact: a power of two), so Q times the table equals Q times the weight
+    times the phase bit for bit."""
+    n = n[:, None]
+    t = (m[None, :] * shift[:, None]) % (2 * n)
+    ph = (math.pi * sign) * (t.to(dtype) / n.to(dtype))
+    out = torch.complex(torch.cos(ph), torch.sin(ph))
+    if mfold:
+        out = out * torch.where(m == 0, 1.0, 2.0).to(dtype)[None, :]
+    return out
+
+
+def pix2ring_index(startpix, base, npix, device):
+    """int32 [npix]: base[ring(p)] + (p - startpix[ring(p)]), the gather
+    index from ring rows laid out at offsets base [nrings] (host) to the
+    RING-ordered map.  int32 holds npix and every offset up to order 13."""
+    p = torch.arange(npix, dtype=torch.int64, device=device)
+    sp = torch.as_tensor(np.asarray(startpix, dtype=np.int64), device=device)
+    r = torch.searchsorted(sp, p, right=True) - 1
+    base = torch.as_tensor(np.asarray(base, dtype=np.int64), device=device)
+    idx = base[r] + (p - sp[r])
+    if int(idx.max()) >= 2**31:
+        raise ValueError("ring -> map index beyond int32")
+    return idx.to(torch.int32)

@@ -3,8 +3,9 @@
 Port of calclens_tpu/sht/transforms.py (unstreamed single-device path; the
 reference's map2alm_transpose_mpi.c and alm2allmaps_transpose_mpi.c):
 
-  * ring DFTs: the bucketed belt-rfft + cap chirp-Z stage for the analysis
-    (rings.py), the uniform chirp-Z over all rings for the synthesis;
+  * ring DFTs (rings.py, czt.py): for the analysis the bucketed belt-rfft +
+    cap chirp-Z stage, or the uniform chirp-Z over all rings; for the
+    synthesis the ring stage that plan.synthesis_rings_mode names;
   * north/south ring pairs folded into J = 2*nside even/odd combinations;
   * the Legendre sweeps in sht/legendre.py, chosen by the plan's selectors:
     K1 or K4 (analysis), K2 or K3 (synthesis, with derivatives or the
@@ -21,12 +22,32 @@ import torch
 
 from . import legendre
 from .czt import czt_blocked
-from .plan import SHTPlan
+from .plan import SYNTHESIS_RINGS_MODES, SHTPlan
 
 
 def analysis_rings(plan: SHTPlan, maps):
-    """RING map(s) [..., npix] -> G_m per ring [..., nrings_pad, nm]."""
-    return plan.ring_stage().analysis(maps)
+    """RING map(s) [..., npix] -> G_m per ring [..., nrings_pad, nm],
+
+    G[r, m] = sum_p map(r, p) e^{-i m phi_rp} = e^{-i m phi0_r}
+    DFT_{n_r}(x_r)[m mod n_r]:
+
+    by the bucketed stage of rings.py (plan.use_rings_v2, the default), or
+    by the uniform chirp-Z over all rings and an m mod n gather."""
+    if plan.use_rings_v2:
+        return plan.ring_stage().analysis(maps)
+    X = plan.map_to_rings(maps)  # [..., nrings_pad, P]
+    F = czt_blocked(X, plan.n_host, plan.P, plan.L, -1, plan.cdtype,
+                    plan.ring_block, plan.tables, "uniform")
+
+    def mmod():
+        r = torch.arange(plan.nrings_pad, device=plan.device)[:, None]
+        m = plan.m_int[None, :] % plan.n_dev[:, None]
+        return (r * plan.P + m).to(torch.int32).reshape(-1)
+
+    idx = plan.tables.get(("m_mod_n",), mmod)
+    G = F.reshape(F.shape[:-2] + (-1,)).index_select(-1, idx)
+    return G.reshape(F.shape[:-2] + (plan.nrings_pad, plan.nm)) \
+        * plan.ring_phase(-1)
 
 
 def synthesis_rings(plan: SHTPlan, Q):
@@ -34,19 +55,21 @@ def synthesis_rings(plan: SHTPlan, Q):
 
     map(r, p) = Re sum_m (2 - delta_m0) q_m e^{i m phi_rp},
 
-    by the uniform chirp-Z over all rings (one shape for every ring)."""
-    wfold = torch.where(plan.m_int == 0, 1.0, 2.0).to(plan.dtype)
-    Y = Q * wfold[None, :] * plan.ring_phase(+1)
-    lead = Y.shape[:-2]
-    Yf = Y.reshape((-1,) + Y.shape[-2:])
-    out = []
-    for i in range(Yf.shape[0]):
-        X = czt_blocked(Yf[i], plan.n_dev, plan.P, plan.L, +1, plan.cdtype,
-                        plan.ring_block, real=True)
-        out.append(plan.rings_to_map(X.to(plan.dtype)))
-        del X
-    res = torch.stack(out, dim=0)
-    return res.reshape(lead + res.shape[-1:])
+    by the ring stage plan.synthesis_rings_mode names (plan.py):
+    "uniform", one chirp-Z over all rings (one shape for every ring, in row
+    blocks of plan.ring_block); "v2", the belt irfft with the cap chirp-Zs
+    of rings.py.  Neither mode reads Q's padding rows."""
+    mode = plan.synthesis_rings_mode
+    if mode not in SYNTHESIS_RINGS_MODES:
+        raise ValueError(f"synthesis_rings_mode {mode!r}: expected one of "
+                         f"{SYNTHESIS_RINGS_MODES}")
+    Y = Q * plan.synthesis_phase()
+    if mode == "v2":
+        return plan.ring_stage().synthesis(Y)
+    X = czt_blocked(Y, plan.n_host, plan.P, plan.L, +1, plan.cdtype,
+                    plan.ring_block, plan.tables, "uniform", real=True)
+    del Y
+    return plan.rings_to_map(X)
 
 
 def fold_pairs(plan: SHTPlan, G):
@@ -181,8 +204,8 @@ def alm2allmaps(plan: SHTPlan, alm):
     cot[: plan.nrings] = plan.cot_ring[: plan.nrings]
     streams = _streams_from_q_rows(plan, *qrows, sth, cot)
     del qrows
-    # the six synthesis chirp-Z pipelines run in pairs to bound peak memory,
-    # each pair written in place into the one output buffer
+    # the six synthesis ring stages run in pairs to bound peak memory, each
+    # pair written in place into the one output buffer
     out = torch.empty((6, plan.npix), dtype=plan.dtype, device=alm.device)
     for i in range(0, 6, 2):
         out[i: i + 2] = synthesis_rings(plan, streams[i: i + 2])

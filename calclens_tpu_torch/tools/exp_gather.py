@@ -31,6 +31,11 @@ W = 4096      # table rows
 F = 8         # fields per row
 SEG = 128     # lanes per segment of the one-hot route
 HBM_RATE = 3.35e12  # bytes/s, NVIDIA's H100 SXM data sheet
+BF16_PEAK = 989e12  # dense BF16 FLOP/s on the tensor cores, the same sheet
+# gather_onehot computes every lane of every row, as the TPU kernel does:
+# 3 bf16 parts x 2 x 128 m16n8k16 products (2 * 16 * 8 * 16 FLOPs each) per
+# 16 indices
+ONEHOT_FLOPS_PER_INDEX = 3 * 2 * 128 * (2 * 16 * 8 * 16) / 16
 REPS = 20
 
 
@@ -148,17 +153,23 @@ def gather_onehot(tab, idx):
     return gather_onehot_cuda(tab, idx)
 
 
-def bound_ms(n=N):
-    """Least time for out = tab[idx]: index, table and output moved once
-    over the card's memory rate (bytes-bound)."""
-    return 1e3 * 4.0 * (n + W * F + n * F) / HBM_RATE
+def bound_ms(name, n=N):
+    """(least time in ms, what bounds it) for kernel `name` on n indices:
+    the larger of the bytes of out = tab[idx] (index, table and output
+    moved once) over the card's memory rate and, for gather_onehot, its
+    tensor-core products over the BF16 peak."""
+    t = {"bytes": 4.0 * (n + W * F + n * F) / HBM_RATE,
+         "operations": (n * ONEHOT_FLOPS_PER_INDEX / BF16_PEAK
+                        if name == "gather_onehot" else 0.0)}
+    by = max(t, key=t.get)
+    return 1e3 * t[by], by
 
 
 def run(device="cuda"):
     """Every kernel against torch's gather on the same inputs (bit for bit)
     and timed beside it (CUDA events, mean of REPS after a warm-up; the
     plain versions REPS / 10): name -> dict(ms, plain_ms, library_ms,
-    bound_ms, exact, max_abs_err)."""
+    bound_ms, bound_by, exact, max_abs_err)."""
     dev = require_cuda(device)
     tab, idx = inputs(device=dev)
     tabT = tab.T.contiguous()
@@ -182,15 +193,17 @@ def run(device="cuda"):
         exact = bool(torch.equal(got, ref)) and bool(torch.equal(twin, ref))
         err = float((got - ref).abs().max())
         del got, ref, twin
+        bound, by = bound_ms(name)
         out[name] = dict(ms=cuda_ms(kern, REPS),
                          plain_ms=cuda_ms(plain, REPS // 10),
                          library_ms=cuda_ms(library, REPS),
-                         bound_ms=bound_ms(), exact=exact, max_abs_err=err)
+                         bound_ms=bound, bound_by=by, exact=exact,
+                         max_abs_err=err)
         r = out[name]
         print(f"{name:13s} N={N}: {r['ms']:.4f} ms ({N / r['ms'] / 1e6:.0f} "
               f"G idx/s), plain {r['plain_ms']:.4f} ms, tab[idx] "
               f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"(bytes); bit-exact {exact}", flush=True)
+              f"({by}); bit-exact {exact}", flush=True)
     return out
 
 

@@ -40,6 +40,10 @@ MODE_IDS = {m: i for i, m in enumerate(MODES)}
 # FP32 operations per (l, m, j) element in the TPU tool's count: the
 # recurrence's 3 multiplies and a subtraction; 16 FMAs for dot
 FLOPS = {"rec": 4, "rec+store": 4, "store": 0, "dot": 32}
+# issue slots per element that the rounding contract needs on the CUDA
+# cores: the recurrence's 4 operations, each rounded on its own (no FMA),
+# so rec is bound by issue slots, not by the FMA-counted FLOP rate
+SLOTS = {"rec": 4}
 DEFAULT_SHAPE = dict(MT=96, LBLK=64, LB=128, TM=32, TJ=256)
 DOT_COLS = 16
 CEILING_REPS = 5     # timed launches per mode, after a warm-up

@@ -23,9 +23,10 @@ of which must pass:
      float32, three planes of seeded particles at pixel centres, once on
      the CPU (twins) and once on the card (kernels); the packed ray buffers
      must agree within 5e-4 of each quantity's max |value| after every
-     plane.  Run twice: with the default kernels (K2, K1) and with the
-     variant (K3 with its seed pre-pass, K4); each CUDA run must have
-     launched its kernels.
+     plane.  Run with the default kernels (K2, K1) and with the variant (K3
+     with its seed pre-pass, K4), both with the default synthesis ring
+     stage, then with (K2, K1) and the "uniform" stage; each CUDA run must
+     have launched its kernels.
      Then Raytracer.run, with MapRedshiftList and OutputPath, on the CPU
      and on the card (8 planes): the driver writes the lens maps after
      planes 1 and 2, and the card's Convergence_ and Rays_ files agree
@@ -33,8 +34,12 @@ of which must pass:
   5. headline: SHTOrder 12 (NSIDE 4096, lmax 12287), rayOrder 10
      (12,582,912 rays), 2^21 particles, float32, through Raytracer.step:
      one warm-up plane and three timed planes, with the kernel launch counts
-     of exactly that run, the peak device memory and finite rays; then the
-     variant headline (K3, K4): one warm-up plane and two timed planes, K3,
+     of exactly that run, the peak device memory and finite rays; one more
+     plane with Profile set, whose phase row (DEPOSIT, SHTSOLVE, SHT,
+     RAYPROP) is printed; one timed plane with the "uniform" synthesis ring
+     stage when the default is another, its time beside the default's;
+     then the variant headline (K3, K4): one warm-up plane and two timed
+     planes, K3,
      its seed pre-pass and K4 launched and K1 and K2 not, and the distance
      of its rays from the default run's rays after the same planes.  After
      the default run's planes, the driver's lens maps at LensMapOrder 8:
@@ -68,7 +73,16 @@ of which must pass:
      loops of K1-K4 per element (for K4 also without its HMMA);
   8. P2-P4, the gather probes (csrc/gather_probe.cu), through the tool's
      run() at N = 2^23: each bit-exact against torch's tab[idx], timed
-     beside it, launches counted.
+     beside it, launches counted; P4 bound by its tensor-core products;
+  9. the synthesis ring stages (sht/rings.py, czt.py): at order 12 each
+     mode (uniform, v2) on the same two streams, K2's q rows of
+     band-limited alm through unfold_pairs, timed with CUDA events after
+     its first call (which builds its tables, timed apart), with its peak
+     memory and its tables' bytes, its maps within 1e-5 of the uniform
+     mode's; no table rebuilt after the first call; the uniform mode split
+     into table builds, FFTs and rings_to_map; the v2 analysis against the
+     uniform analysis; at order 10 every mode against a float64 uniform
+     run; the port's default mode must be the fastest (5 % slack).
 
 It prints the card's line, a JSON line {"kernels": [...]} with each
 kernel's launches on its path's run, its error against its twin, its
@@ -97,6 +111,15 @@ TRACE_BOUND = 5e-4
 # against a float64 host accumulation, relative to each row's max
 MAP_BOUND = 1e-5
 MAP_ORDER = 8
+# the synthesis ring stages: each mode's maps against the "uniform" mode's
+# on the same float32 streams at order 12, and every mode against a float64
+# "uniform" run at order 10, relative to max |reference|; the v2 analysis
+# against the uniform analysis on the columns both compute, the same way
+RING_BOUND = 1e-5
+RING_ORDERS = (12, 10)
+# the default mode may lie this far above the fastest one measured (noise
+# between calls)
+RING_DEFAULT_SLACK = 0.05
 # P1 probe vs its plain version, relative to max |plain|: the same roundings
 # (0 expected); dot sums its FMAs in another order
 PROBE_BOUND = 1e-6
@@ -449,6 +472,193 @@ def distance_from_f64(plan, alm, q2, q3):
     return twins, out
 
 
+def ring_streams(plan, alm):
+    """Two synthesis streams [2, nrings_pad, nm] as the plane step makes
+    them: K2's (phi, d_theta) q rows of alm through unfold_pairs."""
+    import torch
+    from calclens_tpu_torch.sht import transforms as T
+
+    qN, qS = T.legendre_synthesis(plan, alm, True)
+    Q = torch.stack([T.unfold_pairs(plan, qN[k], qS[k]) for k in range(2)])
+    del qN, qS
+    return Q
+
+
+def ring_stage_modes(plan, Q, reps=3):
+    """Each synthesis ring stage on the same streams Q: mode -> dict(maps,
+    first_s (host clock of the first call, its tables built in it), ms
+    (CUDA events, mean of `reps` after a warm-up), peak_gib (peak device
+    memory of a call above what was allocated before it), table_bytes)."""
+    import torch
+    from calclens_tpu_torch.sht import transforms as T
+    from calclens_tpu_torch.sht.czt import TableCache
+    from calclens_tpu_torch.sht.plan import SYNTHESIS_RINGS_MODES
+    from calclens_tpu_torch.tools import cuda_ms
+
+    out = {}
+    for mode in SYNTHESIS_RINGS_MODES:
+        plan.synthesis_rings_mode = mode
+        plan.tables, plan._ring_stage = TableCache(plan.device), None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        maps = T.synthesis_rings(plan, Q)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        builds = plan.tables.builds
+        ms = cuda_ms(lambda: T.synthesis_rings(plan, Q), reps)
+        check(plan.tables.builds == builds, f"ring stage {mode} rebuilt a "
+              f"table after its first call")
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        again = T.synthesis_rings(plan, Q)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        check(torch.equal(again, maps), f"ring stage {mode}: a second call "
+              f"differs from the first")
+        del again
+        out[mode] = dict(maps=maps, first_s=first_s, ms=ms, peak_gib=peak,
+                         table_bytes={k: plan.tables.nbytes(k) for k in (
+                             "czt", "synthesis_phase", "fold", "assembly",
+                             "rings_to_map")},
+                         builds=builds)
+    plan.synthesis_rings_mode = "uniform"
+    return out
+
+
+def uniform_split(plan, Q, reps=3):
+    """The uniform synthesis split: (seconds to build each of its tables on
+    a new cache, ms per part at steady state: the weight and phase multiply,
+    the blocked chirp-Z FFTs, rings_to_map)."""
+    import torch
+    from calclens_tpu_torch.sht.czt import TableCache, czt_blocked
+    from calclens_tpu_torch.tools import cuda_ms
+
+    plan.tables = TableCache(plan.device)
+    build = {}
+    for name, fn in (
+            ("synthesis_phase", plan.synthesis_phase),
+            ("czt", lambda: plan.tables.chirp(
+                "uniform", plan.n_host, plan.nm, plan.P, plan.L, +1,
+                plan.cdtype)),
+            ("rings_to_map", lambda: plan.rings_to_map(
+                torch.zeros((plan.nrings_pad, plan.P), device=plan.device)))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        build[name] = time.perf_counter() - t0
+    Y = Q * plan.synthesis_phase()
+    X = czt_blocked(Y, plan.n_host, plan.P, plan.L, +1, plan.cdtype,
+                    plan.ring_block, plan.tables, "uniform", real=True)
+    ms = dict(phase=cuda_ms(lambda: Q * plan.synthesis_phase(), reps),
+              ffts=cuda_ms(lambda: czt_blocked(
+                  Y, plan.n_host, plan.P, plan.L, +1, plan.cdtype,
+                  plan.ring_block, plan.tables, "uniform", real=True), reps),
+              rings_to_map=cuda_ms(lambda: plan.rings_to_map(X), reps))
+    del X, Y
+    return build, ms
+
+
+def analysis_v2_vs_uniform(plan, maps):
+    """The bucketed (v2) analysis ring stage against the uniform one on the
+    same map, on the columns both compute (v2 leaves the cap columns beyond
+    each group's turning-point cutoff at 0): (relative distance, v2 ms,
+    uniform ms), CUDA events, mean of 3 after a warm-up."""
+    from calclens_tpu_torch.sht import transforms as T
+    from calclens_tpu_torch.tools import cuda_ms
+
+    plan.use_rings_v2 = False
+    Gu = T.analysis_rings(plan, maps)
+    u_ms = cuda_ms(lambda: T.analysis_rings(plan, maps), 3)
+    plan.use_rings_v2 = True
+    Gv = T.analysis_rings(plan, maps)
+    v_ms = cuda_ms(lambda: T.analysis_rings(plan, maps), 3)
+    for b in plan.ring_stage().abuckets:
+        Gu[..., b["rows"], b["K"]:] = 0
+    err = rel_err(Gv, Gu)
+    del Gu, Gv
+    return err, v_ms, u_ms
+
+
+def ring_stage_phase(dev):
+    """The synthesis ring stages at order 12 on K2's streams: each mode
+    timed (CUDA events), its first call (tables built), peak memory and
+    table bytes, its maps within RING_BOUND of the uniform mode's; the
+    uniform mode split; the v2 analysis against the uniform analysis; at
+    order 10 every mode against a float64 uniform run of the same streams.
+    Returns the order-12 numbers by mode and the order-10 distances."""
+    import torch
+    from calclens_tpu_torch.sht import transforms as T
+    from calclens_tpu_torch.sht.plan import SHTPlan
+
+    res = {}
+    for order in RING_ORDERS:
+        plan, alm, _, _ = band_limited_inputs(order, dev, order)
+        Q = ring_streams(plan, alm)
+        del alm
+        torch.cuda.empty_cache()
+        modes = ring_stage_modes(plan, Q)
+        ref = modes["uniform"]["maps"]
+        if order == RING_ORDERS[1]:
+            p64 = SHTPlan(order, dev, dtype=torch.float64)
+            p64.synthesis_rings_mode = "uniform"
+            ref = T.synthesis_rings(p64, Q.to(torch.complex128))
+            del p64
+        dist = {}
+        for mode, r in modes.items():
+            dist[mode] = rel_err(r["maps"].double(), ref.double())
+            check(dist[mode] < RING_BOUND, f"ring stage {mode} at order "
+                  f"{order}: {dist[mode]:.3e} from the reference")
+        res[order] = dict(modes=modes, dist=dist)
+        if order == RING_ORDERS[0]:
+            res["split"] = uniform_split(plan, Q)
+            res["analysis"] = analysis_v2_vs_uniform(plan,
+                                                     modes["v2"]["maps"][0])
+            check(res["analysis"][0] < RING_BOUND, f"v2 analysis off the "
+                  f"uniform analysis: {res['analysis'][0]:.3e}")
+        for r in modes.values():
+            del r["maps"]
+        del Q, ref, modes, plan
+        torch.cuda.empty_cache()
+    return res
+
+
+def report_ring_stages(rings, default):
+    """Print phase 9's numbers; fail unless the port's default synthesis
+    ring stage is the fastest at the first of RING_ORDERS (within
+    RING_DEFAULT_SLACK)."""
+    o12, o10 = RING_ORDERS
+    for mode, r in rings[o12]["modes"].items():
+        say(f"order {o12} synthesis ring stage {mode} on 2 streams: "
+            f"{r['ms']:.3f} ms (first call, tables built: "
+            f"{r['first_s']:.3f} s), peak {r['peak_gib']:.2f} GiB above its "
+            f"inputs, tables {r['table_bytes']} bytes; "
+            f"{rings[o12]['dist'][mode]:.3e} of max from uniform (bound "
+            f"{RING_BOUND:g})")
+    for mode, d in rings[o10]["dist"].items():
+        say(f"order {o10} synthesis ring stage {mode}: {d:.3e} of max from "
+            f"a float64 uniform run of the same streams (bound "
+            f"{RING_BOUND:g}); {rings[o10]['modes'][mode]['ms']:.3f} ms")
+    build, parts = rings["split"]
+    say(f"order {o12} uniform synthesis split: table builds "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in build.items())
+        + "; per call " + ", ".join(f"{k} {v:.3f} ms"
+                                    for k, v in parts.items()))
+    err, v_ms, u_ms = rings["analysis"]
+    say(f"order {o12} analysis ring stage v2 vs uniform on the columns both "
+        f"compute: {err:.3e} of max (bound {RING_BOUND:g}); v2 {v_ms:.3f} "
+        f"ms, uniform {u_ms:.3f} ms")
+    ring_ms = {m: r["ms"] for m, r in rings[o12]["modes"].items()}
+    fastest = min(ring_ms, key=ring_ms.get)
+    say(f"synthesis ring stages at order {o12}: fastest {fastest}, the "
+        f"port's default {default}")
+    check(ring_ms[default]
+          <= (1.0 + RING_DEFAULT_SLACK) * ring_ms[fastest],
+          f"the default synthesis ring stage {default} "
+          f"is not the fastest: {ring_ms}")
+
+
 def grouped_row_err(got, ref):
     """Max over packed rows of |got - ref| / max|ref| of the row's quantity
     (n, beta, A, Aprev, alpha, U, phi)."""
@@ -485,13 +695,15 @@ def pixel_centre_particles(cfg, cosmo, plane, n, seed):
     return pos, np.full(n, pp.backdens * 4.0 * np.pi / pp.densfact / n)
 
 
+# the driver's phase row of a Profile'd plane step
+PROFILE_TAGS = ("DEPOSIT", "SHTSOLVE", "SHT", "RAYPROP")
 # the kernels each pair of selectors runs on the plane step
 PATH_KERNELS = {("k2", "k1"): ("legendre_synth", "legendre_analysis"),
                 ("k3", "k4"): ("legendre_synth_vpu", "legendre_analysis_dot",
                                "legendre_chain_seed")}
 
 
-def trace_cuda_vs_cpu(synth, analysis):
+def trace_cuda_vs_cpu(synth, analysis, rings_mode):
     import torch
     from calclens_tpu_torch import _ext
     from calclens_tpu_torch.config import RayTraceConfig
@@ -504,6 +716,7 @@ def trace_cuda_vs_cpu(synth, analysis):
     gpu = Raytracer(cfg, device="cuda")
     for rt in (cpu, gpu):
         rt.plan.synth_kernel, rt.plan.analysis_kernel = synth, analysis
+        rt.plan.synthesis_rings_mode = rings_mode
         rt.init_rays()
     _ext.reset_launches()
     errs = []
@@ -607,12 +820,16 @@ def run_with_maps():
     return worst, counts
 
 
-def headline(synth, analysis, planes, snapshot_after, maps_order=None):
+def headline(synth, analysis, planes, snapshot_after, maps_order=None,
+             profile_plane=None, compare_mode=None):
     """The plane step at the headline shape with the given kernels: plane
     1 as warm-up, then `planes` timed; the launch counts of exactly those
     planes, peak device memory, and a host copy of the rays after plane
     `snapshot_after`; then, with maps_order, the lens maps of the final
-    rays (lens_maps)."""
+    rays (lens_maps); with profile_plane, that plane once more with Profile
+    set (the driver's phase row: DEPOSIT, SHTSOLVE, SHT, RAYPROP); with
+    compare_mode, the synthesis ring stage switched to that mode, one
+    plane to build its tables and one timed plane."""
     import torch
     from calclens_tpu_torch import _ext
     from calclens_tpu_torch.config import RayTraceConfig
@@ -630,8 +847,9 @@ def headline(synth, analysis, planes, snapshot_after, maps_order=None):
     nrays = rt.rays_packed.shape[1]
     npart = 1 << 21
     pos, mass = seeded_particles(npart, 1.0, 12)
+    extra = planes[-1] + 1
     staged = {p: rt._pad_particles(pos * (250.0 * p + 125.0), mass)
-              for p in (1, *planes)}
+              for p in (1, *planes, extra)}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _ext.reset_launches()
@@ -655,9 +873,26 @@ def headline(synth, analysis, planes, snapshot_after, maps_order=None):
           f"only {ran}")
     out = dict(setup_s=setup_s, times=times, nrays=nrays, npart=npart,
                counts=counts, peak=peak, shape=tuple(rt.rays_packed.shape),
-               snap=snap)
+               snap=snap, mode=rt.plan.synthesis_rings_mode)
     if maps_order is not None:
         out["maps"] = lens_maps(rt, maps_order)
+    if profile_plane is not None:
+        rt.cfg.Profile = True
+        rt.step(profile_plane, *staged[extra])
+        rt.cfg.Profile = False
+        row = dict(rt.phase_rows)[profile_plane]
+        check(sorted(row) == sorted(PROFILE_TAGS) and
+              sum(row.values()) <= rt.timings[-1][1],
+              f"Profile'd plane: phase row {row}, step {rt.timings[-1]}")
+        out["profile"] = (rt.timings[-1][1], row)
+    if compare_mode is not None:
+        rt.plan.synthesis_rings_mode = compare_mode
+        rt.step(planes[0], *staged[planes[0]])  # builds its tables
+        t = time.perf_counter()
+        rt.step(extra, *staged[extra])
+        out["compare"] = (compare_mode, time.perf_counter() - t)
+        check(bool(torch.isfinite(rt.rays_packed).all()),
+              f"headline with {compare_mode}: non-finite ray rows")
     return out
 
 
@@ -777,19 +1012,23 @@ def probe_phase(dev, kernel_ms, plan):
     check(smem_peak, "nvidia-smi gave no SM clock for the shared-memory peak")
     modes = {}
     for mode in R.MODES:
-        # the store modes also write 4 bytes per element into shared memory
+        # the store modes also write 4 bytes per element into shared memory;
+        # rec's 4 rounded operations take 4 issue slots per element
         limits = {"operations": elems * R.FLOPS[mode] / FP32_PEAK,
                   "bytes": out_bytes[mode] / HBM_RATE,
                   "shared memory": (4.0 * elems / smem_peak
-                                    if "store" in mode else 0.0)}
+                                    if "store" in mode else 0.0),
+                  "issue slots": elems * R.SLOTS.get(mode, 0) / SLOT_RATE}
         by = max(limits, key=limits.get)
         modes[mode] = dict(
             ms=ceil[mode]["ms"], plain_ms=plain_ms[mode],
             bound_ms=1e3 * limits[by], bound_by=by,
+            flop_bound_ms=1e3 * limits["operations"],
             library_ms=lib_ms if mode == "dot" else None,
             max_abs_err=errs[mode])
         say(f"P1 {mode}: {ceil[mode]['ms']:.4f} ms, bound "
-            f"{modes[mode]['bound_ms']:.4f} ms ({modes[mode]['bound_by']})")
+            f"{modes[mode]['bound_ms']:.4f} ms ({modes[mode]['bound_by']}); "
+            f"FLOP-counted {modes[mode]['flop_bound_ms']:.4f} ms")
     counts = R.element_counts(plan)
     sh_ = R.shares(kernel_ms, counts, ceil)
     for name, (rate, s_rec, s_rs) in sh_.items():
@@ -833,12 +1072,21 @@ def gather_phase(dev):
 
 def report_headline(label, h):
     per_plane = float(np.median(h["times"]))
-    say(f"{label} SHTOrder 12 / rayOrder 10 / 2^21 particles f32: "
+    say(f"{label} SHTOrder 12 / rayOrder 10 / 2^21 particles f32, "
+        f"synthesis ring stage {h['mode']}: "
         f"planes {', '.join(f'{t:.4f}' for t in h['times'])} s, "
         f"median {per_plane:.4f} s/plane, {h['nrays'] / per_plane:.0f} "
         f"rays/s, peak {h['peak'] / 2**30:.2f} GiB, setup "
         f"{h['setup_s']:.2f} s, launches {h['counts']}, rays {h['shape']} "
         f"finite")
+    if "profile" in h:
+        step, row = h["profile"]
+        say(f"{label} Profile'd plane: step {step:.4f} s; "
+            + ", ".join(f"{k} {row[k]:.4f} s" for k in PROFILE_TAGS))
+    if "compare" in h:
+        mode, t = h["compare"]
+        say(f"{label} with synthesis ring stage {mode}: one timed plane "
+            f"{t:.4f} s against {h['mode']}'s median {per_plane:.4f} s")
 
 
 def main():
@@ -847,6 +1095,7 @@ def main():
     check(torch.cuda.is_available(), "torch sees no CUDA device")
     import calclens_tpu_torch  # noqa: F401  (fails outside the checkout)
     from calclens_tpu_torch import _ext
+    from calclens_tpu_torch.sht.plan import DEFAULT_SYNTHESIS_RINGS_MODE
     from calclens_tpu_torch.sht import legendre as TL
     from calclens_tpu_torch.sht import transforms as T
 
@@ -899,14 +1148,18 @@ def main():
         del plan, streams, ana
         torch.cuda.empty_cache()
 
-    # 4. CUDA vs CPU trace, default and variant kernels
-    for synth, analysis in PATH_KERNELS:
-        errs, counts = trace_cuda_vs_cpu(synth, analysis)
-        say(f"trace order 7/6 f32 ({synth}, {analysis}), CUDA vs CPU per "
-            f"plane: {', '.join(f'{e:.3e}' for e in errs)} "
+    # 4. CUDA vs CPU trace, default and variant kernels with the default
+    # synthesis ring stage, then the default kernels with "uniform"
+    runs = [(*k, DEFAULT_SYNTHESIS_RINGS_MODE) for k in PATH_KERNELS]
+    if DEFAULT_SYNTHESIS_RINGS_MODE != "uniform":
+        runs.append(("k2", "k1", "uniform"))
+    for synth, analysis, rings_mode in runs:
+        errs, counts = trace_cuda_vs_cpu(synth, analysis, rings_mode)
+        say(f"trace order 7/6 f32 ({synth}, {analysis}, {rings_mode}), CUDA "
+            f"vs CPU per plane: {', '.join(f'{e:.3e}' for e in errs)} "
             f"(bound {TRACE_BOUND:g}); launches {counts}")
-        check(max(errs) < TRACE_BOUND, f"CUDA trace ({synth}, {analysis}) "
-              f"off the CPU trace: {errs}")
+        check(max(errs) < TRACE_BOUND, f"CUDA trace ({synth}, {analysis}, "
+              f"{rings_mode}) off the CPU trace: {errs}")
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
     run_err, run_counts = run_with_maps()
@@ -918,7 +1171,9 @@ def main():
 
     # 5. headline shape through Raytracer.step, default then variant
     h = headline("k2", "k1", (2, 3, 4), snapshot_after=3,
-                 maps_order=MAP_ORDER)
+                 maps_order=MAP_ORDER, profile_plane=5,
+                 compare_mode=("uniform" if DEFAULT_SYNTHESIS_RINGS_MODE
+                               != "uniform" else None))
     report_headline("headline", h)
     map_err, map_s, map_npix = h["maps"]
     say(f"lens maps of the headline rays at LensMapOrder {MAP_ORDER} "
@@ -1036,6 +1291,12 @@ def main():
     gathers = gather_phase(dev)
     torch.cuda.empty_cache()
 
+    # 9. the synthesis ring stages on K2's streams; the port's default mode
+    # must be the fastest one here (within RING_DEFAULT_SLACK)
+    rings = ring_stage_phase(dev)
+    report_ring_stages(rings, DEFAULT_SYNTHESIS_RINGS_MODE)
+    torch.cuda.empty_cache()
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, **extra):
         b = bounds[name]
         return dict(name=name, route="cuda",
@@ -1098,7 +1359,7 @@ def main():
             replaces=f"tools/exp_pallas_gather.py:{line}",
             launches=g["launches"], max_abs_err=g["max_abs_err"],
             ms=g["ms"], plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
-            bound_by="bytes", library_ms=g["library_ms"]))
+            bound_by=g["bound_by"], library_ms=g["library_ms"]))
     for k in kernels:
         k.setdefault("shares_of_ceilings", None)
         if k["name"] in p1["shares"]:

@@ -1,7 +1,8 @@
 """The port's own copies of the JAX package's host modules against the
 originals on the same inputs: config, cosmology, healpix.core (the part the
-port calls), and the io readers (FITS ring weights and pixel windows,
-pixLC and HDF5 lens planes) on files written by the JAX package's writers.
+port calls), the io readers (FITS ring weights and pixel windows, pixLC and
+HDF5 lens planes) on files written by the JAX package's writers,
+utils/profile and bench.py's reference constants (benchconst).
 The copies run the same numpy code, so every result must be equal."""
 import dataclasses
 
@@ -137,3 +138,64 @@ def test_lensplanes_reader_matches_jax(tmp_path):
     for g, r in zip(got, ref):
         np.testing.assert_array_equal(g, r)
     assert got[0].shape == (300, 3)
+
+
+def test_profiler_matches_jax(tmp_path, monkeypatch):
+    """utils/profile.Profiler fed the intervals that the JAX package's
+    Profiler times between toggles: the same totals, counts, report and
+    timing file."""
+    import torch
+
+    from calclens_tpu.utils import profile as jprof
+    from calclens_tpu_torch.utils import profile as tprof
+
+    ticks = iter(np.cumsum(np.arange(1.0, 40.0) * 0.125))
+    monkeypatch.setattr(jprof.time, "perf_counter", lambda: next(ticks))
+    jp, tp = jprof.Profiler(keep_timeseries=True), tprof.Profiler()
+    for tag in ("STEPTIME", "SHT", "SHT", "RAYPROP", "RAYPROP", "SHT",
+                "SHT", "STEPTIME", "DEPOSIT", "DEPOSIT"):
+        jp.log_tag(tag)
+    for tag, start, stop in jp.series:
+        tp.add(tag, stop - start)
+    assert len(jp.series) == 5
+    assert (tp.total, tp.count, tp.report()) == (jp.total, jp.count,
+                                                   jp.report())
+    jp.write(str(tmp_path / "jax"))
+    tp.write(str(tmp_path / "port"))
+    assert (tmp_path / "port").read_text() == (tmp_path / "jax").read_text()
+    # the port's device sync: nothing to wait for on a CPU tensor
+    tprof.sync(torch.zeros(3))
+
+
+def test_bench_constants_match_bench_py():
+    """calclens_tpu_torch/benchconst.py against bench.py's own constants
+    and reference_step_seconds (read from its source: importing bench.py
+    would configure the JAX compilation cache)."""
+    import ast
+    import os
+
+    from calclens_tpu_torch import benchconst as bc
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "bench.py")) as fp:
+        tree = ast.parse(fp.read())
+    keep = [n for n in tree.body
+            if (isinstance(n, ast.Assign) and n.targets[0].id in (
+                "REF_MEASURED_STEP_S", "REF_CLUSTER_CORES"))
+            or (isinstance(n, ast.FunctionDef)
+                and n.name == "reference_step_seconds")]
+    assert len(keep) == 3
+    ns = {}
+    exec(compile(ast.Module(body=keep, type_ignores=[]), "bench.py", "exec"),
+         ns)
+    assert bc.REF_MEASURED_STEP_S == ns["REF_MEASURED_STEP_S"]
+    assert bc.REF_CLUSTER_CORES == ns["REF_CLUSTER_CORES"]
+    for order in range(6, 15):
+        assert bc.reference_step_seconds(order) == \
+            ns["reference_step_seconds"](order)
+        for ray_order in (8, 10, 11, 13):
+            # bench.py main()'s ray scaling
+            want = ns["reference_step_seconds"](order) * (
+                1.0 if ray_order <= 10 else
+                1.0 + 0.012 * (4.0 ** (ray_order - 10) - 1.0))
+            assert bc.reference_core_step_seconds(order, ray_order) == want

@@ -153,7 +153,8 @@ def test_interp_tables_describe_the_jax_grid(order):
 
 def _port_sources():
     pkg = os.path.join(REPO, "calclens_tpu_torch")
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, f) for f in ("chip_smoke.py",
+                                             "bench_torch.py")]
     for root, _, names in os.walk(pkg):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
@@ -161,23 +162,24 @@ def _port_sources():
 
 def test_import_port_leaves_jax_unloaded():
     """Importing every module of the port, and every module that
-    chip_smoke.py imports (at any depth), then stepping a plane, loads
-    neither jax nor the JAX package calclens_tpu."""
+    chip_smoke.py and bench_torch.py import (at any depth), then stepping a
+    plane, loads neither jax nor the JAX package calclens_tpu."""
     code = (
         "import ast, importlib, pkgutil, sys\n"
         "import calclens_tpu_torch\n"
         "for mod in pkgutil.walk_packages(calclens_tpu_torch.__path__,\n"
         "                                 'calclens_tpu_torch.'):\n"
         "    importlib.import_module(mod.name)\n"
-        "with open('chip_smoke.py') as fp:\n"
-        "    tree = ast.parse(fp.read())\n"
-        "for node in ast.walk(tree):\n"
-        "    if isinstance(node, ast.Import):\n"
-        "        for a in node.names:\n"
-        "            importlib.import_module(a.name)\n"
-        "    elif isinstance(node, ast.ImportFrom):\n"
-        "        importlib.import_module(node.module)\n"
-        "import chip_smoke\n"
+        "for script in ('chip_smoke.py', 'bench_torch.py'):\n"
+        "    with open(script) as fp:\n"
+        "        tree = ast.parse(fp.read())\n"
+        "    for node in ast.walk(tree):\n"
+        "        if isinstance(node, ast.Import):\n"
+        "            for a in node.names:\n"
+        "                importlib.import_module(a.name)\n"
+        "        elif isinstance(node, ast.ImportFrom):\n"
+        "            importlib.import_module(node.module)\n"
+        "import chip_smoke, bench_torch\n"
         "from calclens_tpu_torch.config import RayTraceConfig\n"
         "from calclens_tpu_torch.driver import Raytracer\n"
         "cfg = RayTraceConfig(maxComvDistance=100.0, NumLensPlanes=2,\n"
@@ -197,8 +199,9 @@ def test_import_port_leaves_jax_unloaded():
 
 
 def test_port_sources_never_name_the_jax_package_in_an_import():
-    """No source of the port, and not chip_smoke.py, imports calclens_tpu
-    (the port keeps its own copies of the host modules it needs)."""
+    """No source of the port, and neither chip_smoke.py nor bench_torch.py,
+    imports calclens_tpu (the port keeps its own copies of the host modules
+    it needs)."""
     pat = re.compile(r"from calclens_tpu\.|import calclens_tpu\b")
     hits = []
     for path in _port_sources():

@@ -71,12 +71,12 @@ def test_czt_matches_jax(sign, prec):
     ref = np.asarray(jczt.czt(jnp.asarray(x), jnp.asarray(n), K, L, sign,
                               jnp.complex128 if ndt == np.float64
                               else jnp.complex64))
-    got = tczt.czt(torch.tensor(x), torch.tensor(n), K, L, sign,
-                   torch.complex128 if ndt == np.float64
-                   else torch.complex64)
+    cdtype = torch.complex128 if ndt == np.float64 else torch.complex64
+    got = tczt.czt(torch.tensor(x), K, tczt.czt_tables(
+        torch.tensor(n), N, K, L, sign, cdtype))
     assert _relerr(got.numpy(), ref) < tol
-    blk = tczt.czt_blocked(torch.tensor(x), torch.tensor(n), K, L, sign,
-                           got.dtype, block=4, real=True)
+    blk = tczt.czt_blocked(torch.tensor(x), n, K, L, sign, cdtype, 4,
+                           tczt.TableCache("cpu"), "rings", real=True)
     assert _relerr(blk.numpy(), ref.real) < tol
 
 
