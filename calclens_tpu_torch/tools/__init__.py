@@ -16,6 +16,9 @@ launched when these modules are imported.
 from __future__ import annotations
 
 import contextlib
+import re
+import shutil
+import subprocess
 
 import torch
 
@@ -54,3 +57,36 @@ def no_tf32():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def sass() -> str:
+    """cuobjdump -sass of the built kernel library (built if need be)."""
+    from .. import _ext
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, "-sass", _ext.build()], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+
+
+def sass_functions(text: str):
+    """[(mangled name, body)] of every function in a cuobjdump -sass
+    listing, in its order."""
+    return [(body.split("\n", 1)[0].strip(), body)
+            for body in re.split(r"\n\s*Function : ", text)[1:]]
+
+
+def sass_instructions(body: str):
+    """[(address, opcode, predicated, branch target or None)] of the SASS
+    instructions in `body`; the opcode with its modifiers (e.g. "STS.128",
+    "HGMMA.64")."""
+    out = []
+    for line in body.split("\n"):
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9._]*)([^;]*);", line)
+        if m:
+            t = re.search(r"0x([0-9a-f]+)\s*$", m.group(4))
+            tgt = (int(t.group(1), 16) if m.group(3).startswith("BRA") and t
+                   else None)
+            out.append((int(m.group(1), 16), m.group(3), bool(m.group(2)),
+                        tgt))
+    return out

@@ -9,8 +9,8 @@ same out = tab[idx]:
   gather_rows    [W, F] table -> [N, F]   (TPU pallas_a);
   gather_lanes   [F, W] table -> [F, N]   (TPU pallas_a2);
   gather_onehot  [W, F] table -> [N, F] by the two-level one-hot product on
-                 the tensor cores (TPU pallas_b): it tells the ray side what
-                 a one-hot product costs on this card.
+                 the tensor cores as wgmma (TPU pallas_b): it tells the ray
+                 side what a one-hot product costs on this card.
 Each is held bit for bit against torch's `tab[idx]` (`tabT[:, idx]`) and
 timed beside it.  The access pattern is that of the ray side's taps
 (rays/soa.py).  The last line printed is a JSON object of every number.
@@ -24,7 +24,8 @@ import json
 import numpy as np
 import torch
 
-from . import cuda_ms, no_tf32, require_cuda
+from . import (cuda_ms, no_tf32, require_cuda, sass as built_sass,
+               sass_functions, sass_instructions)
 
 N = 1 << 23   # indices per call (8.4M)
 W = 4096      # table rows
@@ -153,6 +154,19 @@ def gather_onehot(tab, idx):
     return gather_onehot_cuda(tab, idx)
 
 
+def onehot_route_sass(sass=None):
+    """The tensor-core instructions of gather_onehot's kernel in the built
+    library's SASS (cuobjdump -sass): {"HGMMA": n, "HMMA": n}.  The kernel
+    runs its products as wgmma, so HGMMA > 0 and HMMA == 0 show the route
+    on the card."""
+    for name, body in sass_functions(sass or built_sass()):
+        if "gather_onehot_kernel" in name:
+            ops = [op.split(".")[0] for _, op, _, _ in
+                   sass_instructions(body)]
+            return {k: ops.count(k) for k in ("HGMMA", "HMMA")}
+    raise RuntimeError("gather_onehot's kernel is not in the library")
+
+
 def bound_ms(name, n=N):
     """(least time in ms, what bounds it) for kernel `name` on n indices:
     the larger of the bytes of out = tab[idx] (index, table and output
@@ -213,9 +227,12 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     res = run(args.device)
+    route = onehot_route_sass()
+    print(f"gather_onehot SASS: {route}", flush=True)
     print(json.dumps(dict(device=torch.cuda.get_device_name(0), N=N, W=W,
-                          F=F, kernels=res)))
-    return 0 if all(r["exact"] for r in res.values()) else 1
+                          F=F, kernels=res, onehot_sass=route)))
+    ok = all(r["exact"] for r in res.values())
+    return 0 if ok and route["HGMMA"] > 0 and route["HMMA"] == 0 else 1
 
 
 if __name__ == "__main__":

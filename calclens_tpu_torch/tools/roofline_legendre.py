@@ -33,7 +33,8 @@ import subprocess
 import numpy as np
 import torch
 
-from . import cuda_ms, no_tf32, require_cuda
+from . import (cuda_ms, no_tf32, require_cuda, sass as built_sass,
+               sass_functions, sass_instructions)
 
 MODES = ("rec", "rec+store", "store", "dot")
 MODE_IDS = {m: i for i, m in enumerate(MODES)}
@@ -49,10 +50,14 @@ DOT_COLS = 16
 CEILING_REPS = 5     # timed launches per mode, after a warm-up
 PRODUCTION_REPS = 2  # per Legendre kernel (~0.4-1.1 s each at order 12)
 
-# the kernel's limits (csrc/roofline_probe.cu)
-_THREADS = 512
-_TILE_BYTES = 16 * (_THREADS + 8) * 4
+# the kernel's limits (csrc/roofline_probe.cu): a block holds 512 (m, ring)
+# pairs, 4 rings per thread; the store modes' tile is K4's, 16 degrees x
+# (128 + 16) floats per warp; the coefficient rows hold LB + 2 (a, b) pairs
+_PAIRS = 512
+_TILE_BYTES = 4 * 16 * (128 + 16) * 4
 _SMEM_MAX = 232448  # bytes of shared memory a block can use on Hopper
+# degrees per unrolled group of the timed kernels (LB a multiple of it)
+PROBE_GROUP = 16
 
 # the card's shared-memory rate: 128 bytes per clock per SM
 SMEM_BYTES_PER_CLOCK_PER_SM = 128
@@ -114,11 +119,11 @@ def _check_shape(MT, LBLK, LB, TM, TJ, mode):
         raise ValueError(f"unknown probe mode {mode!r}; one of {MODES}")
     if min(MT, LBLK, LB, TM, TJ) < 1:
         raise ValueError("every probe dimension must be positive")
-    if TJ < 32 or TJ > _THREADS or TJ & (TJ - 1):
+    if TJ < 32 or TJ > _PAIRS or TJ & (TJ - 1):
         raise ValueError(f"TJ = {TJ}: the kernel takes a power of two in "
-                         f"[32, {_THREADS}]")
-    R = _THREADS // TJ
-    smem = {"rec": 8 * R * LB, "rec+store": 8 * R * LB + _TILE_BYTES,
+                         f"[32, {_PAIRS}]")
+    coef = 8 * (_PAIRS // TJ) * (LB + 2)
+    smem = {"rec": coef, "rec+store": coef + _TILE_BYTES,
             "store": _TILE_BYTES,
             "dot": _TILE_BYTES + 4 * DOT_COLS * LB}[mode]
     if smem > _SMEM_MAX:
@@ -181,17 +186,6 @@ def smem_peak_bytes_per_s():
     return SMEM_BYTES_PER_CLOCK_PER_SM * sms * mhz * 1e6
 
 
-def _sass():
-    """cuobjdump -sass of the built kernel library."""
-    import shutil
-
-    from .. import _ext
-
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    return subprocess.run([tool, "-sass", _ext.build()], capture_output=True,
-                          text=True, timeout=120, check=True).stdout
-
-
 # the redesigned sweeps: SASS function name part -> (kernel, rings per
 # thread, degrees per group between two votes)
 STEADY_KERNELS = {"legendre_synth_kernelILi8": ("legendre_synth", 4, 8),
@@ -203,24 +197,6 @@ STEADY_KERNELS = {"legendre_synth_kernelILi8": ("legendre_synth", 4, 8),
                                                     4, 16),
                   "legendre_analysis_dot_kernel": ("legendre_analysis_dot",
                                                    4, 16)}
-
-
-def _instructions(body):
-    """[(address, opcode, predicated, branch target or None)] of one SASS
-    function."""
-    import re
-
-    out = []
-    for line in body.split("\n"):
-        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
-                      r"([A-Z][A-Z0-9._]*)([^;]*);", line)
-        if m:
-            t = re.search(r"0x([0-9a-f]+)\s*$", m.group(4))
-            tgt = (int(t.group(1), 16) if m.group(3).startswith("BRA") and t
-                   else None)
-            out.append((int(m.group(1), 16), m.group(3), bool(m.group(2)),
-                        tgt))
-    return out
 
 
 def _steady_path(ins, head, tail):
@@ -265,17 +241,15 @@ def steady_loop_sass(sass=None):
     branch that runs no rescale test and no vote.  Returns kernel ->
     dict(group, per_degree, per_element, cuda_core_per_element, ops), the
     last per element without the tensor cores' HMMA."""
-    import re
     from collections import Counter
 
     out = {}
-    for body in re.split(r"\n\s*Function : ", sass or _sass())[1:]:
-        name = body.split("\n", 1)[0]
+    for name, body in sass_functions(sass or built_sass()):
         key = next((k for k in STEADY_KERNELS if k in name), None)
         if key is None:
             continue
         kernel, rings, group = STEADY_KERNELS[key]
-        ins = _instructions(body)
+        ins = sass_instructions(body)
         votes = [a for a, op, _, _ in ins if op.startswith("VOTE")]
         # a loop's backward branch is predicated (the vote's fallback for
         # divergent warps jumps back unconditionally)
@@ -294,28 +268,62 @@ def steady_loop_sass(sass=None):
     return out
 
 
-def store_loop_check():
+def _probe_function(sass, mode):
+    """The SASS body of the probe kernel that ceilings() times in `mode`
+    (template arguments: the mode's id and the group of 16 degrees)."""
+    tag = f"roofline_probe_kernelILi{MODE_IDS[mode]}ELi{PROBE_GROUP}E"
+    for name, body in sass_functions(sass):
+        if tag in name:
+            return body
+    raise RuntimeError(f"the {mode} probe kernel is not in the library")
+
+
+# floats a shared-memory store instruction writes, by its width suffix
+_STS_FLOATS = {"STS": 1, "STS.64": 2, "STS.128": 4}
+
+
+def store_loop_check(sass=None):
     """Shows that nvcc kept the rec+store kernel's stores: in the built
-    library's SASS (cuobjdump -sass), the instructions of that kernel's
-    recurrence loop (between its last two barriers) counted by opcode.
-    Each step of the recurrence is 3 FMUL and 1 FADD, so a loop that keeps
-    its stores has one STS per FADD.  Returns {opcode: count}."""
-    import re
+    library's SASS (cuobjdump -sass), the instructions of the timed kernel's
+    recurrence loop (between its last two barriers) counted by opcode, and
+    the floats its shared-memory stores write (an STS.128 writes 4).  Each
+    degree of the recurrence is 3 FMUL and 1 FADD per ring, so a loop that
+    keeps its stores writes one float per FADD.  Returns dict(ops={opcode:
+    count}, stored_floats)."""
     from collections import Counter
 
-    for body in re.split(r"\n\s*Function : ", _sass())[1:]:
-        name = body.split("\n", 1)[0]
-        if "roofline_probe_kernel" not in name or "ILi1E" not in name:
-            continue  # template argument 1 is rec+store
-        lines = body.split("\n")
-        bars = [i for i, line in enumerate(lines) if "BAR.SYNC" in line]
-        ops = Counter()
-        for line in lines[bars[-2]: bars[-1]]:
-            m = re.search(r"\*/\s+(?:@!?P\d\s+)?([A-Z][A-Z0-9]*)", line)
-            if m:
-                ops[m.group(1)] += 1
-        return dict(ops)
-    raise RuntimeError("the rec+store probe kernel is not in the library")
+    body = _probe_function(sass or built_sass(), "rec+store")
+    lines = body.split("\n")
+    bars = [i for i, line in enumerate(lines) if "BAR.SYNC" in line]
+    ops = Counter(op for _, op, _, _ in
+                  sass_instructions("\n".join(lines[bars[-2]: bars[-1]])))
+    base = Counter()
+    for op, n in ops.items():
+        base[op.split(".")[0]] += n
+    stored = sum(_STS_FLOATS.get(op, 0) * n for op, n in ops.items())
+    return dict(ops=dict(base), stored_floats=stored)
+
+
+def rec_loop_sass(sass=None):
+    """The SASS instructions of the timed rec kernel's sweep: its innermost
+    loop (a backward branch with no other inside it) that holds the most
+    FMUL, one group of PROBE_GROUP degrees of 4 rings per thread.  Returns
+    dict(group, per_element, ops)."""
+    from collections import Counter
+
+    ins = sass_instructions(_probe_function(sass or built_sass(), "rec"))
+    loops = [(tgt, a) for a, _, _, tgt in ins if tgt is not None and tgt < a]
+    inner = [(h, t) for h, t in loops
+             if not any(h <= h2 and t2 < t for h2, t2 in loops
+                        if (h2, t2) != (h, t))]
+
+    def body(loop):
+        return [op.split(".")[0] for a, op, _, _ in ins
+                if loop[0] <= a <= loop[1]]
+
+    path = max((body(lp) for lp in inner), key=lambda b: b.count("FMUL"))
+    return dict(group=len(path), per_element=len(path) / PROBE_GROUP / 4,
+                ops=dict(Counter(path)))
 
 
 def ceilings(device="cuda"):

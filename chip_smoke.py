@@ -69,11 +69,13 @@ of which must pass:
      modes' from the card's shared-memory peak; each Legendre kernel's
      share of the rec and rec+store ceilings from its order-12 time of
      phase 6 and the tool's exact element counts; the SASS of the
-     rec+store loop keeps its stores; the SASS instructions of the steady
-     loops of K1-K4 per element (for K4 also without its HMMA);
+     rec+store loop keeps its stores (a float stored per FADD); the SASS
+     instructions per element of the rec loop and of the steady loops of
+     K1-K4 (for K4 also without its HMMA);
   8. P2-P4, the gather probes (csrc/gather_probe.cu), through the tool's
      run() at N = 2^23: each bit-exact against torch's tab[idx], timed
-     beside it, launches counted; P4 bound by its tensor-core products;
+     beside it, launches counted; P4 bound by its tensor-core products,
+     its SASS holding HGMMA (wgmma) and no HMMA;
   9. the synthesis ring stages (sht/rings.py, czt.py): at order 12 each
      mode (uniform, v2) on the same two streams, K2's q rows of
      band-limited alm through unfold_pairs, timed with CUDA events after
@@ -1035,22 +1037,29 @@ def probe_phase(dev, kernel_ms, plan):
         say(f"order 12 {name}: {kernel_ms[name]:.2f} ms, {counts[name]:.4e} "
             f"elements, {rate:.1f} G elem/s = {s_rec:.1%} of the rec "
             f"ceiling, {s_rs:.1%} of rec+store")
-    ops = R.store_loop_check()
-    say(f"P1 rec+store loop SASS (cuobjdump): {ops}")
-    check(ops.get("STS", 0) >= ops.get("FADD", 1) > 0,
-          f"rec+store loop lost its stores: {ops}")
+    st = R.store_loop_check()
+    fadd = st["ops"].get("FADD", 0)
+    say(f"P1 rec+store loop SASS (cuobjdump): {st['stored_floats']} floats "
+        f"stored per {fadd} FADD; {st['ops']}")
+    check(st["stored_floats"] >= fadd > 0,
+          f"rec+store loop lost its stores: {st}")
+    rec_loop = R.rec_loop_sass()
+    say(f"P1 rec loop SASS (cuobjdump): {rec_loop['group']} instructions per "
+        f"group of {R.PROBE_GROUP} degrees, {rec_loop['per_element']:.3f} per "
+        f"element (floor {R.SLOTS['rec']}); {rec_loop['ops']}")
     steady = R.steady_loop_sass()
     for name, r in steady.items():
         say(f"{name} steady loop SASS (cuobjdump): {r['group']} instructions "
             f"per group, {r['per_degree']:.3f} per degree and thread, "
             f"{r['per_element']:.3f} per element, "
             f"{r['cuda_core_per_element']:.3f} without HMMA (floor "
-            f"{SLOTS_PER_ELEMENT[name]}); {r['ops']}")
+            f"{SLOTS_PER_ELEMENT[name]}; P1 rec "
+            f"{rec_loop['per_element']:.3f}); {r['ops']}")
     check(sorted(steady) == sorted(R.STEADY_KERNELS[k][0]
                                    for k in R.STEADY_KERNELS),
           f"steady loops not found in the SASS: {sorted(steady)}")
     return dict(launches=launches, modes=modes, shares=sh_, shape=dict(sh),
-                steady=steady)
+                steady=steady, rec_loop=rec_loop)
 
 
 def gather_phase(dev):
@@ -1067,6 +1076,11 @@ def gather_phase(dev):
               f"{r['max_abs_err']:.3e}")
         check(counts[name] > 0, f"{name} was not launched: {counts}")
         r["launches"] = counts[name]
+    route = G.onehot_route_sass()
+    say(f"P4 gather_onehot SASS (cuobjdump): {route}")
+    check(route["HGMMA"] > 0 and route["HMMA"] == 0,
+          f"gather_onehot does not run on wgmma alone: {route}")
+    res["gather_onehot"]["sass"] = route
     return res
 
 
@@ -1118,7 +1132,7 @@ def main():
         f"(nvcc {_ext.build_seconds if _ext.build_seconds is not None else 'cached'})")
     for src, log in _ext.build_log.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma")):
                 say(f"  {src}: {line.strip()}")
 
     # 3. kernels vs twins at orders 8 and 10; times at order 10
@@ -1349,7 +1363,8 @@ def main():
         replaces="tools/roofline_legendre.py:63", launches=p1["launches"],
         **{k: dot[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms")},
-        mode="dot", modes=p1["modes"], shape=p1["shape"]))
+        mode="dot", modes=p1["modes"], shape=p1["shape"],
+        rec_loop_sass_per_element=p1["rec_loop"]["per_element"]))
     for name, line in (("gather_rows", 67), ("gather_lanes", 96),
                        ("gather_onehot", 125)):
         g = gathers[name]
@@ -1359,7 +1374,8 @@ def main():
             replaces=f"tools/exp_pallas_gather.py:{line}",
             launches=g["launches"], max_abs_err=g["max_abs_err"],
             ms=g["ms"], plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
-            bound_by=g["bound_by"], library_ms=g["library_ms"]))
+            bound_by=g["bound_by"], library_ms=g["library_ms"],
+            sass=g.get("sass")))
     for k in kernels:
         k.setdefault("shares_of_ceilings", None)
         if k["name"] in p1["shares"]:

@@ -431,6 +431,66 @@ def test_gather_kernels_bit_exact(cuda_device, name):
     assert bool(torch.isnan(got[~ok]).all())
 
 
+@pytest.mark.parametrize("n", [1, 63, 64, 65, (1 << 16) + 17])
+def test_gather_onehot_ragged_counts_bit_exact(cuda_device, n):
+    """P4 takes 64 indices per warpgroup product: counts below, at and past
+    one group, and many groups with a ragged last one, equal tab[idx] bit
+    for bit, and nothing past n is written."""
+    tab, idx = G.inputs(n=n, seed=n, device=cuda_device)
+    got = G.gather_onehot(tab, idx)
+    torch.cuda.synchronize()
+    assert got.shape == (n, G.F)
+    assert torch.equal(got, tab[idx])
+    assert torch.equal(got, G.gather_onehot_plain(tab, idx))
+
+
+def test_gather_onehot_out_of_range_rows_are_nan(cuda_device):
+    """Indices below 0 or at and past the table's 4096 rows give rows of
+    NaN in P4, wherever they fall in a group of 64; the other rows are
+    still tab[idx]."""
+    tab, idx = G.inputs(n=200, seed=11, device=cuda_device)
+    bad = torch.tensor([0, 31, 63, 64, 127, 199], device=cuda_device)
+    idx[bad] = torch.tensor([-1, G.W, -(1 << 31), (1 << 31) - 1, G.W + 128,
+                             -129], dtype=torch.int32, device=cuda_device)
+    ok = torch.ones(len(idx), dtype=torch.bool, device=cuda_device)
+    ok[bad] = False
+    got = G.gather_onehot(tab, idx)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[~ok]).all())
+    assert torch.equal(got[ok], tab[idx[ok]])
+
+
+def test_gather_onehot_runs_on_wgmma(cuda_device):
+    """P4's kernel in the built library holds wgmma (HGMMA) and no
+    mma.sync (HMMA)."""
+    route = G.onehot_route_sass()
+    assert route["HGMMA"] > 0 and route["HMMA"] == 0, route
+
+
+def test_roofline_probe_sass_keeps_stores_and_a_lean_rec_loop(cuda_device):
+    """The timed rec+store loop stores a float per FADD; the timed rec
+    loop issues fewer than 5 instructions per element (4 are the
+    recurrence's)."""
+    st = R.store_loop_check()
+    assert st["stored_floats"] >= st["ops"].get("FADD", 0) > 0, st
+    assert R.rec_loop_sass()["per_element"] < 5
+
+
+@pytest.mark.parametrize("shape", [dict(MT=3, LBLK=3, LB=5, TM=16, TJ=32),
+                                   dict(MT=2, LBLK=2, LB=32, TM=8, TJ=64)])
+@pytest.mark.parametrize("mode", ["rec", "rec+store", "store", "dot"])
+def test_roofline_probe_rows_shared_by_a_warp(cuda_device, mode, shape):
+    """P1 where a warp spans 4 or 2 rows of m (TJ 32, 64), one degree at a
+    time (odd LB) and in groups of 16 (LB 32), against its plain version:
+    1e-6 of max |plain|, dot 1e-5 (another summation order)."""
+    geo = R.default_geo(shape["TJ"], cuda_device)
+    got = R.probe(geo=geo, mode=mode, **shape)
+    torch.cuda.synchronize()
+    ref = R.probe_plain(geo=geo, mode=mode, **shape)
+    assert got.shape == ref.shape and bool(torch.isfinite(ref).all())
+    assert _relerr(got, ref) <= (1e-5 if mode == "dot" else 1e-6)
+
+
 def test_lens_map_accumulation_on_the_card(cuda_device):
     """The full-sky lens-map sums of a random f32 ray buffer on the card
     against the same function on the CPU: counts exact, the rest within

@@ -249,6 +249,75 @@ def test_steady_loop_sass_counts_tensor_core_instructions_apart():
     assert r["cuda_core_per_element"] == 6 / group / rings
 
 
+def test_store_loop_check_counts_stored_floats():
+    """store_loop_check reads the timed rec+store kernel (template
+    arguments 1 and 16) between its last two barriers and counts the
+    floats its stores write: an STS.128 writes 4, an STS.64 2."""
+    body = """
+        Function : _ZN12_GLOBAL__N_121roofline_probe_kernelILi1ELi1EEEvPKfPfiiii
+        /*0000*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0010*/                   STS [R2], R4 ;
+        /*0020*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        Function : _ZN12_GLOBAL__N_121roofline_probe_kernelILi1ELi16EEEvPKfPfiiii
+        /*0000*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0010*/                   MUFU.RSQ R3, R4 ;
+        /*0020*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0030*/                   FMUL R5, R6, R7 ;
+        /*0040*/                   FADD R8, R5, -R9 ;
+        /*0050*/                   FADD R10, R5, -R11 ;
+        /*0060*/                   STS.128 [R2], R8 ;
+        /*0070*/                   FADD R12, R5, -R13 ;
+        /*0080*/                   FADD R14, R5, -R15 ;
+        /*0090*/                   STS.64 [R2+0x10], R12 ;
+        /*00a0*/              @!P0 BRA 0x30 ;
+        /*00b0*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*00c0*/                   LDS R4, [R2] ;
+"""
+    got = R.store_loop_check(body)
+    assert got["stored_floats"] == 6
+    assert got["ops"] == {"BAR": 1, "FMUL": 1, "FADD": 4, "STS": 2, "BRA": 1}
+
+
+def test_rec_loop_sass_takes_the_innermost_loop_of_the_sweep():
+    """rec_loop_sass reads the timed rec kernel (template arguments 0 and
+    16): of the loops with no loop inside, the one with the most FMUL (the
+    sweep, not the coefficient fill), per PROBE_GROUP degrees x 4 rings."""
+    body = """
+        Function : _ZN12_GLOBAL__N_121roofline_probe_kernelILi0ELi16EEEvPKfPfiiii
+        /*0000*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0010*/                   FMUL R3, R4, R5 ;
+        /*0020*/                   MUFU.SQRT R3, R3 ;
+        /*0030*/              @!P1 BRA 0x10 ;
+        /*0040*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0050*/                   LDS.128 R8, [R2] ;
+        /*0060*/                   FMUL R5, R6, R7 ;
+        /*0070*/                   FMUL R9, R6, R7 ;
+        /*0080*/                   FADD R8, R5, -R9 ;
+        /*0090*/              @!P2 BRA 0x50 ;
+        /*00a0*/              @!P3 BRA 0x0 ;
+        /*00b0*/                   EXIT ;
+"""
+    got = R.rec_loop_sass(body)
+    assert got["group"] == 5
+    assert got["ops"] == {"LDS": 1, "FMUL": 2, "FADD": 1, "BRA": 1}
+    assert got["per_element"] == 5 / R.PROBE_GROUP / 4
+
+
+def test_onehot_route_sass_counts_tensor_core_instructions():
+    """onehot_route_sass counts gather_onehot's HGMMA (wgmma) and HMMA
+    (mma.sync) instructions, not another kernel's."""
+    body = """
+        Function : _ZN12_GLOBAL__N_118gather_rows_kernelEPKfPKiPfx
+        /*0000*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        Function : _ZN12_GLOBAL__N_120gather_onehot_kernelEPKfPKiPfx
+        /*0000*/                   WARPGROUP.ARRIVE ;
+        /*0010*/                   HGMMA.64x192x16.F32.BF16 R24, R152, gdesc[UR4], RZ, !UPT ;
+        /*0020*/                   HGMMA.64x192x16.F32.BF16 R24, R156, gdesc[UR8], R24, gsb0 ;
+        /*0030*/                   WARPSYNC.ALL ;
+"""
+    assert G.onehot_route_sass(body) == {"HGMMA": 2, "HMMA": 0}
+
+
 def test_legendre_variants_edit_the_sources_once():
     """Every edit of tools/legendre_variants.py names text that occurs
     exactly once in its source, so each variant differs from the built
