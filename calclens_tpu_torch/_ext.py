@@ -56,8 +56,8 @@ _SIGNATURES = {
     # a_re, a_im, cth, cot, inv_sth, seed, seed_k, mcut, out, nl, nm, J,
     # derivs, stream
     "legendre_synth_vpu_launch": "ppppppppp" + "iiii" + "s",
-    # sth, seed, seed_k, nm, J, stream
-    "legendre_chain_seed_launch": "ppp" + "ii" + "s",
+    # sth, seed, seed_k, scratch, scratch_ints, nm, J, stream
+    "legendre_chain_seed_launch": "pppp" + "l" + "ii" + "s",
     # geo, out, rows, TJ, LB, LBLK, mode, stream
     "roofline_probe_launch": "pp" + "iiiii" + "s",
     # tab, idx, out, n, stream
@@ -135,18 +135,23 @@ def build():
     return path
 
 
+def bind(handle, names=None):
+    """Declare the C launchers `names` (all of them by default) of a loaded
+    library from their signatures; returns the handle."""
+    codes = {"p": ctypes.c_void_p, "i": ctypes.c_int,
+             "l": ctypes.c_longlong, "s": ctypes.c_void_p}
+    for name in names or _SIGNATURES:
+        fn = getattr(handle, name)
+        fn.argtypes = [codes[c] for c in _SIGNATURES[name]]
+        fn.restype = ctypes.c_int
+    return handle
+
+
 def lib():
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(build())
-        codes = {"p": ctypes.c_void_p, "i": ctypes.c_int,
-                 "l": ctypes.c_longlong, "s": ctypes.c_void_p}
-        for name, sig in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = [codes[c] for c in sig]
-            fn.restype = ctypes.c_int
-        _lib = handle
+        _lib = bind(ctypes.CDLL(build()))
     return _lib
 
 

@@ -50,6 +50,9 @@ ANALYSIS_TILE_J = 512
 SYNTH_TILE_J = 128
 # degrees whose lambda K4 stores before each contraction
 DOT_BLOCK_L = 16
+# degrees between two checkpoints of K3's seed pre-pass (kSeedSeg in
+# csrc/legendre_synth_vpu.cu)
+SEED_SEGMENT = 256
 
 
 # ----------------------------------------------------------------------------
@@ -96,16 +99,75 @@ def chain_seed(m, sth):
     for l in range(int(m.max()) + 1):
         if l in wanted:
             rows[l] = (seed, k)
-        lf = float(l)
-        # tensor / tensor: a scalar division would go through a reciprocal
-        f = torch.sqrt(torch.full((), 2.0 * lf + 3.0, dtype=dt, device=dev)
-                       / torch.full((), 2.0 * lf + 2.0, dtype=dt, device=dev))
-        nxt = seed * sth * f
-        under = nxt < _RESC
-        seed = torch.where(under, nxt * 2.0**64, nxt)
-        k = k - under.to(torch.int32)
+        seed, k = _chain_step(seed, k, sth, _chain_factor(l, dt, dev))
     return (torch.stack([rows[v][0] for v in m.tolist()]),
             torch.stack([rows[v][1] for v in m.tolist()]))
+
+
+def _chain_factor(l: int, dt, dev):
+    """sqrt((2l+3)/(2l+2)) as the kernels round it; tensor / tensor: a
+    scalar division would go through a reciprocal."""
+    lf = float(l)
+    return torch.sqrt(torch.full((), 2.0 * lf + 3.0, dtype=dt, device=dev)
+                      / torch.full((), 2.0 * lf + 2.0, dtype=dt, device=dev))
+
+
+def _chain_step(seed, k, sth, f):
+    nxt = seed * sth * f
+    under = nxt < _RESC
+    return torch.where(under, nxt * 2.0**64, nxt), k - under.to(torch.int32)
+
+
+def chain_seed_segmented(sth, nm: int, seg: int):
+    """chain_seed of every m < nm as K3's seed pre-pass computes it, for
+    the tests: one walk of the chain keeps (value, counter) at every m
+    that is a multiple of `seg`, then each segment is walked again from its
+    checkpoint.  The first walk takes the pre-pass producers' form on rings
+    with 2^-40 <= sin theta <= 1: w = v 2^Y, v the chain without rescales
+    and Y the sum of the exponent shifts y, stepped as w <- (w (s 2^y)) f
+    with y set from the exponent of w two steps back; the counter is the
+    running max of floor((-E(v) - 1) / 64) with E(v) = E(w) - Y; other rings
+    walk chain_seed's steps.  float32 sth; returns ([nm, J] values, [nm, J]
+    int32 counters), bit for bit chain_seed's."""
+    if sth.dtype != torch.float32:
+        raise TypeError(f"chain_seed_segmented: float32 only, got {sth.dtype}")
+    dev = sth.device
+    i32 = torch.int32
+
+    def bexp(x):
+        return x.view(i32) >> 23
+
+    scaled = (sth >= 2.0**-40) & (sth <= 1.0)
+    s = torch.where(scaled, sth, torch.ones_like(sth))
+    l2 = torch.log2(s)
+    d1, d2, d3 = (torch.round(k * l2).to(i32) for k in (1.0, 2.0, 3.0))
+    w = torch.full_like(sth, _Y00)
+    Y = torch.zeros(sth.shape, dtype=i32, device=dev)
+    c = torch.zeros_like(Y)
+    e2 = e1 = bexp(w)
+    y2, y1 = d1 - d2, d2 - d3
+    v = torch.full_like(sth, _Y00)
+    k = torch.zeros_like(Y)
+    marks = []
+    for l in range(nm):
+        if l % seg == 0:
+            value = (w.view(i32) + ((64 * c - Y) << 23)).view(torch.float32)
+            marks.append((torch.where(scaled, value, v),
+                          torch.where(scaled, -c, k)))
+        f = _chain_factor(l, sth.dtype, dev)
+        y = 127 - d3 - e2 - y2 - y1
+        wn = (w * (s * ((y + 127) << 23).view(torch.float32))) * f
+        Y = Y + y
+        c = torch.maximum(c, (Y + 126 - bexp(wn)) >> 6)
+        e2, e1, y2, y1, w = e1, bexp(w), y1, y, wn
+        v, k = _chain_step(v, k, sth, f)
+    vals, cnts = [], []
+    for g, (v, k) in enumerate(marks):
+        for l in range(g * seg, min(nm, (g + 1) * seg)):
+            vals.append(v)
+            cnts.append(k)
+            v, k = _chain_step(v, k, sth, _chain_factor(l, sth.dtype, dev))
+    return torch.stack(vals), torch.stack(cnts)
 
 
 def _coeffs(l: int, mf):
@@ -500,9 +562,19 @@ def chain_seed_cuda(sth, nm: int):
     _check_cuda_f32(name, dict(sth=sth), dict(sth=(J,)))
     seed = torch.empty((nm, J), dtype=torch.float32, device=sth.device)
     seed_k = torch.empty((nm, J), dtype=torch.int32, device=sth.device)
+    scratch = torch.empty(chain_seed_scratch(nm, J), dtype=torch.int32,
+                          device=sth.device)
     _launch(name, "legendre_chain_seed_launch", sth.device, sth.data_ptr(),
-            seed.data_ptr(), seed_k.data_ptr(), nm, J)
+            seed.data_ptr(), seed_k.data_ptr(), scratch.data_ptr(),
+            scratch.numel(), nm, J)
     return seed, seed_k
+
+
+def chain_seed_scratch(nm: int, J: int) -> int:
+    """int32 words of scratch K3's seed pre-pass needs: its ticket counter
+    and one published-checkpoint count per 32 ring pairs, then the
+    checkpoints' values and counters [ceil(nm / SEED_SEGMENT), J] each."""
+    return 1 + -(-J // 32) + 2 * -(-nm // SEED_SEGMENT) * J
 
 
 def synth_vpu_plain(a_re, a_im, cth, sth, cot, inv_sth, derivs: bool,

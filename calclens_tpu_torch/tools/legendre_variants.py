@@ -1,11 +1,12 @@
-"""Design variants of the Legendre sweeps K1-K4, timed on the card.
+"""Design variants of the Legendre sweeps K1-K4 and of K3's seed pre-pass,
+timed on the card.
 
     python -m calclens_tpu_torch.tools.legendre_variants [--order 12]
 
 Each variant is the kernels' sources (csrc/) with a few lines replaced,
 built into its own library under build/variants/ and loaded beside the
-port's; K2, K2-4col, K1, K3 (with derivatives and without, on a seed
-table that its pre-pass wrote once) and K4 of every variant run on the
+port's; K2, K2-4col, K1, K3's seed pre-pass, K3 (with derivatives and
+without, on the table that pre-pass wrote) and K4 of every variant run on the
 same inputs (random alm and ring sums from a numpy seed,
 roofline_legendre._production_inputs) and the plan's ring geometry and
 cutoffs, and are timed with CUDA events.
@@ -30,6 +31,7 @@ import subprocess
 import torch
 
 from .. import _ext
+from ..sht import legendre as TL
 from . import cuda_ms, require_cuda
 
 # K4 with its tile contracted in FP32 FMAs on the CUDA cores instead of the
@@ -104,6 +106,17 @@ VARIANTS = {
         ("legendre_analysis_dot.cu",
          "        } else {\n          // the 16 degrees' sums over the "
          "warp's rings, lambda's high and\n", _K4_FP32_CONTRACTION)],
+    # K3's seed pre-pass: its producers on the plain chain_step, and more
+    # resident blocks per SM (more consumers polling beside the producers)
+    "seed plain-chain producers": [("legendre_synth_vpu.cu",
+                                    "if (__all_sync(kFull, scaled_ok(s))) {",
+                                    "if (false) {")],
+    "seed 4 blocks per SM": [("legendre_synth_vpu.cu",
+                              "constexpr int kSeedBlocksPerSM = 2;",
+                              "constexpr int kSeedBlocksPerSM = 4;")],
+    "seed 16 blocks per SM": [("legendre_synth_vpu.cu",
+                               "constexpr int kSeedBlocksPerSM = 2;",
+                               "constexpr int kSeedBlocksPerSM = 16;")],
 }
 # a variant's outputs against the built kernels', relative to their max:
 # the twins' bound (a variant changes the order of the sums, or K2's cutoff
@@ -154,21 +167,15 @@ def build(name, edits, out_dir):
                 ptxas[func] = line.split(":", 1)[-1].strip()
     lib_path = os.path.join(out_dir, "libvariant.so")
     subprocess.run([nvcc, "-shared", "-o", lib_path, *objs], check=True)
-    lib = ctypes.CDLL(lib_path)
-    for fn in _SIGNATURES:
-        sig = _ext._SIGNATURES[fn]
-        getattr(lib, fn).argtypes = [ctypes.c_int if c == "i"
-                                     else ctypes.c_void_p for c in sig]
-        getattr(lib, fn).restype = ctypes.c_int
-    return lib, ptxas
+    return _ext.bind(ctypes.CDLL(lib_path), _SIGNATURES), ptxas
 
 
 def time_variant(lib, plan, streams, ana, geo):
-    """kernel -> (ms, output) of K2, K2-4col, K1, K3 (both forms) and K4
-    from `lib` on ring geometry geo = (cth, ln_sth, sth, cot, 1/sth, K2's
-    cutoff, K3's 128-ring cutoff, the 512-ring cutoff); K1's and K4's times
-    include zeroing their output, as the wrappers' do; K3 reads a seed table
-    that its pre-pass wrote once before."""
+    """kernel -> (ms, output) of K2, K2-4col, K1, K3's seed pre-pass, K3
+    (both forms) and K4 from `lib` on ring geometry geo = (cth, ln_sth, sth,
+    cot, 1/sth, K2's cutoff, K3's 128-ring cutoff, the 512-ring cutoff); K1's
+    and K4's times include zeroing their output, as the wrappers' do; K3
+    reads the seed table of the pre-pass's last timed launch."""
     cth, ln_sth, sth, cot, inv, mcut2, mcut3, mcut1 = geo
     nl, nm, J = plan.nl, plan.nm, plan.J
     dev = plan.device
@@ -187,9 +194,15 @@ def time_variant(lib, plan, streams, ana, geo):
         out[name] = (cuda_ms(call, 3), res)
     seed = torch.empty((nm, J), device=dev)
     seed_k = torch.empty((nm, J), dtype=torch.int32, device=dev)
-    _ext.check(lib.legendre_chain_seed_launch(
-        sth.data_ptr(), seed.data_ptr(), seed_k.data_ptr(), nm, J, stream),
-        "legendre_chain_seed")
+    scratch = torch.empty(TL.chain_seed_scratch(nm, J), dtype=torch.int32,
+                          device=dev)
+
+    def pre_pass():
+        _ext.check(lib.legendre_chain_seed_launch(
+            sth.data_ptr(), seed.data_ptr(), seed_k.data_ptr(),
+            scratch.data_ptr(), scratch.numel(), nm, J, stream),
+            "legendre_chain_seed")
+    out["legendre_chain_seed"] = (cuda_ms(pre_pass, 3), seed)
     for name, derivs in (("legendre_synth_vpu", 1),
                          ("legendre_synth_vpu_phi", 0)):
         res = torch.empty((nm, 12 if derivs else 4, J), device=dev)
@@ -216,7 +229,6 @@ def time_variant(lib, plan, streams, ana, geo):
 
 
 def run(order=12, device="cuda"):
-    from ..sht import legendre as TL
     from ..sht.plan import SHTPlan
     from .roofline_legendre import _production_inputs
 

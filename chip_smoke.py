@@ -17,8 +17,8 @@ of which must pass:
      contracted on the tensor cores) against their plain PyTorch twins on
      the card, on band-limited random inputs from a numpy seed, at orders 8
      and 10, bound max|kernel - twin| / max|twin| < 1e-5 per output column;
-     K3's seed pre-pass against the twin's chain, bit for bit; all timed at
-     order 10;
+     K3's seed pre-pass against the twin's chain, bit for bit, with its
+     share of its bound; all timed at order 10;
   4. CUDA vs CPU trace: the port's Raytracer at SHTOrder 7 / rayOrder 6,
      float32, three planes of seeded particles at pixel centres, once on
      the CPU (twins) and once on the card (kernels); the packed ray buffers
@@ -74,7 +74,8 @@ of which must pass:
      K1-K4 (for K4 also without its HMMA);
   8. P2-P4, the gather probes (csrc/gather_probe.cu), through the tool's
      run() at N = 2^23: each bit-exact against torch's tab[idx], timed
-     beside it, launches counted; P4 bound by its tensor-core products,
+     beside it with its share of its bound, launches counted; P4 bound by
+     its tensor-core products,
      its SASS holding HGMMA (wgmma) and no HMMA;
   9. the synthesis ring stages (sht/rings.py, czt.py): at order 12 each
      mode (uniform, v2) on the same two streams, K2's q rows of
@@ -136,6 +137,9 @@ PROBE_CHECKS = (dict(MT=4, LBLK=2, LB=8, TM=32, TJ=512),
 # m rows on which the order-12 outputs of K2-4col, K3 and K4 are held to
 # their twins: both parities, the first rows, and rows up to lmax
 CHECK_ROWS = (0, 1, 2, 3, 511, 2048, 6143, 10001, 12287)
+# launches timed of K3's seed pre-pass, well under a millisecond: enough
+# that the first launch's host latency does not weigh in the mean
+SEED_REPS = 20
 
 # The card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): FP32 outside
 # the tensor cores, dense TF32 on the tensor cores, and device memory.
@@ -360,10 +364,11 @@ def check_variant_rows(plan, streams, ana, reps):
     return out
 
 
-def check_seed_table(plan, reps):
+def check_seed_table(plan):
     """K3's seed pre-pass against the twin's chain (chain_seed of every m)
-    on the card: bit for bit, values and counters.  Returns (max abs error,
-    pre-pass ms as the mean of `reps` launches, twin ms)."""
+    on the card: bit for bit, values and counters; printed with its share
+    of its bound.  Returns (max abs error, pre-pass ms as the mean of
+    SEED_REPS launches, twin ms)."""
     import torch
     from calclens_tpu_torch.sht import legendre as TL
     from calclens_tpu_torch.tools import cuda_ms
@@ -375,8 +380,13 @@ def check_seed_table(plan, reps):
           f"K3 seed table off the chain at order {plan.order}")
     err = float((got - ref).abs().max())
     del got, got_k, ref, ref_k
-    return err, cuda_ms(lambda: TL.chain_seed_cuda(plan.sth, plan.nm),
-                        reps), twin_ms
+    ms = cuda_ms(lambda: TL.chain_seed_cuda(plan.sth, plan.nm), SEED_REPS)
+    bound = kernel_bounds(plan)["legendre_chain_seed"]["bound_ms"]
+    say(f"order {plan.order} K3 seed pre-pass legendre_chain_seed: equal to "
+        f"the twin's chain bit for bit; kernel {ms:.4f} ms, "
+        f"{100 * bound / ms:.1f} % of its {bound:.4f} ms bound (bytes); "
+        f"twin {twin_ms:.1f} ms")
+    return err, ms, twin_ms
 
 
 def kernel_bounds(plan):
@@ -1076,6 +1086,9 @@ def gather_phase(dev):
               f"{r['max_abs_err']:.3e}")
         check(counts[name] > 0, f"{name} was not launched: {counts}")
         r["launches"] = counts[name]
+        say(f"{name}: {r['ms']:.4f} ms, {100 * r['bound_ms'] / r['ms']:.1f} "
+            f"% of its {r['bound_ms']:.4f} ms bound ({r['bound_by']}), "
+            f"bit-exact")
     route = G.onehot_route_sass()
     say(f"P4 gather_onehot SASS (cuobjdump): {route}")
     check(route["HGMMA"] > 0 and route["HMMA"] == 0,
@@ -1155,10 +1168,7 @@ def main():
             check(k[0] < VARIANT_BOUND, f"{name} off its twin at order "
                   f"{order}: {k[0]:.3e}")
         variants10 = variants
-        seed10 = check_seed_table(plan, reps)
-        say(f"order {order} K3 seed pre-pass legendre_chain_seed: equal to "
-            f"the twin's chain bit for bit; kernel {seed10[1]:.3f} ms, twin "
-            f"{seed10[2]:.1f} ms")
+        check_seed_table(plan)
         del plan, streams, ana
         torch.cuda.empty_cache()
 
@@ -1218,10 +1228,7 @@ def main():
             f"{k[1]:.3e} (bound {VARIANT_BOUND:g}); kernel {k[2]:.2f} ms")
         check(k[0] < VARIANT_BOUND, f"{name} off its twin on rows at "
               f"order 12: {k[0]:.3e}")
-    seed12 = check_seed_table(plan, reps=3)
-    say(f"order 12 K3 seed pre-pass legendre_chain_seed: equal to the twin's "
-        f"chain bit for bit; kernel {seed12[1]:.3f} ms, twin "
-        f"{seed12[2]:.1f} ms")
+    seed12 = check_seed_table(plan)
     # K4 against K1: the same lambda bits, sums in another order
     k4vk1 = pair_errs(TL.analysis_dot_cuda(*ana, plan.nl),
                       TL.analysis_cuda(*ana, plan.nl))

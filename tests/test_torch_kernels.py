@@ -211,7 +211,7 @@ def test_synth_kernel_uncut_polar_caps(cuda_device):
     _synth_both_forms(plan, slice(0, 512), mcut, 601)
 
 
-@pytest.mark.parametrize("order", [8, 10])
+@pytest.mark.parametrize("order", [8, 10, 11])
 def test_chain_seed_prepass_is_bit_exact(cuda_device, order):
     """K3's seed pre-pass equals the twin's chain (chain_seed of every m)
     bit for bit, values and scale counters; one launch."""
@@ -223,6 +223,43 @@ def test_chain_seed_prepass_is_bit_exact(cuda_device, order):
     ref, ref_k = TL.chain_seed(torch.arange(plan.nm), plan.sth)
     assert torch.equal(seed, ref) and torch.equal(seed_k, ref_k)
     assert int(seed_k.min()) < 0  # the rescale is exercised
+
+
+@pytest.mark.parametrize("J", [1, 33, 1000])
+def test_chain_seed_prepass_cut_rings(cuda_device, J):
+    """The pre-pass on the first J ring pairs of the order-10 grid (polar
+    rings: the rescale runs), a J that fills no whole block or warp, with
+    the grid's nm and with nm = 700, not a multiple of the checkpoint
+    segment: bit for bit chain_seed."""
+    plan = SHTPlan(10, cuda_device, dtype=torch.float32)
+    sth = plan.sth[:J].contiguous()
+    for nm in (plan.nm, 700):
+        seed, seed_k = TL.chain_seed_cuda(sth, nm)
+        ref, ref_k = TL.chain_seed(torch.arange(nm), sth)
+        assert seed.shape == (nm, J)
+        assert torch.equal(seed, ref) and torch.equal(seed_k, ref_k), nm
+
+
+def test_chain_seed_prepass_extreme_rings_and_segment_edges(cuda_device):
+    """Rings the producers' scaled walk takes (sin theta from 2^-40 to 1)
+    and rings it leaves to the plain chain (0, just below 2^-40), shuffled
+    so warps hold both; rescales fall on checkpoint edges; nm = 1000 is no
+    multiple of the segment.  Bit for bit chain_seed."""
+    rng = np.random.default_rng(9)
+    s = np.exp2(rng.uniform(-45.0, 0.0, 700)).astype(np.float32)
+    s[:4] = 1.0
+    s[4:6] = 0.0
+    s[6:8] = np.float32(2.0**-40)
+    s[8:10] = np.nextafter(np.float32(2.0**-40), np.float32(0.0))
+    sth = torch.tensor(rng.permutation(s), device=cuda_device)
+    nm = 1000
+    ref, ref_k = TL.chain_seed(torch.arange(nm), sth)
+    seg = TL.SEED_SEGMENT
+    scaled = (sth >= 2.0**-40) & (sth <= 1.0)
+    for edge in range(seg, nm, seg):
+        assert bool(((ref_k[edge] != ref_k[edge - 1]) & scaled).any()), edge
+    seed, seed_k = TL.chain_seed_cuda(sth, nm)
+    assert torch.equal(seed, ref) and torch.equal(seed_k, ref_k)
 
 
 def test_synth_vpu_kernel_reads_a_given_seed_table(cuda_device):
@@ -429,6 +466,61 @@ def test_gather_kernels_bit_exact(cuda_device, name):
     assert _ext.launches[name] == before + 1
     assert torch.equal(got[ok], tab[idx[ok]])
     assert bool(torch.isnan(got[~ok]).all())
+
+
+def _gather_rows_into(tab, idx, rows):
+    """gather_rows' launcher into a [rows, F] buffer of 7.0 (rows >= n)."""
+    out = torch.full((rows, G.F), 7.0, device=tab.device)
+    _ext.check(_ext.lib().gather_rows_launch(
+        tab.data_ptr(), idx.data_ptr(), out.data_ptr(), len(idx),
+        torch.cuda.current_stream().cuda_stream), "gather_rows")
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 3, 31, 32, 33, 127, 129, (1 << 16) + 17])
+def test_gather_rows_ragged_counts_bit_exact(cuda_device, n):
+    """P2 writes 16 rows per store instruction from batches of 32 indices
+    per warp: counts below, at and past a batch, and many batches with a
+    ragged last one, equal tab[idx] bit for bit, and nothing past n is
+    written."""
+    tab, idx = G.inputs(n=n, seed=n, device=cuda_device)
+    got = G.gather_rows(tab, idx)
+    torch.cuda.synchronize()
+    assert got.shape == (n, G.F)
+    assert torch.equal(got, tab[idx])
+    assert torch.equal(got, G.gather_rows_plain(tab, idx))
+    out = _gather_rows_into(tab, idx, n + 40)
+    assert torch.equal(out[:n], got)
+    assert bool((out[n:] == 7.0).all())
+
+
+def test_gather_rows_unaligned_index_view(cuda_device):
+    """P2 on idx[1:] (4 bytes past a 16-byte boundary) gathers the view's
+    rows."""
+    tab, idx = G.inputs(n=(1 << 16) + 18, seed=5, device=cuda_device)
+    view = idx[1:]
+    assert view.data_ptr() % 16 != 0
+    got = G.gather_rows(tab, view)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tab[view])
+
+
+def test_gather_rows_out_of_range_rows_are_nan(cuda_device):
+    """Indices below 0 or at and past the table's 4096 rows give rows of
+    NaN in P2, in either half of a store's 16 rows and in either batch;
+    the other rows are still tab[idx]."""
+    tab, idx = G.inputs(n=200, seed=12, device=cuda_device)
+    bad = torch.tensor([0, 15, 16, 31, 32, 63, 199], device=cuda_device)
+    idx[bad] = torch.tensor([-1, G.W, -(1 << 31), (1 << 31) - 1, G.W + 128,
+                             -129, G.W], dtype=torch.int32,
+                            device=cuda_device)
+    ok = torch.ones(len(idx), dtype=torch.bool, device=cuda_device)
+    ok[bad] = False
+    got = G.gather_rows(tab, idx)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[~ok]).all())
+    assert torch.equal(got[ok], tab[idx[ok]])
 
 
 @pytest.mark.parametrize("n", [1, 63, 64, 65, (1 << 16) + 17])

@@ -104,6 +104,41 @@ def test_k3_seed_table_rows_match_chain_seed(order):
     assert int(seed_k[-1, 0]) < 0
 
 
+@pytest.mark.parametrize("order", [3, 4, 5, 6, 7])
+def test_k3_seed_segments_match_chain_seed(order):
+    """K3's seed pre-pass as plain PyTorch (chain_seed_segmented: the
+    producers' scaled walk with checkpoints, then each segment re-walked)
+    equals chain_seed bit for bit, values and counters, at several segment
+    lengths, including the kernel's and lengths that do not divide nm."""
+    tp = SHTPlan(order, "cpu", dtype=torch.float32)
+    ref, ref_k = TL.chain_seed(torch.arange(tp.nm), tp.sth)
+    for seg in (1, 7, 32, TL.SEED_SEGMENT):
+        got, got_k = TL.chain_seed_segmented(tp.sth, tp.nm, seg)
+        assert torch.equal(got, ref) and torch.equal(got_k, ref_k), seg
+    assert int(ref_k.min()) < 0  # the rescale is exercised
+
+
+def test_k3_seed_segments_on_extreme_rings():
+    """The same on rings the scaled walk takes (sin theta down to 2^-40,
+    and 1) and rings it leaves to the plain chain (0, just below 2^-40),
+    over nm = 700 degrees (not a multiple of the segment), with rescales
+    falling on segment edges."""
+    rng = np.random.default_rng(8)
+    s = np.exp2(rng.uniform(-45.0, 0.0, 400)).astype(np.float32)
+    s[:4] = 1.0
+    s[4:6] = 0.0
+    s[6:8] = np.float32(2.0**-40)
+    s[8:10] = np.nextafter(np.float32(2.0**-40), np.float32(0.0))
+    sth = torch.tensor(s)
+    nm = 700
+    ref, ref_k = TL.chain_seed(torch.arange(nm), sth)
+    seg = TL.SEED_SEGMENT
+    edge = ref_k[seg] != ref_k[seg - 1]
+    assert bool(edge[10:].any())  # a scaled ring rescales at the first edge
+    got, got_k = TL.chain_seed_segmented(sth, nm, seg)
+    assert torch.equal(got, ref) and torch.equal(got_k, ref_k)
+
+
 def test_k4_twin_matches_pallas_dot_kernel():
     jp = _jplan(4)
     tp = SHTPlan(4, "cpu", dtype=torch.float32)
