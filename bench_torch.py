@@ -3,16 +3,17 @@ lens-plane step, the counterpart of bench.py.
 
     python bench_torch.py [--device cuda|cpu]
 
-One step = NGP deposit + SHT Poisson solve (map2alm, -1/l(l+1) filter,
-6-map derivative synthesis) + bilinear/parallel-transport interpolation to
-every ray + geodesic propagation, through calclens_tpu_torch's
-Raytracer.step.  bench.py's configuration, seed and protocol: one warm-up
-plane, then three timed planes whose particles were staged on the device
-before, each ending in torch.cuda.synchronize().  Shapes via env:
+One step = deposit (BENCH_DEPOSIT: NGP, the default, CIC or SPH) + SHT
+Poisson solve (map2alm, eight of them for SPH, -1/l(l+1) filter, 6-map
+derivative synthesis) + bilinear/parallel-transport interpolation to every
+ray + geodesic propagation, through calclens_tpu_torch's Raytracer.step.
+bench.py's configuration, seed and protocol: one warm-up plane, then three
+timed planes whose particles were staged on the device before, each ending
+in torch.cuda.synchronize().  Shapes via env:
 BENCH_SHT_ORDER (default 12 -> NSIDE 4096), BENCH_RAY_ORDER (default 10 ->
-12.6M rays), BENCH_NPART (default 2^21 particles).  BENCH_DEPOSIT and
-BENCH_MODE other than NGP and SHT raise NotImplementedError (their ROADMAP
-slices).
+12.6M rays), BENCH_NPART (default 2^21 particles).  BENCH_MODE=MG raises
+NotImplementedError (its ROADMAP slice).  The metric name carries the
+scheme as bench.py's does (rays_per_sec_plane_step_sph_nside4096).
 
 After the timed planes, one more plane runs with Profile set: its phase row
 (DEPOSIT, SHTSOLVE, SHT, RAYPROP seconds, each up to a device sync) is
@@ -55,14 +56,11 @@ def main(argv=None):
     npart = int(os.environ.get("BENCH_NPART", 1 << 21))
     deposit = os.environ.get("BENCH_DEPOSIT", "NGP")
     mode = os.environ.get("BENCH_MODE", "SHT")
-    for bad, what, slice_no in ((deposit == "CIC", "BENCH_DEPOSIT=CIC", 6),
-                                (deposit == "SPH", "BENCH_DEPOSIT=SPH", 7),
-                                (mode == "MG", "BENCH_MODE=MG", 11)):
-        if bad:
-            raise NotImplementedError(
-                f"bench_torch.py does not run {what} yet: it arrives with "
-                f"ROADMAP Queue 1, slice {slice_no}")
-    if (deposit, mode) != ("NGP", "SHT"):
+    if mode == "MG":
+        raise NotImplementedError(
+            "bench_torch.py does not run BENCH_MODE=MG yet: it arrives with "
+            "ROADMAP Queue 1, slice 11")
+    if deposit not in ("NGP", "CIC", "SPH") or mode != "SHT":
         raise ValueError(f"BENCH_DEPOSIT={deposit} BENCH_MODE={mode}")
 
     cfg = RayTraceConfig(
@@ -117,8 +115,9 @@ def main(argv=None):
     ref_core_step = reference_core_step_seconds(sht_order, ray_order)
     ref_core_rays = nrays / ref_core_step
     ref_cluster_rays = ref_core_rays * REF_CLUSTER_CORES
+    tag = "" if deposit == "NGP" else f"_{deposit.lower()}"
     print(json.dumps({
-        "metric": f"rays_per_sec_plane_step_nside{1 << sht_order}",
+        "metric": f"rays_per_sec_plane_step{tag}_nside{1 << sht_order}",
         "value": rays_per_sec,
         "unit": "rays/s",
         "vs_baseline": rays_per_sec / ref_cluster_rays,

@@ -1,11 +1,13 @@
-"""Multiple-plane ray-trace driver (reference raytrace.c), full sky.
+"""Multiple-plane ray-trace driver (reference raytrace.c), full sky or an
+ra/dec box.
 
 Port of calclens_tpu/driver.py on one device: the outer loop over lens
-planes runs on the host (each plane loads its particles), and everything
-inside a plane (deposit, SHT Poisson solve, interpolation, propagation) is
-torch work on the Raytracer's device.  The CUDA kernels run when that device
-is a GPU; a CPU Raytracer runs their plain twins.  After each
-MapRedshiftList plane, run() writes the lens maps (maps.py).
+planes runs on the host (each plane loads its particles or its precomputed
+mass map), and everything inside a plane (deposit, SHT Poisson solve,
+interpolation, propagation) is torch work on the Raytracer's device.  The
+CUDA kernels run when that device is a GPU; a CPU Raytracer runs their
+plain twins.  After each MapRedshiftList plane, run() writes the lens maps
+(maps.py).
 """
 
 from __future__ import annotations
@@ -23,10 +25,18 @@ from . import maps as lm
 from .cosmology import Cosmology, RHO_CRIT, CSOL
 from .healpix import core as hp
 from .healpix import torchhp
-from .poisson import empty_plane_step_packed, plane_scalars, plane_step_packed
+from .ops.deposit import MASS_SCALE, sph_sigma_grid
+from .poisson import (empty_plane_step_packed, plane_scalars,
+                      plane_step_density_packed, plane_step_packed)
 from .rays import soa
 from .sht.plan import SHTPlan
 from .utils.profile import Profiler, sync
+
+MIN_SMOOTH_TO_RAY_RATIO = 0.5  # reference raytrace.h:123
+# degrees by which the vacuum mask widens the ra/dec box (the JAX package's)
+VACUUM_BUFFER_DEG = 5.0
+# pixels per chunk of the vacuum mask's device computation
+VACMASK_CHUNK = 1 << 24
 
 
 def gauss_beam(fwhm_rad: float, lmax: int):
@@ -86,12 +96,8 @@ def _full_sky(cfg) -> bool:
 def _check_supported(cfg):
     """Raise for configuration values that later ROADMAP slices bring."""
     unsupported = [
-        (cfg.DepositScheme == "CIC", "DepositScheme CIC", 6),
-        (cfg.DepositScheme == "SPH", "DepositScheme SPH", 7),
         (not cfg.SHTOnly, "SHTOnly = 0 (multigrid refinement)", 11),
         (cfg.ThreeDPot, "ThreeDPot", 12),
-        (cfg.UseHEALPixLensPlaneMaps, "UseHEALPixLensPlaneMaps", 6),
-        (not _full_sky(cfg), "a cut-sky ra/dec box", 6),
         (bool(cfg.GalsFileList), "GalsFileList", 8),
         (bool(cfg.RayOutputName), "RayOutputName", 10),
         (bool(cfg.CMBLensing), "CMBLensing", 9),
@@ -104,11 +110,28 @@ def _check_supported(cfg):
                 f"ROADMAP Queue 1, slice {slice_no}")
 
 
+def sph_params(cfg: RayTraceConfig):
+    """The SPH deposit's static tuple (8 sigmas..., csl, min_sl, max_sl):
+    the clamp range from the ray-grid floor to the first plane's angular
+    scale (reference raytrace.c:425-450), the sigma grid log-spaced in it."""
+    ray_pix = np.sqrt(4.0 * np.pi / hp.order2npix(cfg.rayOrder))
+    min_sl = MIN_SMOOTH_TO_RAY_RATIO * ray_pix
+    binL = cfg.maxComvDistance / cfg.NumLensPlanes
+    csl = (cfg.ComvSmoothingScale if cfg.ComvSmoothingScale > 0
+           else binL / 10)
+    max_sl = min(np.pi / 2, csl / (binL / 2.0))
+    max_sl = max(max_sl, 2 * min_sl)
+    sigmas = sph_sigma_grid(min_sl, max_sl, 8)
+    return tuple(float(s) for s in sigmas) + (float(csl), float(min_sl),
+                                              float(max_sl))
+
+
 class Raytracer:
     """End-to-end multiple-plane ray tracer on one device.
 
-    Rays live on the full HEALPix grid at rayOrder, in RING order, as a
-    packed [21, N] tensor on `device` (rays/soa.py).
+    Rays live on the HEALPix grid at rayOrder (full sky, or its pixels in
+    the configured ra/dec box), in RING order of their pixels, as a packed
+    [21, N] tensor on `device` (rays/soa.py).
     """
 
     def __init__(self, cfg: RayTraceConfig, device="cuda", dtype=None):
@@ -142,6 +165,10 @@ class Raytracer:
                             dtype=self.dtype, window=window,
                             ring_weights=ring_weights)
         self.tab = torchhp.InterpTables(cfg.poissonOrder)
+        self.sph = sph_params(cfg) if cfg.DepositScheme == "SPH" else None
+        # [npix] bool on the device, True outside the buffered box; None for
+        # the full sky
+        self.vacmask = self.vacuum_mask()
         self.rays_packed = None  # [21, N] tensor on self.device
         self._ray_nest = None    # host int64 nest index per ray (lazy)
         self.current_plane = 0
@@ -156,29 +183,103 @@ class Raytracer:
         self.phase_rows = []
 
     # ------------------------------------------------------------------
+    def active_ray_pixels(self):
+        """NEST pixel indices at rayOrder inside the configured sky box
+        (reference init_bundlecells + init_rays), sorted by RING index: the
+        field maps are RING-ordered, so the interpolation gathers walk
+        memory nearly in order.  Coarse first: bundle cells in a buffered
+        box, then only their children filtered exactly."""
+        cfg = self.cfg
+        cnpix = int(hp.order2npix(cfg.bundleOrder))
+        cnest = np.arange(cnpix, dtype=np.int64)
+        cth, cph = hp.pix2ang_nest(cnest, cfg.bundleOrder)
+        cra, cdec = hp.ang2radec(cth, cph)
+        buf = 2.0 * np.degrees(np.sqrt(4.0 * np.pi / cnpix))
+        csel = ((cra >= cfg.minRa - buf) & (cra <= cfg.maxRa + buf)
+                & (cdec >= cfg.minDec - buf) & (cdec <= cfg.maxDec + buf))
+        k = 2 * (cfg.rayOrder - cfg.bundleOrder)
+        children = ((cnest[csel][:, None] << k)
+                    + np.arange(1 << k, dtype=np.int64)).reshape(-1)
+        theta, phi = hp.pix2ang_nest(children, cfg.rayOrder)
+        ra, dec = hp.ang2radec(theta, phi)
+        keep = ((ra >= cfg.minRa) & (ra <= cfg.maxRa)
+                & (dec >= cfg.minDec) & (dec <= cfg.maxDec))
+        nest = children[keep]
+        return nest[np.argsort(hp.nest2ring(nest, cfg.rayOrder))]
+
+    def vacuum_mask(self):
+        """True at poissonOrder pixels outside the ra/dec box widened by
+        VACUUM_BUFFER_DEG: these are zeroed instead of background-subtracted
+        (the reference's test_vaccell cut-sky handling,
+        shtpoissonsolve.c:454-502).  None for the full sky.  Computed on the
+        device in float32, in the JAX package's steps (RING pixel centre ->
+        unit vector -> arccos, arctan2 -> degrees), in chunks of
+        VACMASK_CHUNK pixels."""
+        cfg = self.cfg
+        if _full_sky(cfg):
+            return None
+        npix = int(hp.order2npix(cfg.poissonOrder))
+        mask = torch.empty(npix, dtype=torch.bool, device=self.device)
+        for a in range(0, npix, VACMASK_CHUNK):
+            pix = torch.arange(a, min(npix, a + VACMASK_CHUNK),
+                               device=self.device)
+            x, y, z = torchhp.pix2vec_ring_soa(pix, cfg.poissonOrder,
+                                               torch.float32)
+            theta = torch.arccos(torch.clamp(z, -1.0, 1.0))
+            phi = torch.atan2(y, x)
+            phi = torch.where(phi < 0, phi + 2 * np.pi, phi)
+            ra = torch.rad2deg(phi)
+            dec = 90.0 - torch.rad2deg(theta)
+            b = VACUUM_BUFFER_DEG
+            inside = ((ra >= cfg.minRa - b) & (ra <= cfg.maxRa + b)
+                      & (dec >= cfg.minDec - b) & (dec <= cfg.maxDec + b))
+            mask[a:a + len(pix)] = ~inside
+        return mask
+
     def init_rays(self):
-        """Full-sky rays at rayOrder in RING order, at radius binL / 2."""
+        """Rays at radius binL / 2 on the rayOrder pixels: the full sky in
+        RING order (built on the device), or the box's pixels
+        (active_ray_pixels), whose packed buffer is built on the host from
+        float64 pixel vectors and cast to the run's dtype, as the JAX
+        package builds it."""
         cfg = self.cfg
         binL = cfg.maxComvDistance / cfg.NumLensPlanes
-        npix = int(hp.order2npix(cfg.rayOrder))
-        self._ray_nest = None
-        self.rays_packed = soa.init_packed_fullsky(
-            cfg.rayOrder, binL / 2.0, npix, self.device, self.dtype)
         self.current_plane = 0
+        if _full_sky(cfg):
+            npix = int(hp.order2npix(cfg.rayOrder))
+            self._ray_nest = None
+            self.rays_packed = soa.init_packed_fullsky(
+                cfg.rayOrder, binL / 2.0, npix, self.device, self.dtype)
+            return
+        self._ray_nest = self.active_ray_pixels()
+        vec = hp.pix2vec_nest(self._ray_nest, cfg.rayOrder)
+        packed = np.zeros((soa.NROWS, len(vec)), dtype=self._np_dtype)
+        packed[0:3] = (vec * (binL / 2.0)).T
+        packed[3:6] = vec.T
+        packed[6] = packed[9] = packed[10] = packed[13] = 1.0  # A = Aprev = I
+        self.rays_packed = torch.from_numpy(packed).to(self.device)
 
     def load_state(self, packed, current_plane: int, map_num: int = 0):
         """Start from a given packed [21, N] ray state (for example
-        np.asarray(rt_jax.rays_packed)) and plane counters."""
+        np.asarray(rt_jax.rays_packed)) and plane counters: N is every
+        rayOrder pixel for the full sky, len(active_ray_pixels()) for a
+        box, in init_rays' order."""
         packed = np.asarray(packed)
-        npix = int(hp.order2npix(self.cfg.rayOrder))
-        if packed.shape != (soa.NROWS, npix):
+        nest = None if _full_sky(self.cfg) else self.active_ray_pixels()
+        n = (int(hp.order2npix(self.cfg.rayOrder)) if nest is None
+             else len(nest))
+        if packed.shape != (soa.NROWS, n):
             raise ValueError(f"packed state has shape {packed.shape}, "
-                             f"expected {(soa.NROWS, npix)}")
+                             f"expected {(soa.NROWS, n)}")
         self.rays_packed = torch.tensor(packed, dtype=self.dtype,
                                         device=self.device)
-        self._ray_nest = None
+        self._ray_nest = nest
         self.current_plane = int(current_plane)
         self.map_num = int(map_num)
+
+    @property
+    def _np_dtype(self):
+        return np.float64 if self.dtype == torch.float64 else np.float32
 
     def _pad_particles(self, pos, mass):
         """Pad to the bucket size with zero-mass particles at a valid unit
@@ -207,7 +308,8 @@ class Raytracer:
 
     @property
     def ray_nest(self):
-        """Host nest index per ray (ray i sits at RING pixel i)."""
+        """Host nest index per ray (full sky: ray i sits at RING pixel
+        i)."""
         if self._ray_nest is None:
             npix = int(hp.order2npix(self.cfg.rayOrder))
             self._ray_nest = hp.ring2nest(np.arange(npix, dtype=np.int64),
@@ -238,31 +340,57 @@ class Raytracer:
             mass = mass[keep] / cfg.KeepRandFrac
         return pos, mass
 
+    def load_mass_map(self, plane_num: int):
+        """The plane's precomputed count map (io/healpix_maps.py) times
+        partMass / MASS_SCALE on the device: mass per pixel in the deposit's
+        units.  The product is taken in the file's float32, as the JAX
+        package takes it."""
+        from .io import healpix_maps
+
+        cfg = self.cfg
+        counts = healpix_maps.read_plane_map(
+            cfg.HEALPixLensPlaneMapPath, cfg.HEALPixLensPlaneMapName,
+            plane_num, self.plan.npix)
+        return torch.tensor(counts * (cfg.partMass / MASS_SCALE),
+                            dtype=self.dtype, device=self.device)
+
     def step(self, plane_num: int, pos=None, mass=None,
              with_maps: bool = False):
         """One plane: Poisson solve at the plane radius, then propagate to
-        the next plane.  Returns the FieldMaps when with_maps."""
+        the next plane.  Returns the FieldMaps when with_maps.  With
+        UseHEALPixLensPlaneMaps the plane's mass map is read and pos, mass
+        are not used."""
+        cfg = self.cfg
         t0 = time.perf_counter()
-        pp = plane_params(self.cfg, self.cosmo, plane_num)
-        if pos is None:
-            pos, mass = self.load_particles(plane_num)
-            if self.cfg.Profile:
+        pp = plane_params(cfg, self.cosmo, plane_num)
+        kw = {"phase": self._timed_phase(plane_num)} if cfg.Profile else {}
+        scal = plane_scalars(pp, self.dtype, self.device)
+        if cfg.UseHEALPixLensPlaneMaps:
+            density = self.load_mass_map(plane_num)
+            if cfg.Profile:
                 self._note_phase(plane_num, "PARTIO",
                                  time.perf_counter() - t0)
-        scal = plane_scalars(pp, self.dtype, self.device)
-        maps = None
-        if len(pos):
-            pos_d, mass_d = self._pad_particles(pos, mass)
-            kw = ({"phase": self._timed_phase(plane_num)} if self.cfg.Profile
-                  else {})
-            packed, maps = plane_step_packed(
-                self.plan, self.tab, self.rays_packed, pos_d, mass_d,
-                self.cfg.BornApprx, with_maps, scal,
-                scheme=self.cfg.DepositScheme, **kw)
+            packed, maps = plane_step_density_packed(
+                self.plan, self.tab, self.rays_packed, density,
+                cfg.BornApprx, with_maps, scal, self.vacmask, **kw)
         else:
-            # empty planes keep the beta chord (see calclens_tpu/driver.py)
-            packed = empty_plane_step_packed(self.cfg.BornApprx,
-                                             self.rays_packed, scal)
+            if pos is None:
+                pos, mass = self.load_particles(plane_num)
+                if cfg.Profile:
+                    self._note_phase(plane_num, "PARTIO",
+                                     time.perf_counter() - t0)
+            maps = None
+            if len(pos):
+                pos_d, mass_d = self._pad_particles(pos, mass)
+                packed, maps = plane_step_packed(
+                    self.plan, self.tab, self.rays_packed, pos_d, mass_d,
+                    cfg.BornApprx, with_maps, scal, cfg.DepositScheme,
+                    self.vacmask, self.sph, **kw)
+            else:
+                # empty planes keep the beta chord (see
+                # calclens_tpu/driver.py)
+                packed = empty_plane_step_packed(cfg.BornApprx,
+                                                 self.rays_packed, scal)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.rays_packed = packed
@@ -316,8 +444,7 @@ class Raytracer:
         from . import restart as rst
 
         rays, nest, self.current_plane, self.map_num = rst.read_restart(
-            path or self.restart_path(), self.cfg,
-            np.float64 if self.dtype == torch.float64 else np.float32)
+            path or self.restart_path(), self.cfg, self._np_dtype)
         self.rays_packed = soa.pack(
             type(rays)(*(torch.as_tensor(x, device=self.device)
                          for x in rays)))

@@ -1,8 +1,9 @@
 """Host-side HEALPix index machinery (vectorized numpy, int64).
 
 The port's own copy of the part of calclens_tpu/healpix/core.py that it
-calls: pixel counts, the per-ring geometry table of the SHT, RING pixel ->
-unit vector, RING <-> NEST (the port imports nothing of the JAX package;
+calls: pixel counts, the per-ring geometry table of the SHT, angles <->
+vectors <-> ra/dec, RING pixel <-> angle, NEST pixel -> angle and vector,
+RING <-> NEST (the port imports nothing of the JAX package;
 tests/test_torch_copies.py holds the copy to the original).  Device-side
 HEALPix work lives in torchhp.py.
 
@@ -35,6 +36,19 @@ def ang2vec(theta, phi):
     phi = np.asarray(phi, dtype=np.float64)
     st = np.sin(theta)
     return np.stack([st * np.cos(phi), st * np.sin(phi), np.cos(theta)], axis=-1)
+
+
+def vec2ang(vec):
+    vec = np.asarray(vec, dtype=np.float64)
+    r = np.sqrt(np.sum(vec * vec, axis=-1))
+    theta = np.arccos(np.clip(vec[..., 2] / r, -1.0, 1.0))
+    phi = np.arctan2(vec[..., 1], vec[..., 0])
+    phi = np.where(phi < 0.0, phi + 2.0 * np.pi, phi)
+    return theta, phi
+
+
+def ang2radec(theta, phi):
+    return np.degrees(phi), 90.0 - np.degrees(theta)
 
 
 def _isqrt(x):
@@ -95,6 +109,42 @@ def pix2ang_ring(pix, order):
     phi = (iphi.astype(np.float64) - 1.0 + fodd) * np.pi / (2.0 * nr.astype(np.float64))
     theta = np.arccos(np.clip(z, -1.0, 1.0))
     return theta, phi
+
+
+def ang2pix_ring(theta, phi, order):
+    nside = int(order2nside(order))
+    npix = int(order2npix(order))
+    ncap = 2 * nside * (nside - 1)
+    theta = np.asarray(theta, dtype=np.float64)
+    phi = np.asarray(phi, dtype=np.float64)
+    z = np.cos(theta)
+    za = np.abs(z)
+    tt = np.mod(phi, 2.0 * np.pi) * (2.0 / np.pi)  # in [0,4)
+
+    # equatorial strip
+    temp1 = nside * (0.5 + tt)
+    temp2 = nside * z * 0.75
+    jp = np.floor(temp1 - temp2).astype(np.int64)
+    jm = np.floor(temp1 + temp2).astype(np.int64)
+    ir = nside + 1 + jp - jm  # ring number counted from z = 2/3, in {1, 2n+1}
+    kshift = 1 - (ir & 1)
+    ipe = (jp + jm - nside + kshift + 1) >> 1
+    ipe = np.mod(ipe, 4 * nside)
+    pix_eq = ncap + (ir - 1) * 4 * nside + ipe
+
+    # polar caps
+    tp = tt - np.floor(tt)
+    tmp = nside * np.sqrt(np.maximum(3.0 * (1.0 - za), 0.0))
+    jp_c = np.floor(tp * tmp).astype(np.int64)
+    jm_c = np.floor((1.0 - tp) * tmp).astype(np.int64)
+    ir_c = jp_c + jm_c + 1
+    ip_c = np.floor(tt * ir_c).astype(np.int64)
+    ip_c = np.mod(ip_c, 4 * ir_c)
+    pix_north = 2 * ir_c * (ir_c - 1) + ip_c
+    pix_south = npix - 2 * ir_c * (ir_c + 1) + ip_c
+    pix_cap = np.where(z > 0, pix_north, pix_south)
+
+    return np.where(za <= 2.0 / 3.0, pix_eq, pix_cap)
 
 
 def pix2vec_ring(pix, order):
@@ -225,6 +275,14 @@ def nest2ring(pix, order):
 def ring2nest(pix, order):
     x, y, f = ring2xyf(pix, order)
     return xyf2nest(x, y, f, order)
+
+
+def pix2ang_nest(pix, order):
+    return pix2ang_ring(nest2ring(pix, order), order)
+
+
+def pix2vec_nest(pix, order):
+    return ang2vec(*pix2ang_nest(pix, order))
 
 
 class RingTable:

@@ -376,3 +376,11 @@ def get_interpol_soa(tab: InterpTables, theta, phi):
     p2 = torch.where(south, ((p11 + 2) & 3) + npix - 4, p21)
     p3 = torch.where(south, ((p12 + 2) & 3) + npix - 4, p22)
     return (p0, p1, p2, p3), (w0, w1_, w2_, w3_)
+
+
+def get_interpol(tab: InterpTables, theta, phi):
+    """The 4-pixel bilinear taps stacked: (pix [..., 4] int64 RING indices,
+    wgt [..., 4]), the form of calclens_tpu/healpix/jaxhp.py::get_interpol
+    (the deposits' scatter-adds take one column per tap)."""
+    pix, wgt = get_interpol_soa(tab, theta, phi)
+    return torch.stack(pix, dim=-1), torch.stack(wgt, dim=-1)

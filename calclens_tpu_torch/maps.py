@@ -94,11 +94,11 @@ class LensMapAccum(NamedTuple):
 def lens_vals_packed(packed):
     """Packed rays [21, N] -> the seven accumulation rows [7, N] (count,
     A00, A01, A10, A11, ra, dec): updateLensMap's per-ray terms
-    (maputils.c:129-165), componentwise."""
+    (maputils.c:129-165), componentwise.  theta is atan2(rho, z), not the
+    JAX package's arccos(z / r): in float32 that is off by eps / sin theta
+    near the poles (0.01 degree on rayOrder 10's first ring)."""
     nx, ny, nz = packed[0], packed[1], packed[2]
-    inv = 1.0 / torch.sqrt(nx * nx + ny * ny + nz * nz)
-    hz = torch.clamp(nz * inv, -1.0, 1.0)
-    theta = torch.arccos(hz)
+    theta = torch.atan2(torch.sqrt(nx * nx + ny * ny), nz)
     phi = torch.atan2(ny, nx)
     phi = torch.where(phi < 0.0, phi + 2.0 * math.pi, phi)
     ra = phi * (180.0 / math.pi)

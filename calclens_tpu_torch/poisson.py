@@ -1,14 +1,15 @@
 """Spherical Poisson solve and the per-plane step (reference
-shtpoissonsolve.c + poissondrivers.c), full sky, SHT only, NGP deposit.
+shtpoissonsolve.c + poissondrivers.c), SHT only.
 
-Port of calclens_tpu/poisson.py.  Per lens plane: particles -> NGP deposit
-onto the poissonOrder RING map -> scale by densfact/pixarea and subtract the
-background -> map2alm -> alm *= -1/(l(l+1)) (monopole zeroed) -> alm2allmaps
-(phi + 5 covariant derivatives) -> bilinear + parallel-transport
-interpolation onto the rays (alpha -= grad phi, U += hess phi) -> geodesic
-propagation to the next plane, as four phase_* calls.  Eager torch: each
-stage runs as it is called; temporaries are dropped as soon as the next
-stage has its input.
+Port of calclens_tpu/poisson.py.  Per lens plane: particles -> NGP, CIC or
+sigma-bucketed SPH deposit onto the poissonOrder RING map (or a precomputed
+mass map) -> scale by densfact/pixarea and subtract the background (cut
+sky: vacuum pixels zeroed) -> map2alm (SPH: one per bucket, times its
+kernel window) -> alm *= -1/(l(l+1)) (monopole zeroed) -> alm2allmaps (phi
++ 5 covariant derivatives) -> bilinear + parallel-transport interpolation
+onto the rays (alpha -= grad phi, U += hess phi) -> geodesic propagation to
+the next plane, as four phase_* calls.  Eager torch: each stage runs as it
+is called; temporaries are dropped as soon as the next stage has its input.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .ops import deposit as dep
@@ -66,24 +68,68 @@ def _poisson_filter(plan: SHTPlan, alm):
 # the fused step is the same four calls without the syncs
 # ----------------------------------------------------------------------------
 
-def phase_deposit(plan: SHTPlan, pos, mass, scheme: str, scal: PlaneScalars):
-    """Particles -> scaled surface-density map [npix] (DEPOSIT)."""
-    if scheme == "CIC":
-        raise NotImplementedError("calclens_tpu_torch does not run "
-                                  "DepositScheme CIC yet: it arrives with "
-                                  "ROADMAP Queue 1, slice 6")
-    if scheme == "SPH":
-        raise NotImplementedError("calclens_tpu_torch does not run "
-                                  "DepositScheme SPH yet: it arrives with "
-                                  "ROADMAP Queue 1, slice 7")
+def phase_deposit(plan: SHTPlan, tab, pos, mass, scheme: str,
+                  scal: PlaneScalars, vacmask=None, sph=None):
+    """Particles -> scaled surface-density map (DEPOSIT).
+
+    scheme "SPH" returns the sigma-bucketed [B, npix] maps for
+    phase_analysis_sph (sph: the driver's tuple (sigmas..., csl, min_sl,
+    max_sl)); NGP and CIC return the flat [npix] map.  vacmask [npix] bool
+    marks the cut-sky vacuum pixels, which are zeroed."""
     pixarea = 4.0 * math.pi / plan.npix
-    density = dep.deposit_ngp(plan.order, pos, mass, plan.npix)
-    return dep.scale_density(density, scal.densfact, scal.backdens, pixarea)
+    if scheme == "SPH":
+        *sigmas, csl, min_sl, max_sl = sph
+        sl = dep.smoothing_lengths(pos, csl, min_sl, max_sl)
+        dens_b = dep.deposit_sph_bucketed(plan.order, pos, mass, sl, sigmas,
+                                          plan.npix, tab=tab)
+        # in place: the buckets are 8 maps (6.4 GB at order 12); backdens is
+        # a monopole shift (zeroed by the filter) except in cut-sky mode,
+        # where bucket 0 carries it on the live pixels
+        dens_b.mul_(scal.densfact / pixarea * dep.MASS_SCALE)
+        if vacmask is not None:
+            dens_b.masked_fill_(vacmask, 0.0)
+            dens_b[0].sub_(torch.where(vacmask, 0.0, scal.backdens))
+        return dens_b
+    if scheme == "CIC":
+        density = dep.deposit_cic(tab, pos, mass)
+    elif scheme == "NGP":
+        density = dep.deposit_ngp(plan.order, pos, mass, plan.npix)
+    else:
+        raise ValueError(f"deposit scheme {scheme!r}")
+    return dep.scale_density(density, scal.densfact, scal.backdens, pixarea,
+                             vacmask)
 
 
 def phase_analysis(plan: SHTPlan, density):
     """density -> Poisson-filtered alm (SHTSOLVE: map2alm + -1/l(l+1))."""
     return _poisson_filter(plan, T.map2alm(plan, density))
+
+
+def sph_windows(plan: SHTPlan, sigmas):
+    """[B, nl] per-bucket windows: each bucket's kernel window over the
+    squared CIC assignment window, kernel_bl(sigma_b) / pixwin^2, in the
+    plan's dtype on its device.  Built on the host once per plan and sigma
+    grid (the JAX package rebuilds them every plane)."""
+    def build():
+        w2 = dep.pixwin_disc_bl(plan.order, plan.lmax) ** 2
+        return torch.as_tensor(
+            np.stack([dep.kernel_bl(float(s), plan.lmax) / w2
+                      for s in sigmas]), dtype=plan.dtype, device=plan.device)
+
+    return plan.tables.get(("sph_windows", tuple(map(float, sigmas))), build)
+
+
+def phase_analysis_sph(plan: SHTPlan, dens_b, sigmas):
+    """Bucketed [B, npix] maps -> Poisson-filtered alm (SHTSOLVE, SPH form:
+    per-bucket map2alm times its window, summed).  One transform at a time,
+    so the peak is one transform's working set above the buckets."""
+    windows = sph_windows(plan, sigmas)
+    alm = None
+    for b in range(len(sigmas)):
+        a = T.map2alm(plan, dens_b[b]) * windows[b][:, None]
+        alm = a if alm is None else alm.add_(a)
+        del a
+    return _poisson_filter(plan, alm)
 
 
 def phase_synthesis(plan: SHTPlan, alm):
@@ -108,13 +154,33 @@ def _call(tag, fn, *args):
 
 def plane_step_packed(plan: SHTPlan, tab, packed, pos, mass, born: bool,
                       with_maps: bool, scal: PlaneScalars, scheme="NGP",
-                      phase=_call):
+                      vacmask=None, sph=None, phase=_call):
     """One lens-plane step on the packed ray buffer: deposit, SHT Poisson
     solve, interpolation to the rays, propagation to the next plane (the
     four phase_* calls, each made as phase(tag, fn, *args): a plain call by
     default, a timed one in the driver's Profile mode).  Returns (packed',
     FieldMaps or None)."""
-    density = phase("DEPOSIT", phase_deposit, plan, pos, mass, scheme, scal)
+    density = phase("DEPOSIT", phase_deposit, plan, tab, pos, mass, scheme,
+                    scal, vacmask, sph)
+    if scheme == "SPH":
+        alm = phase("SHTSOLVE", phase_analysis_sph, plan, density, sph[:-3])
+    else:
+        alm = phase("SHTSOLVE", phase_analysis, plan, density)
+    del density
+    maps = phase("SHT", phase_synthesis, plan, alm)
+    del alm
+    packed = phase("RAYPROP", phase_rayside, tab, packed, maps, scal, born)
+    return packed, (FieldMaps(*maps.unbind(0)) if with_maps else None)
+
+
+def plane_step_density_packed(plan: SHTPlan, tab, packed, density,
+                              born: bool, with_maps: bool,
+                              scal: PlaneScalars, vacmask=None, phase=_call):
+    """plane_step_packed from a precomputed map (the UseHEALPixLensPlaneMaps
+    path, shtpoissonsolve.c:336-436): density [npix] is mass per pixel /
+    MASS_SCALE in RING order; its scaling is the DEPOSIT phase."""
+    density = phase("DEPOSIT", dep.scale_density, density, scal.densfact,
+                    scal.backdens, 4.0 * math.pi / plan.npix, vacmask)
     alm = phase("SHTSOLVE", phase_analysis, plan, density)
     del density
     maps = phase("SHT", phase_synthesis, plan, alm)

@@ -85,7 +85,24 @@ of which must pass:
      mode's; no table rebuilt after the first call; the uniform mode split
      into table builds, FFTs and rings_to_map; the v2 analysis against the
      uniform analysis; at order 10 every mode against a float64 uniform
-     run; the port's default mode must be the fastest (5 % slack).
+     run; the port's default mode must be the fastest (5 % slack);
+ 10. the deposit schemes and sky cuts at the headline shape, through
+     Raytracer.step: SPH (one warm-up plane, two timed, one Profile'd;
+     K1 launched exactly 8 times and K2 once per plane, nothing else; the
+     per-bucket windows built once and timed), beside one kernel_bl window
+     by scipy's eval_legendre and by the port's recurrence at lmax 1023;
+     CIC in the octant box (ra 0-90, dec 0-90, bundleOrder 3: ray count,
+     masked pixels, the same planes, then its order-8 lens maps against
+     float64 host sums); one UseHEALPixLensPlaneMaps plane from the
+     headline rays, its map the headline particles' NGP counts written as
+     a <f4 file: its density equal to the particle deposit's bit for bit,
+     its alpha, U and phi beside the particle plane's (run twice: K1's
+     atomic adds make two runs differ) within 1e-2 of each quantity's
+     max;
+ 11. CUDA vs CPU traces of the new paths at SHTOrder 7 / rayOrder 6 (3
+     planes each, 5e-4, the same ray pixels, the launches per plane
+     exact): SPH, CIC in a 40 x 40 degree box, and precomputed mass-map
+     planes.
 
 It prints the card's line, a JSON line {"kernels": [...]} with each
 kernel's launches on its path's run, its error against its twin, its
@@ -94,6 +111,7 @@ times, its bound and the library column, and last {"ok": true, "device":
 or there is no GPU.
 """
 
+import gc
 import json
 import math
 import subprocess
@@ -110,6 +128,12 @@ VARIANT_BOUND = 1e-5  # K3, K4, K2-4col vs twins; K4 vs K1; alm2map vs K2
 # the A rows, measured on an H100), so the kernels' path must agree with
 # the twins' far better than either agrees with the exact answer
 TRACE_BOUND = 5e-4
+# the order-12 mass-map plane's rays against the particle plane's: the two
+# densities are equal bit for bit, but K1 adds its ring tiles with
+# atomicAdd, and two runs of the same order-12 plane lie apart by up to
+# 2.15e-3 of alpha's max on the polar rays (the largest of eight readings
+# on an H100, 700 W); 4.6x that
+MASS_MAP_RAY_BOUND = 1e-2
 # lens map at order 8 on the card (float32 sums of 16 rays per pixel)
 # against a float64 host accumulation, relative to each row's max
 MAP_BOUND = 1e-5
@@ -833,29 +857,41 @@ def run_with_maps():
 
 
 def headline(synth, analysis, planes, snapshot_after, maps_order=None,
-             profile_plane=None, compare_mode=None):
-    """The plane step at the headline shape with the given kernels: plane
-    1 as warm-up, then `planes` timed; the launch counts of exactly those
-    planes, peak device memory, and a host copy of the rays after plane
-    `snapshot_after`; then, with maps_order, the lens maps of the final
-    rays (lens_maps); with profile_plane, that plane once more with Profile
-    set (the driver's phase row: DEPOSIT, SHTSOLVE, SHT, RAYPROP); with
-    compare_mode, the synthesis ring stage switched to that mode, one
-    plane to build its tables and one timed plane."""
+             profile_plane=None, compare_mode=None, **cfg_kw):
+    """The plane step at the headline shape with the given kernels (and
+    cfg_kw on top of the headline configuration: another deposit, a sky
+    box): plane 1 as warm-up, then `planes` timed; the launch counts of
+    exactly those planes, and of each plane apart, peak device memory, and
+    a host copy of the rays after plane `snapshot_after`; then, with
+    maps_order, the lens maps of the final rays (lens_maps); with
+    profile_plane, that plane once more with Profile set (the driver's
+    phase row: DEPOSIT, SHTSOLVE, SHT, RAYPROP); with compare_mode, the
+    synthesis ring stage switched to that mode, one plane to build its
+    tables and one timed plane.  SPH's per-bucket windows are built (and
+    timed) before the warm-up plane; a box's setup includes its vacuum
+    mask and ray pixels."""
     import torch
     from calclens_tpu_torch import _ext
     from calclens_tpu_torch.config import RayTraceConfig
     from calclens_tpu_torch.driver import Raytracer
+    from calclens_tpu_torch.poisson import sph_windows
 
     cfg = RayTraceConfig(OmegaM=0.3, maxComvDistance=2000.0, NumLensPlanes=8,
                          SHTOrder=12, rayOrder=10, bundleOrder=3,
-                         Precision="f32").finalize()
+                         Precision="f32", **cfg_kw).finalize()
+    gc.collect()  # an earlier phase's Raytracer must not count in the peak
     t0 = time.perf_counter()
     rt = Raytracer(cfg, device="cuda")
     rt.plan.synth_kernel, rt.plan.analysis_kernel = synth, analysis
     rt.init_rays()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    windows_s = None
+    if rt.sph is not None:
+        t0 = time.perf_counter()
+        sph_windows(rt.plan, rt.sph[:-3])
+        torch.cuda.synchronize()
+        windows_s = time.perf_counter() - t0
     nrays = rt.rays_packed.shape[1]
     npart = 1 << 21
     pos, mass = seeded_particles(npart, 1.0, 12)
@@ -863,14 +899,23 @@ def headline(synth, analysis, planes, snapshot_after, maps_order=None,
     staged = {p: rt._pad_particles(pos * (250.0 * p + 125.0), mass)
               for p in (1, *planes, extra)}
     torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     _ext.reset_launches()
-    rt.step(1, *staged[1])  # warm-up plane
+    plane_counts = []
+
+    def counted_step(p):
+        before = dict(_ext.launches)
+        rt.step(p, *staged[p])  # ends in torch.cuda.synchronize()
+        plane_counts.append({k: v - before[k]
+                             for k, v in _ext.launches.items()})
+
+    counted_step(1)  # warm-up plane
     times = []
     snap = None
     for p in planes:
         t = time.perf_counter()
-        rt.step(p, *staged[p])  # ends in torch.cuda.synchronize()
+        counted_step(p)
         times.append(time.perf_counter() - t)
         if p == snapshot_after:
             snap = rt.rays_packed.cpu()
@@ -885,7 +930,11 @@ def headline(synth, analysis, planes, snapshot_after, maps_order=None,
           f"only {ran}")
     out = dict(setup_s=setup_s, times=times, nrays=nrays, npart=npart,
                counts=counts, peak=peak, shape=tuple(rt.rays_packed.shape),
-               snap=snap, mode=rt.plan.synthesis_rings_mode)
+               snap=snap, mode=rt.plan.synthesis_rings_mode,
+               plane_counts=plane_counts, windows_s=windows_s,
+               resident=resident,
+               masked=(None if rt.vacmask is None
+                       else int(rt.vacmask.sum())))
     if maps_order is not None:
         out["maps"] = lens_maps(rt, maps_order)
     if profile_plane is not None:
@@ -911,7 +960,8 @@ def headline(synth, analysis, planes, snapshot_after, maps_order=None,
 def lens_maps(rt, order):
     """The driver's lens maps of the current rays at `order`, written to a
     temporary directory: the card's [7, npix] sums against a float64 host
-    accumulation of the same ray buffer (scatter-add onto ring2nest >> 2k);
+    accumulation of the same ray buffer (scatter-add onto each ray's NEST
+    pixel >> 2k: ring2nest of its index on the full sky, a box's ray_nest);
     counts exact, the other rows within MAP_BOUND of each row's max; both
     FITS files read back.  Returns (worst row error, seconds of the driver's
     map writer, pixels)."""
@@ -923,8 +973,8 @@ def lens_maps(rt, order):
     from calclens_tpu_torch.io import fits
 
     ray_order = rt.cfg.rayOrder
-    got = tmaps.accum_lens_map_packed(rt.rays_packed, None, ray_order,
-                                      order).cpu().double().numpy()
+    got = tmaps.accum_lens_map_packed(rt.rays_packed, rt._ray_nest,
+                                      ray_order, order).cpu().double().numpy()
     packed = rt.rays_packed.cpu().double().numpy()
     nx, ny, nz = packed[0], packed[1], packed[2]
     theta = np.arccos(np.clip(nz / np.sqrt(nx * nx + ny * ny + nz * nz),
@@ -934,8 +984,9 @@ def lens_maps(rt, order):
     vals = (np.ones_like(nx), packed[6], packed[7], packed[8], packed[9],
             np.degrees(phi), 90.0 - np.degrees(theta))
     npix = int(hp.order2npix(order))
-    lpix = hp.ring2nest(np.arange(packed.shape[1]), ray_order) \
-        >> (2 * (ray_order - order))
+    nest = (hp.ring2nest(np.arange(packed.shape[1]), ray_order)
+            if rt._ray_nest is None else rt._ray_nest)
+    lpix = nest >> (2 * (ray_order - order))
     del packed
     ref = np.stack([np.bincount(lpix, weights=v, minlength=npix)
                     for v in vals])
@@ -1103,7 +1154,8 @@ def report_headline(label, h):
         f"synthesis ring stage {h['mode']}: "
         f"planes {', '.join(f'{t:.4f}' for t in h['times'])} s, "
         f"median {per_plane:.4f} s/plane, {h['nrays'] / per_plane:.0f} "
-        f"rays/s, peak {h['peak'] / 2**30:.2f} GiB, setup "
+        f"rays/s, peak {h['peak'] / 2**30:.2f} GiB ({h['resident'] / 2**30:.2f} "
+        f"GiB resident before the planes), setup "
         f"{h['setup_s']:.2f} s, launches {h['counts']}, rays {h['shape']} "
         f"finite")
     if "profile" in h:
@@ -1114,6 +1166,207 @@ def report_headline(label, h):
         mode, t = h["compare"]
         say(f"{label} with synthesis ring stage {mode}: one timed plane "
             f"{t:.4f} s against {h['mode']}'s median {per_plane:.4f} s")
+
+
+# the octant box of the cut-sky headline (the footprint of octant mock
+# lightcones) and the 40 x 40 degree box of its order-7 trace
+OCTANT = dict(minRa=0.0, maxRa=90.0, minDec=0.0, maxDec=90.0)
+TRACE_BOX = dict(minRa=20.0, maxRa=60.0, minDec=-10.0, maxDec=30.0)
+# K1 and K2 launches per plane step: one analysis and one synthesis, eight
+# analyses (one per sigma bucket) for SPH
+PLANE_LAUNCHES = {"NGP": {"legendre_analysis": 1, "legendre_synth": 1},
+                  "CIC": {"legendre_analysis": 1, "legendre_synth": 1},
+                  "SPH": {"legendre_analysis": 8, "legendre_synth": 1}}
+
+
+def check_plane_launches(label, plane_counts, scheme):
+    """Every plane of the run launched exactly PLANE_LAUNCHES[scheme] and
+    nothing else."""
+    want = PLANE_LAUNCHES[scheme]
+    for i, c in enumerate(plane_counts):
+        got = {k: v for k, v in c.items() if v}
+        check(got == want, f"{label}: plane {i} launched {got}, expected "
+              f"{want}")
+
+
+def legendre_route_seconds(lmax):
+    """Host seconds of one kernel_bl window at lmax by the JAX package's
+    route (scipy's eval_legendre per degree, whose cost grows with the
+    degree) and by the port's single recurrence (ops/deposit.py), which
+    give the same values."""
+    from scipy.special import eval_legendre
+
+    from calclens_tpu_torch.ops import deposit as dep
+
+    sigma = 0.01
+    g = np.linspace(0.0, sigma, 513)
+    x = np.cos(g)
+    w = np.gradient(g) * np.sin(g) * np.maximum(1.0 - (g / sigma) ** 2, 0.0)
+    t0 = time.perf_counter()
+    ref = eval_legendre(np.arange(lmax + 1)[:, None], x[None, :]) @ w
+    scipy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = dep.kernel_bl(sigma, lmax)
+    port_s = time.perf_counter() - t0
+    check(np.array_equal(got, ref / ref[0]), "kernel_bl off the scipy route")
+    return scipy_s, port_s
+
+
+def mass_map_plane(snap, plane):
+    """One UseHEALPixLensPlaneMaps plane at the headline shape from the
+    headline's rays `snap`, its map the NGP counts of the headline
+    particles (partMass 1e12, as each particle's mass) written as a <f4
+    file in a temporary directory; then the same plane from the same rays
+    twice through the particle path.  The mass-map plane's scaled density
+    (load_mass_map, then scale_density, as its DEPOSIT phase) must equal
+    the particle path's (phase_deposit) bit for bit: counts x 100 and sums
+    of 100.0 are exact in float32.  Downstream the two planes run the same
+    code, whose K1 combines its ring tiles with atomicAdd, so two runs of
+    one plane differ by the order of those adds, amplified on the polar
+    rays: the rays are printed beside the particle plane's own
+    run-to-run distance and held within MASS_MAP_RAY_BOUND.  Returns
+    (distances {quantity: (mass-map vs particle, particle vs particle)},
+    mass-map step seconds, its phase row, its launches, counts' write
+    seconds)."""
+    import tempfile
+
+    import torch
+    from calclens_tpu_torch import _ext
+    from calclens_tpu_torch.config import RayTraceConfig
+    from calclens_tpu_torch.driver import Raytracer, plane_params
+    from calclens_tpu_torch.healpix import torchhp
+    from calclens_tpu_torch.io import healpix_maps
+    from calclens_tpu_torch.ops.deposit import scale_density
+    from calclens_tpu_torch.poisson import phase_deposit, plane_scalars
+
+    pos, mass = seeded_particles(1 << 21, 250.0 * plane + 125.0, 12)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = RayTraceConfig(OmegaM=0.3, maxComvDistance=2000.0,
+                             NumLensPlanes=8, SHTOrder=12, rayOrder=10,
+                             bundleOrder=3, Precision="f32", partMass=1e12,
+                             HEALPixLensPlaneMapPath=tmp,
+                             HEALPixLensPlaneMapName="massmap",
+                             HEALPixLensPlaneMapOrder=12).finalize()
+        check(cfg.UseHEALPixLensPlaneMaps, "mass-map configuration")
+        rt = Raytracer(cfg, device="cuda")
+        # the particle path's own float32 positions, so that no particle
+        # lands in another pixel than it does there
+        pos_d, mass_d = rt._pad_particles(pos, mass)
+        pix = torchhp.vec2pix_ring(pos_d[:len(pos)], rt.plan.order)
+        counts = torch.zeros(rt.plan.npix, dtype=torch.float32,
+                             device=rt.device).index_add_(
+            0, pix, torch.ones(len(pix), device=rt.device))
+        t0 = time.perf_counter()
+        healpix_maps.write_plane_map(tmp, "massmap", plane,
+                                     counts.cpu().numpy())
+        write_s = time.perf_counter() - t0
+        del counts, pix
+        scal = plane_scalars(plane_params(cfg, rt.cosmo, plane), rt.dtype,
+                             rt.device)
+        dens_map = scale_density(rt.load_mass_map(plane), scal.densfact,
+                                 scal.backdens, 4.0 * math.pi / rt.plan.npix)
+        dens_part = phase_deposit(rt.plan, rt.tab, pos_d, mass_d, "NGP",
+                                  scal)
+        check(torch.equal(dens_map, dens_part), "mass-map density differs "
+              "from the particle deposit's")
+        del dens_map, dens_part, pos_d, mass_d
+        rt.cfg.Profile = True
+        rt.load_state(snap, plane)
+        _ext.reset_launches()
+        rt.step(plane)
+        launches = dict(_ext.launches)
+        step_s, row = rt.timings[-1][1], dict(rt.phase_rows)[plane]
+        got = rt.rays_packed.cpu()
+    rt.cfg.Profile = False
+    rt.cfg.UseHEALPixLensPlaneMaps = False
+    refs = []
+    for _ in range(2):
+        rt.load_state(snap, plane)
+        rt.step(plane, pos=pos, mass=mass)
+        refs.append(rt.rays_packed.cpu())
+    check_plane_launches("mass-map plane", [launches], "NGP")
+
+    def dist(x, y, a, b):
+        return float((x[a:b] - y[a:b]).abs().max() / y[a:b].abs().max())
+
+    dists = {q: (dist(got, refs[0], a, b), dist(refs[1], refs[0], a, b))
+             for q, a, b in (("alpha", 14, 16), ("U", 16, 20),
+                             ("phi", 20, 21))}
+    check(all(d < MASS_MAP_RAY_BOUND for d, _ in dists.values())
+          and bool(torch.isfinite(got).all()),
+          f"mass-map plane vs particle plane: {dists}")
+    return dists, step_s, row, launches, write_s
+
+
+def trace_path(label, cfg_kw, mass_maps=False):
+    """A 3-plane CUDA-vs-CPU trace at SHTOrder 7 / rayOrder 6, f32, with
+    cfg_kw on the trace configuration: each plane's particles at pixel
+    centres, or (mass_maps) their mass per pixel / partMass written as the
+    plane's <f4 map; the packed rays within TRACE_BOUND of each quantity's
+    max after every plane, the same ray pixels on both devices, the card's
+    launches exactly PLANE_LAUNCHES per plane.  Returns (errors per plane,
+    rays, vacuum-mask pixels that differ between CPU and card)."""
+    import tempfile
+
+    from calclens_tpu_torch import _ext
+    from calclens_tpu_torch.config import RayTraceConfig
+    from calclens_tpu_torch.driver import Raytracer
+    from calclens_tpu_torch.healpix import core as hp
+    from calclens_tpu_torch.io import healpix_maps
+
+    base = dict(OmegaM=0.3, maxComvDistance=2000.0, NumLensPlanes=8,
+                SHTOrder=7, rayOrder=6, bundleOrder=3, Precision="f32")
+    with tempfile.TemporaryDirectory() as tmp:
+        if mass_maps:
+            cfg_kw = dict(cfg_kw, partMass=1e12, HEALPixLensPlaneMapPath=tmp,
+                          HEALPixLensPlaneMapName="massmap",
+                          HEALPixLensPlaneMapOrder=7)
+        cfg = RayTraceConfig(**base, **cfg_kw).finalize()
+        cpu = Raytracer(cfg, device="cpu")
+        gpu = Raytracer(cfg, device="cuda")
+        for rt in (cpu, gpu):
+            rt.init_rays()
+        check(np.array_equal(cpu.ray_nest, gpu.ray_nest),
+              f"trace {label}: ray pixels differ")
+        vac_diff = (0 if cpu.vacmask is None else
+                    int((cpu.vacmask != gpu.vacmask.cpu()).sum()))
+        errs, plane_counts = [], []
+        for p in range(3):
+            pos, mass = pixel_centre_particles(cfg, cpu.cosmo, p, 20000,
+                                               100 + p)
+            if mass_maps:
+                pix = hp.ang2pix_ring(*hp.vec2ang(pos), cpu.plan.order)
+                healpix_maps.write_plane_map(
+                    tmp, "massmap", p,
+                    np.bincount(pix, mass / 1e12, minlength=cpu.plan.npix))
+                pos = mass = None
+            cpu.step(p, pos=pos, mass=mass)
+            before = dict(_ext.launches)
+            gpu.step(p, pos=pos, mass=mass)
+            plane_counts.append({k: v - before[k]
+                                 for k, v in _ext.launches.items()})
+            errs.append(grouped_row_err(gpu.rays_packed.cpu(),
+                                        cpu.rays_packed))
+    check_plane_launches(f"trace {label}", plane_counts,
+                         cfg.DepositScheme)
+    check(max(errs) < TRACE_BOUND, f"trace {label}, CUDA vs CPU: {errs}")
+    return errs, gpu.rays_packed.shape[1], vac_diff
+
+
+def report_headline_path(label, h, scheme):
+    """Phase 10's lines for one headline path (SPH, cut-sky CIC): the
+    plane launches checked, then report_headline's lines and the rest."""
+    check_plane_launches(label, h["plane_counts"], scheme)
+    report_headline(label, h)
+    if h["masked"] is not None:
+        say(f"{label}: {h['nrays']} rays in the box, {h['masked']} of "
+            f"{12 * 4**12} SHT pixels masked as vacuum")
+    if h["windows_s"] is not None:
+        say(f"{label}: per-bucket windows (8 kernel_bl / pixwin^2, lmax "
+            f"12287) built once in {h['windows_s']:.3f} s of host time")
+    say(f"{label}: launches per plane (warm-up, timed): "
+        + "; ".join(str({k: v for k, v in c.items() if v})
+                    for c in h["plane_counts"]))
 
 
 def main():
@@ -1211,7 +1464,7 @@ def main():
     say(f"variant headline rays vs default after planes 1-3: {dist:.3e} of "
         f"each quantity's max")
     check(math.isfinite(dist), "variant headline: distance not finite")
-    del h["snap"], hv["snap"]
+    del hv["snap"]  # h["snap"] starts phase 10's mass-map plane
     torch.cuda.empty_cache()
 
     # 6. the kernels at the headline shape
@@ -1306,6 +1559,7 @@ def main():
     del alm, streams, ana
     torch.cuda.empty_cache()
     p1 = probe_phase(dev, kernel_ms, plan)
+    del plan  # its ring tables (~6.5 GiB) must not count in phase 10's peaks
     torch.cuda.empty_cache()
 
     # 8. P2-P4, the gather probes, beside torch's tab[idx]
@@ -1316,6 +1570,50 @@ def main():
     # must be the fastest one here (within RING_DEFAULT_SLACK)
     rings = ring_stage_phase(dev)
     report_ring_stages(rings, DEFAULT_SYNTHESIS_RINGS_MODE)
+    torch.cuda.empty_cache()
+
+    # 10. the deposit schemes and sky cuts at the headline shape: SPH (K1
+    # eight times per plane), CIC in the octant box with its lens maps, and
+    # one precomputed mass-map plane against the particle path
+    hs = headline("k2", "k1", (2, 3), snapshot_after=None, profile_plane=4,
+                  DepositScheme="SPH")
+    report_headline_path("SPH headline", hs, "SPH")
+    torch.cuda.empty_cache()
+    scipy_s, port_s = legendre_route_seconds(1023)
+    say(f"one kernel_bl window at lmax 1023: scipy eval_legendre route "
+        f"{scipy_s:.3f} s, the port's recurrence {port_s:.4f} s (equal "
+        f"values)")
+    hc = headline("k2", "k1", (2, 3), snapshot_after=None,
+                  maps_order=MAP_ORDER, profile_plane=4,
+                  DepositScheme="CIC", **OCTANT)
+    report_headline_path("cut-sky CIC headline (octant)", hc, "CIC")
+    map_err, map_s, map_npix = hc["maps"]
+    say(f"lens maps of the octant's rays at LensMapOrder {MAP_ORDER} "
+        f"({map_npix} pixels): card vs float64 host sums {map_err:.3e} of "
+        f"each row's max (bound {MAP_BOUND:g}), counts exact; driver's map "
+        f"writer {map_s:.3f} s")
+    torch.cuda.empty_cache()
+    mm = mass_map_plane(h.pop("snap"), 4)
+    say(f"mass-map plane 4 at order 12 from the headline rays: density "
+        f"equal to the particle deposit's bit for bit; rays vs the particle "
+        f"plane (beside the particle plane run twice), of each quantity's "
+        f"max: " + ", ".join(f"{q} {a:.3e} ({b:.3e})"
+                             for q, (a, b) in mm[0].items())
+        + f" (bound {MASS_MAP_RAY_BOUND:g}); step {mm[1]:.4f} s; "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in sorted(mm[2].items()))
+        + f"; launches {({k: v for k, v in mm[3].items() if v})}; count map "
+        f"written in {mm[4]:.2f} s")
+    torch.cuda.empty_cache()
+
+    # 11. CUDA vs CPU traces of the new paths at SHTOrder 7 / rayOrder 6
+    for label, kw, maps in (("SPH", dict(DepositScheme="SPH"), False),
+                            ("CIC 40x40 box", dict(DepositScheme="CIC",
+                                                   **TRACE_BOX), False),
+                            ("mass maps", {}, True)):
+        errs, nrays, vac_diff = trace_path(label, kw, maps)
+        say(f"trace order 7/6 f32 {label}, CUDA vs CPU per plane: "
+            f"{', '.join(f'{e:.3e}' for e in errs)} (bound {TRACE_BOUND:g}); "
+            f"{nrays} rays on both; vacuum-mask pixels differing {vac_diff}")
     torch.cuda.empty_cache()
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, **extra):
@@ -1333,10 +1631,12 @@ def main():
     kernels = [
         entry("legendre_analysis", "legendre_analysis.cu",
               "calclens_tpu/sht/pallas_legendre.py:251",
-              h["counts"]["legendre_analysis"], k1[1], k1[2], k1[3]),
+              h["counts"]["legendre_analysis"], k1[1], k1[2], k1[3],
+              sph_launches=hs["counts"]["legendre_analysis"]),
         entry("legendre_synth", "legendre_synth.cu",
               "calclens_tpu/sht/pallas_legendre_mx.py:124",
-              h["counts"]["legendre_synth"], k2[1], k2[2], k2[3]),
+              h["counts"]["legendre_synth"], k2[1], k2[2], k2[3],
+              sph_launches=hs["counts"]["legendre_synth"]),
         entry("legendre_synth_phi", "legendre_synth.cu",
               "calclens_tpu/sht/pallas_legendre_mx.py:124",
               phi_launches, v12["legendre_synth_phi"][1],

@@ -1,8 +1,9 @@
 """The port's own copies of the JAX package's host modules against the
 originals on the same inputs: config, cosmology, healpix.core (the part the
 port calls), the io readers (FITS ring weights and pixel windows, pixLC and
-HDF5 lens planes) on files written by the JAX package's writers,
-utils/profile and bench.py's reference constants (benchconst).
+HDF5 lens planes) on files written by the JAX package's writers, the
+precomputed mass maps (io/healpix_maps), utils/profile and bench.py's
+reference constants (benchconst).
 The copies run the same numpy code, so every result must be equal."""
 import dataclasses
 
@@ -13,12 +14,14 @@ from calclens_tpu import config as jconfig
 from calclens_tpu import cosmology as jcosmo
 from calclens_tpu.healpix import core as jhp
 from calclens_tpu.io import fits as jfits
+from calclens_tpu.io import healpix_maps as jmaps
 from calclens_tpu.io import lensplanes as jlens
 from calclens_tpu.io import pixlc as jpixlc
 from calclens_tpu.io import weights as jweights
 from calclens_tpu_torch import config as tconfig
 from calclens_tpu_torch import cosmology as tcosmo
 from calclens_tpu_torch.healpix import core as thp
+from calclens_tpu_torch.io import healpix_maps as tmaps
 from calclens_tpu_torch.io import lensplanes as tlens
 from calclens_tpu_torch.io import pixlc as tpixlc
 from calclens_tpu_torch.io import weights as tweights
@@ -78,6 +81,44 @@ def test_healpix_core_matches_jax(order):
         np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(thp.JRLL, jhp.JRLL)
     np.testing.assert_array_equal(thp.JPLL, jhp.JPLL)
+
+
+@pytest.mark.parametrize("order", [2, 5, 8])
+def test_healpix_core_angle_helpers_match_jax(order):
+    """vec2ang, ang2radec, ang2pix_ring, pix2ang_nest and pix2vec_nest (the
+    cut-sky ray pixels and their initial vectors), on random vectors of
+    any length, the poles, and every pixel centre."""
+    rng = np.random.default_rng(order)
+    vec = rng.normal(size=(5000, 3)) * rng.uniform(0.1, 900.0, (5000, 1))
+    vec[:3] = [[0.0, 0.0, 2.0], [0.0, 0.0, -1.0], [1.0, -1e-12, 0.0]]
+    for got, ref in zip(thp.vec2ang(vec), jhp.vec2ang(vec)):
+        np.testing.assert_array_equal(got, ref)
+    th, ph = jhp.vec2ang(vec)
+    for got, ref in zip(thp.ang2radec(th, ph), jhp.ang2radec(th, ph)):
+        np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(thp.ang2pix_ring(th, ph, order),
+                                  jhp.ang2pix_ring(th, ph, order))
+    pix = np.arange(int(jhp.order2npix(order)))
+    for got, ref in zip(thp.pix2ang_nest(pix, order),
+                        jhp.pix2ang_nest(pix, order)):
+        np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(thp.pix2vec_nest(pix, order),
+                                  jhp.pix2vec_nest(pix, order))
+
+
+def test_healpix_maps_copy_reads_and_writes_as_jax(tmp_path):
+    counts = np.random.default_rng(2).uniform(0.0, 9.0, 12 * 4**3)
+    jmaps.write_plane_map(str(tmp_path / "j"), "m", 4, counts)
+    tmaps.write_plane_map(str(tmp_path / "t"), "m", 4, counts)
+    assert tmaps.map_filename("a", "m", 4) == jmaps.map_filename("a", "m", 4)
+    assert (tmp_path / "t" / "m.4").read_bytes() == \
+        (tmp_path / "j" / "m.4").read_bytes()
+    got = tmaps.read_plane_map(str(tmp_path / "j"), "m", 4, len(counts))
+    np.testing.assert_array_equal(
+        got, jmaps.read_plane_map(str(tmp_path / "j"), "m", 4, len(counts)))
+    assert got.dtype == np.float32
+    with pytest.raises(ValueError, match="pixels"):
+        tmaps.read_plane_map(str(tmp_path / "j"), "m", 4, len(counts) + 1)
 
 
 def _write_table(path, values):

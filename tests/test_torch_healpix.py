@@ -162,8 +162,9 @@ def _port_sources():
 
 def test_import_port_leaves_jax_unloaded():
     """Importing every module of the port, and every module that
-    chip_smoke.py and bench_torch.py import (at any depth), then stepping a
-    plane, loads neither jax nor the JAX package calclens_tpu."""
+    chip_smoke.py and bench_torch.py import (at any depth), then stepping
+    a plane with each deposit (NGP, CIC in a box, SPH) and a precomputed
+    mass-map plane, loads neither jax nor the JAX package calclens_tpu."""
     code = (
         "import ast, importlib, pkgutil, sys\n"
         "import calclens_tpu_torch\n"
@@ -187,6 +188,25 @@ def test_import_port_leaves_jax_unloaded():
         "rt = Raytracer(cfg.finalize(), device='cpu')\n"
         "rt.init_rays()\n"
         "rt.step(0, pos=[[1.0, 0.0, 0.0]], mass=[1e12])\n"
+        "import tempfile\n"
+        "from calclens_tpu_torch.io import healpix_maps\n"
+        "tmp = tempfile.mkdtemp()\n"
+        "healpix_maps.write_plane_map(tmp, 'm', 0, [1.0] * 192)\n"
+        "for kw in (dict(DepositScheme='CIC', minRa=10.0, maxRa=80.0),\n"
+        "           dict(DepositScheme='SPH'),\n"
+        "           dict(HEALPixLensPlaneMapPath=tmp,\n"
+        "                HEALPixLensPlaneMapName='m',\n"
+        "                HEALPixLensPlaneMapOrder=2)):\n"
+        "    rt = Raytracer(RayTraceConfig(maxComvDistance=100.0,\n"
+        "                                  NumLensPlanes=2, SHTOrder=2,\n"
+        "                                  rayOrder=2, bundleOrder=1,\n"
+        "                                  **kw).finalize(), device='cpu')\n"
+        "    rt.init_rays()\n"
+        "    rt.step(0, pos=[[40.0, 30.0, 0.0]], mass=[1e12])\n"
+        "for mod in ('calclens_tpu_torch.driver', 'calclens_tpu_torch.poisson',\n"
+        "            'calclens_tpu_torch.ops.deposit',\n"
+        "            'calclens_tpu_torch.io.healpix_maps'):\n"
+        "    assert mod in sys.modules, mod\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith(('jax.', 'jaxlib')) or\n"
         "             m == 'calclens_tpu' or m.startswith('calclens_tpu.'))\n"

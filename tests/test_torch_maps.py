@@ -236,3 +236,33 @@ def test_port_init_rays_are_float64_pixel_centres():
     jrt.init_rays()
     off = np.abs(np.asarray(jrt.rays_packed)[0:3] - v * wp).max() / wp
     assert off > 1e-9, off  # float32 centres on the JAX side
+
+
+def test_float32_dec_at_the_poles_no_worse_than_jax():
+    """A JAX-side difference (ROADMAP Queue 3): the JAX lens map takes a
+    ray's colatitude as arccos(z / r), which in float32 is off by
+    eps / sin(theta) next to the poles; the port takes atan2(rho, z).  On
+    float32 rays of the rayOrder-10 pixels nearest both poles, the port's
+    order-8 dec sums lie within 1e-6 of float64's (of the row's max) and
+    no farther than JAX's."""
+    order, map_order = 10, 8
+    npix = 12 * 4**order
+    ring = np.concatenate([np.arange(4 * 200), npix - 1 - np.arange(4 * 200)])
+    nest = hp.ring2nest(ring, order)
+    v = hp.pix2vec_ring(ring, order) * 1234.5
+    packed = np.zeros((21, len(ring)), np.float32)
+    packed[0:3] = v.T
+    packed[6] = packed[9] = 1.0
+    p64 = packed.astype(np.float64)
+    lpix = nest >> (2 * (order - map_order))
+    dec64 = 90.0 - np.degrees(np.arctan2(np.hypot(p64[0], p64[1]), p64[2]))
+    ref = np.bincount(lpix, weights=dec64, minlength=12 * 4**map_order)
+    got = tmaps.accum_lens_map_packed(torch.tensor(packed), nest, order,
+                                      map_order)[6].double().numpy()
+    jax_ = np.asarray(jmaps.accum_lens_map_packed(
+        jnp.asarray(packed), nest, order, map_order))[6].astype(np.float64)
+    scale = np.abs(ref).max()
+    port_err = np.abs(got - ref).max() / scale
+    jax_err = np.abs(jax_ - ref).max() / scale
+    assert port_err < 1e-6, port_err
+    assert port_err <= jax_err, (port_err, jax_err)

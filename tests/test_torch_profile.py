@@ -134,6 +134,25 @@ def test_bench_torch_on_the_cpu_prints_bench_keys():
     assert all(phases[k.lower() + "_s"] > 0 for k in PHASES)
 
 
+@pytest.mark.parametrize("deposit", ["CIC", "SPH"])
+def test_bench_torch_runs_each_deposit_on_the_cpu(deposit):
+    """BENCH_DEPOSIT=CIC / SPH: bench.py's keys, with the metric name
+    bench.py gives the scheme (rays_per_sec_plane_step_<scheme>_nside<N>),
+    and the Profile'd plane's phase row."""
+    res = _bench("--device", "cpu", BENCH_SHT_ORDER="3", BENCH_RAY_ORDER="3",
+                 BENCH_NPART="2000", BENCH_DEPOSIT=deposit)
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.strip().splitlines()
+    last = json.loads(lines[-1])
+    assert sorted(last) == _bench_keys()
+    assert last["metric"] == \
+        f"rays_per_sec_plane_step_{deposit.lower()}_nside8"
+    assert last["device"] == "cpu" and last["nrays"] == 768
+    assert last["value"] > 0 and last["per_plane_s"] > 0
+    phases = json.loads(lines[-2])
+    assert all(phases[k.lower() + "_s"] > 0 for k in PHASES)
+
+
 def test_bench_torch_refuses_what_it_cannot_run(monkeypatch):
     import bench_torch
 
@@ -141,10 +160,10 @@ def test_bench_torch_refuses_what_it_cannot_run(monkeypatch):
         res = _bench(BENCH_SHT_ORDER="3", BENCH_RAY_ORDER="3")
         assert res.returncode != 0 and not res.stdout.strip()
         assert "no CUDA device" in res.stderr
-    for var, val, slice_no in (("BENCH_DEPOSIT", "CIC", 6),
-                               ("BENCH_DEPOSIT", "SPH", 7),
-                               ("BENCH_MODE", "MG", 11)):
-        monkeypatch.setenv(var, val)
-        with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
-            bench_torch.main(["--device", "cpu"])
-        monkeypatch.delenv(var)
+    monkeypatch.setenv("BENCH_MODE", "MG")
+    with pytest.raises(NotImplementedError, match="slice 11"):
+        bench_torch.main(["--device", "cpu"])
+    monkeypatch.setenv("BENCH_MODE", "SHT")
+    monkeypatch.setenv("BENCH_DEPOSIT", "TSC")
+    with pytest.raises(ValueError, match="BENCH_DEPOSIT=TSC"):
+        bench_torch.main(["--device", "cpu"])
