@@ -7,7 +7,9 @@ mass map), and everything inside a plane (deposit, SHT Poisson solve,
 interpolation, propagation) is torch work on the Raytracer's device.  The
 CUDA kernels run when that device is a GPU; a CPU Raytracer runs their
 plain twins.  After each MapRedshiftList plane, run() writes the lens maps
-(maps.py).
+(maps.py); with GalsFileList it images the source galaxies of each plane's
+radial bin (gals/) before that plane's step.  propagate_to_cmb carries the
+rays on to the last-scattering surface (the CMB mode).
 """
 
 from __future__ import annotations
@@ -98,9 +100,7 @@ def _check_supported(cfg):
     unsupported = [
         (not cfg.SHTOnly, "SHTOnly = 0 (multigrid refinement)", 11),
         (cfg.ThreeDPot, "ThreeDPot", 12),
-        (bool(cfg.GalsFileList), "GalsFileList", 8),
         (bool(cfg.RayOutputName), "RayOutputName", 10),
-        (bool(cfg.CMBLensing), "CMBLensing", 9),
         (cfg.DebugIO, "DebugIO (field-map dumps)", 10),
     ]
     for bad, what, slice_no in unsupported:
@@ -450,6 +450,35 @@ class Raytracer:
                          for x in rays)))
         self._ray_nest = nest
 
+    def load_legacy_restart(self, restart_dir=None):
+        """Resume from a REFERENCE run's binary restart.<task> files
+        (restart.c:18-219), the interop path of the CMB mode
+        (propagate_to_cmb_from_restart.c).  Validates the layout-critical
+        config fields as the reference does (restart.c:88-124) and raises
+        ValueError on a mismatch.  The rays are stored in RING order of
+        their pixels, as a box's are (the JAX package keeps the file's NEST
+        order), with _ray_nest set even on the full sky: run() then takes
+        the cut-sky galaxy search and the lens maps' scatter path."""
+        from .io import legacy_restart as lr
+
+        meta, rays = lr.read_legacy_restart(restart_dir
+                                            or self.cfg.OutputPath or ".")
+        cfg = self.cfg
+        for f in ("bundleOrder", "rayOrder", "OmegaM", "maxComvDistance",
+                  "NumLensPlanes", "minRa", "maxRa", "minDec", "maxDec"):
+            if not np.isclose(float(meta[f]), float(getattr(cfg, f))):
+                raise ValueError(
+                    f"legacy restart incompatible: {f} = {meta[f]} in file, "
+                    f"{getattr(cfg, f)} in config (restart.c:88-124)")
+        packed, nest = lr.legacy_rays_to_packed(meta, rays,
+                                                dtype=self._np_dtype)
+        order = np.argsort(hp.nest2ring(nest, cfg.rayOrder), kind="stable")
+        self.rays_packed = torch.from_numpy(
+            np.ascontiguousarray(packed[:, order])).to(self.device)
+        self._ray_nest = nest[order]
+        self.current_plane = int(meta["CurrentPlaneNum"])
+        self.map_num = int(meta["CurrentMapNum"])
+
     def _map_planes(self):
         """plane number -> map index for MapRedshiftList planes."""
         cfg = self.cfg
@@ -475,21 +504,31 @@ class Raytracer:
                                     self.map_num)
 
     def run(self, progress=True, start_time=None):
-        """Plane loop with lens maps and wall-time restarts (reference
-        raytrace.c:131-371): after each MapRedshiftList plane the lens maps
-        (when OutputPath is set); npz restarts every WallTimeBetweenRestart
-        seconds and before the WallTimeLimit; at the end, the restart and
-        the timing.0 rows."""
+        """Plane loop with galaxy images, lens maps and wall-time restarts
+        (reference raytrace.c:131-371): before each plane's step the images
+        of the sources in its radial bin (GalsFileList; written per plane
+        when GalOutputName is set); after each MapRedshiftList plane the
+        lens maps (when OutputPath is set); npz restarts every
+        WallTimeBetweenRestart seconds and before the WallTimeLimit; at the
+        end, the restart and the timing.0 rows."""
         cfg = self.cfg
         if self.rays_packed is None:
             self.init_rays()
         map_planes = self._map_planes()
         if map_planes and cfg.OutputPath:
             lm.check_map_order(cfg.rayOrder, self._map_order())
+        search = self._galaxy_search() if cfg.GalsFileList else None
         t_start = start_time if start_time is not None else time.perf_counter()
         t_last_restart = t_start
         for p in range(self.current_plane, cfg.NumLensPlanes):
+            collect = search(p) if search is not None else None
             self.step(p)
+            if collect is not None:
+                tgs = time.perf_counter()
+                self._write_images(collect(), p)
+                if cfg.Profile:
+                    self._note_phase(p, "GRIDSEARCH",
+                                     time.perf_counter() - tgs)
             if progress:
                 pp = plane_params(cfg, self.cosmo, p)
                 print(f"plane {p:4d}/{cfg.NumLensPlanes} "
@@ -517,6 +556,118 @@ class Raytracer:
         if cfg.OutputPath:
             self.save_restart()
             self.write_timing()
+
+    def _galaxy_search(self):
+        """The source catalog's search, dispatched as calclens_tpu/
+        driver.py dispatches it (one device): full-sky RING-ordered rays
+        take the device search on the ray grid, a box (or a legacy
+        restart, whose rays carry _ray_nest) the device search with its
+        rows' RING pixels unless CALCLENS_GALS_DEVICE=0, anything else
+        (a box with BornApprx included) the host-prep find_images over the
+        GridSearchTables; BornApprx on the full sky interpolates A at the
+        sources (find_images_born).  Returns search(p): the images of plane
+        p's sources are found (or, for the device search, queued, unless
+        CALCLENS_GALS_ASYNC=0) before its step; it returns the collect()
+        to call after the step, or None when the images are written."""
+        from .gals import gridsearch as gs
+        from .gals import io as galsio
+
+        cfg = self.cfg
+        gal_pos, gal_idx = galsio.read_source_gals(cfg.GalsFileList)
+        tab = tables = n2i = ring_rows = None
+        if self._ray_nest is None:
+            # device search: ray index == RING pixel
+            tab = torchhp.InterpTables(cfg.rayOrder)
+        elif (not cfg.BornApprx
+              and os.environ.get("CALCLENS_GALS_DEVICE", "1") != "0"):
+            # cut sky: the rows are the box's pixels in RING order, and a
+            # sorted row -> RING pixel table translates the candidates'
+            # taps on the device (gridsearch._rows_of_pix)
+            tab = torchhp.InterpTables(cfg.rayOrder)
+            ring_rows = hp.nest2ring(self._ray_nest, cfg.rayOrder)
+            if not np.all(np.diff(ring_rows) > 0):
+                raise ValueError("the rays of a cut-sky galaxy search must "
+                                 "be in increasing RING pixel order")
+        else:
+            # candidate window >= the reference's galImageSearchRad of 10
+            # ray pixels (config.c:222-225): half-width ~1.5 * 2^expand;
+            # each NEST pixel maps to its row, -1 where no ray is (the JAX
+            # driver passes the full sky's ring_of_nest here)
+            tables = gs.GridSearchTables(cfg.rayOrder, expand=3)
+            n2i = np.full(len(tables.ring_of_nest), -1, np.int64)
+            n2i[self._ray_nest] = np.arange(len(self._ray_nest))
+        binL = cfg.maxComvDistance / cfg.NumLensPlanes
+
+        def search(p):
+            ppos, pidx = gs.select_plane_gals(gal_pos, gal_idx, p, binL,
+                                              cfg.NumLensPlanes,
+                                              cfg.maxComvDistance)
+            if not len(ppos):
+                return None
+            tgs = time.perf_counter()
+            pp = plane_params(cfg, self.cosmo, p)
+            args = (ppos, pidx, pp.rad, pp.rad_minus1)
+            collect = images = None
+            if cfg.BornApprx and tab is not None:
+                images = gs.find_images_born(cfg, tab, self.rays_packed,
+                                             *args)
+            elif tab is not None:
+                # the search reads the pre-step buffer; the step writes a
+                # new one, so collect() can still fall back to this one
+                collect = gs.find_images_device_async(
+                    cfg, tab, self.rays_packed, *args, ring_rows=ring_rows)
+                if os.environ.get("CALCLENS_GALS_ASYNC", "1") == "0":
+                    images, collect = collect(), None
+                elif cfg.Profile:
+                    # Profile: the column holds the search's device time
+                    sync(self.rays_packed)
+            else:
+                images = gs.find_images(cfg, tables, self.rays_packed,
+                                        *args, nest2index=n2i)
+            if images is not None:
+                self._write_images(images, p)
+            if cfg.Profile:
+                self._note_phase(p, "GRIDSEARCH", time.perf_counter() - tgs)
+            return collect
+
+        return search
+
+    def _write_images(self, images, plane_num):
+        if self.cfg.GalOutputName:
+            from .gals import io as galsio
+
+            galsio.write_image_gals(self.cfg, images, plane_num)
+
+    # ------------------------------------------------------------------
+    def propagate_to_cmb(self, z_cmb=1100.0, map_order=None):
+        """Propagate the current rays to chi(z_cmb) and return the
+        convergence accumulator at map_order (reference
+        propagate_to_cmb_from_restart.c:184-492).  A map cannot be finer
+        than the ray grid: that raises ValueError before any work."""
+        cfg = self.cfg
+        map_order = map_order or lm.CMB_MAP_ORDER
+        lm.check_map_order(cfg.rayOrder, map_order)
+        # plane radii as the reference's CMB continuation sets them from
+        # the restart's CurrentPlaneNum (set_plane_distances,
+        # propagate_to_cmb_from_restart.c:120-136); a particle-free plane
+        # with the radial alpha == 0 branch
+        binL = cfg.maxComvDistance / cfg.NumLensPlanes
+        p = self.current_plane
+        pp = PlaneParams(
+            plane_num=p,
+            rad_minus1=0.0 if p < 1 else (p - 1.0) * binL + binL / 2.0,
+            rad=p * binL + binL / 2.0,
+            rad_plus1=float(lm.comoving_distance_2f1(z_cmb, cfg.OmegaM)),
+            densfact=0.0, backdens=0.0, zlens=z_cmb)
+        self.rays_packed = empty_plane_step_packed(
+            cfg.BornApprx, self.rays_packed,
+            plane_scalars(pp, self.dtype, self.device), radial=True)
+        sync(self.rays_packed)
+        # only the [7, npix_map] sums reach the host (the reference
+        # likewise reduces the order-12 map only, :440-492)
+        stacked = lm.accum_lens_map_packed(self.rays_packed, self._ray_nest,
+                                           cfg.rayOrder, map_order)
+        return lm.LensMapAccum.from_stacked(stacked)
 
     def write_timing(self):
         """Per-plane step times (the reference's timing.0 rows,

@@ -2,8 +2,10 @@
 
 The port's own copy of the part of calclens_tpu/healpix/core.py that it
 calls: pixel counts, the per-ring geometry table of the SHT, angles <->
-vectors <-> ra/dec, RING pixel <-> angle, NEST pixel -> angle and vector,
-RING <-> NEST (the port imports nothing of the JAX package;
+vectors <-> ra/dec, RING and NEST pixel <-> angle and vector, RING <-> NEST,
+NEST -> Peano index (the legacy restart files), the host 4-pixel bilinear
+interpolation, NEST neighbours and the grid triangulation (the galaxy
+image search) (the port imports nothing of the JAX package;
 tests/test_torch_copies.py holds the copy to the original).  Device-side
 HEALPix work lives in torchhp.py.
 
@@ -49,6 +51,20 @@ def vec2ang(vec):
 
 def ang2radec(theta, phi):
     return np.degrees(phi), 90.0 - np.degrees(theta)
+
+
+def radec2ang(ra, dec):
+    return np.radians(90.0 - np.asarray(dec, dtype=np.float64)), np.radians(ra)
+
+
+def vec2radec(vec):
+    theta, phi = vec2ang(vec)
+    return ang2radec(theta, phi)
+
+
+def radec2vec(ra, dec):
+    theta, phi = radec2ang(ra, dec)
+    return ang2vec(theta, phi)
 
 
 def _isqrt(x):
@@ -149,6 +165,10 @@ def ang2pix_ring(theta, phi, order):
 
 def pix2vec_ring(pix, order):
     return ang2vec(*pix2ang_ring(pix, order))
+
+
+def vec2pix_ring(vec, order):
+    return ang2pix_ring(*vec2ang(vec), order)
 
 
 def _spread_bits(v):
@@ -281,8 +301,50 @@ def pix2ang_nest(pix, order):
     return pix2ang_ring(nest2ring(pix, order), order)
 
 
+def ang2pix_nest(theta, phi, order):
+    return ring2nest(ang2pix_ring(theta, phi, order), order)
+
+
 def pix2vec_nest(pix, order):
     return ang2vec(*pix2ang_nest(pix, order))
+
+
+def vec2pix_nest(vec, order):
+    return ring2nest(vec2pix_ring(vec, order), order)
+
+
+# ----------------------------------------------------------------------------
+# Peano curve (nest <-> peano), standard Healpix_cxx algorithm
+# ----------------------------------------------------------------------------
+# The Peano index orders nest pixels along a Hilbert-like space filling curve;
+# it is the cell ordering of the indexed lens-plane file format.  The curve is
+# defined by an 8-state automaton over child quadrants (the classic
+# Healpix_cxx definition the reference inherits): state tables give, for each
+# curve state ("path") and nest child index, the position along the curve and
+# the child's state.
+
+_SUBPIX = np.array([
+    [0, 1, 3, 2], [3, 0, 2, 1], [2, 3, 1, 0], [1, 2, 0, 3],
+    [0, 3, 1, 2], [1, 0, 2, 3], [2, 1, 3, 0], [3, 2, 0, 1],
+], dtype=np.int64)
+_SUBPATH = np.array([
+    [4, 0, 6, 0], [7, 5, 1, 1], [2, 4, 2, 6], [3, 3, 7, 5],
+    [0, 2, 4, 4], [5, 1, 5, 3], [6, 6, 0, 2], [1, 7, 3, 7],
+], dtype=np.int64)
+_FACE2PATH = np.array([2, 5, 2, 5, 3, 6, 3, 6, 2, 3, 2, 3], dtype=np.int64)
+_FACE2PEANOFACE = np.array([0, 5, 6, 11, 10, 1, 4, 7, 2, 3, 8, 9], dtype=np.int64)
+
+
+def nest2peano(pix, order):
+    pix = np.asarray(pix, dtype=np.int64)
+    face = pix >> (2 * order)
+    path = _FACE2PATH[face].copy()
+    result = np.zeros_like(pix)
+    for shift in range(2 * order - 2, -2, -2):
+        spix = (pix >> shift) & 3
+        result = (result << 2) | _SUBPIX[path, spix]
+        path = _SUBPATH[path, spix]
+    return result + (_FACE2PEANOFACE[face] << (2 * order))
 
 
 class RingTable:
@@ -338,3 +400,249 @@ def build_ring_table(order) -> RingTable:
         rt = RingTable(order)
         _ring_table_cache[order] = rt
     return rt
+
+
+# ----------------------------------------------------------------------------
+# bilinear interpolation (reference get_interpol, healpix_utils.h:107)
+# ----------------------------------------------------------------------------
+
+def get_interpol(theta, phi, order):
+    """4-pixel bilinear interpolation weights on the RING grid.
+
+    Returns (pix[...,4] int64 RING indices, wgt[...,4] float64).  Standard
+    HEALPix scheme: the two rings bracketing theta contribute two pixels each,
+    linearly weighted in phi along the ring and in theta across rings; at the
+    poles the weights are folded onto the nearest ring.
+    """
+    rt = build_ring_table(order)
+    nside = rt.nside
+    npix = rt.npix
+    theta = np.atleast_1d(np.asarray(theta, dtype=np.float64))
+    phi = np.atleast_1d(np.asarray(phi, dtype=np.float64))
+    z = np.cos(theta)
+
+    # ring_above: largest ring index whose z is >= given z (0 = none above)
+    az = np.abs(z)
+    ir_cap = (nside * np.sqrt(3.0 * (1.0 - az))).astype(np.int64)
+    ir_eq = (nside * (2.0 - 1.5 * z)).astype(np.int64)
+    ring_above = np.where(
+        az <= 2.0 / 3.0, ir_eq, np.where(z > 0, ir_cap, 4 * nside - ir_cap - 1)
+    )
+
+    ir1 = ring_above
+    ir2 = ring_above + 1
+
+    def ring_interp(ir):
+        """pixel pair (absolute i1, i2) and frac weight w along ring ir."""
+        idx = np.clip(ir, 1, rt.nrings) - 1
+        sp = rt.startpix[idx]
+        nr = rt.ringpix[idx]
+        shift = np.where(rt.shifted[idx], 0.5, 0.0)
+        dphi = 2.0 * np.pi / nr
+        tmp = phi / dphi - shift
+        i1 = np.floor(tmp).astype(np.int64)
+        w = (phi - (i1 + shift) * dphi) / dphi
+        i2 = i1 + 1
+        i1 = np.where(i1 < 0, i1 + nr, i1)
+        i2 = np.where(i2 >= nr, i2 - nr, i2)
+        return sp + i1, sp + i2, w
+
+    p11, p12, w1 = ring_interp(ir1)
+    p21, p22, w2 = ring_interp(ir2)
+    theta1 = rt.theta[np.clip(ir1, 1, rt.nrings) - 1]
+    theta2 = rt.theta[np.clip(ir2, 1, rt.nrings) - 1]
+
+    pix = np.zeros(theta.shape + (4,), dtype=np.int64)
+    wgt = np.zeros(theta.shape + (4,), dtype=np.float64)
+    pix[..., 0], pix[..., 1] = p11, p12
+    pix[..., 2], pix[..., 3] = p21, p22
+
+    north = ir1 == 0
+    south = ir2 == 4 * nside
+    generic = ~(north | south)
+
+    # generic: bilinear between the two rings
+    wtheta_g = (theta - theta1) / np.where(theta2 != theta1, theta2 - theta1, 1.0)
+    wgt[..., 0] = np.where(generic, (1.0 - wtheta_g) * (1.0 - w1), 0.0)
+    wgt[..., 1] = np.where(generic, (1.0 - wtheta_g) * w1, 0.0)
+    wgt[..., 2] = np.where(generic, wtheta_g * (1.0 - w2), 0.0)
+    wgt[..., 3] = np.where(generic, wtheta_g * w2, 0.0)
+
+    if np.any(north):
+        wth = theta / theta2
+        fac = (1.0 - wth) * 0.25
+        wgt[north, 0] = fac[north]
+        wgt[north, 1] = fac[north]
+        wgt[north, 2] = (wth * (1.0 - w2))[north] + fac[north]
+        wgt[north, 3] = (wth * w2)[north] + fac[north]
+        pix[north, 0] = (p21[north] + 2) % 4
+        pix[north, 1] = (p22[north] + 2) % 4
+    if np.any(south):
+        wth = (theta - theta1) / (np.pi - theta1)
+        fac = wth * 0.25
+        wgt[south, 0] = ((1.0 - wth) * (1.0 - w1))[south] + fac[south]
+        wgt[south, 1] = ((1.0 - wth) * w1)[south] + fac[south]
+        wgt[south, 2] = fac[south]
+        wgt[south, 3] = fac[south]
+        pix[south, 2] = ((p11[south] + 2) & 3) + npix - 4
+        pix[south, 3] = ((p12[south] + 2) & 3) + npix - 4
+
+    return pix, wgt
+
+
+# ----------------------------------------------------------------------------
+# nest neighbours and the grid triangulation (the galaxy image search)
+# ----------------------------------------------------------------------------
+
+_NB_XOFFSET = np.array([-1, -1, 0, 1, 1, 1, 0, -1], dtype=np.int64)
+_NB_YOFFSET = np.array([0, 1, 1, 1, 0, -1, -1, -1], dtype=np.int64)
+_NB_FACEARRAY = np.array([
+    [8, 9, 10, 11, -1, -1, -1, -1, 10, 11, 8, 9],
+    [5, 6, 7, 4, 8, 9, 10, 11, 9, 10, 11, 8],
+    [-1, -1, -1, -1, 5, 6, 7, 4, -1, -1, -1, -1],
+    [4, 5, 6, 7, 11, 8, 9, 10, 11, 8, 9, 10],
+    [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11],
+    [1, 2, 3, 0, 0, 1, 2, 3, 5, 6, 7, 4],
+    [-1, -1, -1, -1, 7, 4, 5, 6, -1, -1, -1, -1],
+    [3, 0, 1, 2, 3, 0, 1, 2, 4, 5, 6, 7],
+    [2, 3, 0, 1, -1, -1, -1, -1, 0, 1, 2, 3],
+], dtype=np.int64)
+_NB_SWAPARRAY = np.array([
+    [0, 0, 0, 0, 0, 0, 0, 0, 3, 3, 3, 3],
+    [0, 0, 0, 0, 0, 0, 0, 0, 6, 6, 6, 6],
+    [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+    [0, 0, 0, 0, 0, 0, 0, 0, 5, 5, 5, 5],
+    [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+    [5, 5, 5, 5, 0, 0, 0, 0, 0, 0, 0, 0],
+    [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+    [6, 6, 6, 6, 0, 0, 0, 0, 0, 0, 0, 0],
+    [3, 3, 3, 3, 0, 0, 0, 0, 0, 0, 0, 0],
+], dtype=np.int64)
+
+
+def neighbors_nest(pix, order):
+    """8 nest-scheme neighbors (SW, W, NW, N, NE, E, SE, S); -1 where absent.
+
+    Standard Healpix_cxx neighbor algorithm vectorized over pixels.
+    """
+    nside = int(order2nside(order))
+    x, y, f = nest2xyf(pix, order)
+    x = np.atleast_1d(x)
+    y = np.atleast_1d(y)
+    f = np.atleast_1d(f)
+    n = x.shape[0]
+    result = np.full((n, 8), -1, dtype=np.int64)
+    for i in range(8):
+        xn = x + _NB_XOFFSET[i]
+        yn = y + _NB_YOFFSET[i]
+        inside = (xn >= 0) & (xn < nside) & (yn >= 0) & (yn < nside)
+        result[inside, i] = xyf2nest(xn[inside], yn[inside], f[inside], order)
+        edge = ~inside
+        if np.any(edge):
+            nbnum = np.full(n, 4, dtype=np.int64)
+            nbnum = np.where(xn < 0, nbnum - 1, nbnum)
+            nbnum = np.where(xn >= nside, nbnum + 1, nbnum)
+            nbnum = np.where(yn < 0, nbnum - 3, nbnum)
+            nbnum = np.where(yn >= nside, nbnum + 3, nbnum)
+            fn = _NB_FACEARRAY[nbnum, f]
+            ok = edge & (fn >= 0)
+            if np.any(ok):
+                bits = _NB_SWAPARRAY[nbnum, f]
+                xi = np.mod(xn, nside)
+                yi = np.mod(yn, nside)
+                xs = np.where(bits & 1, nside - xi - 1, xi)
+                ys = np.where(bits & 2, nside - yi - 1, yi)
+                xf = np.where(bits & 4, ys, xs)
+                yf = np.where(bits & 4, xs, ys)
+                result[ok, i] = xyf2nest(xf[ok], yf[ok], fn[ok], order)
+    return result
+
+
+# ----------------------------------------------------------------------------
+# grid triangulation (reference ring2triangle, healpix_utils.c:1273-1423)
+# ----------------------------------------------------------------------------
+
+def build_triangles(order):
+    """Triangulation of the pixel-center grid: tri [npix, 4, 3] RING pixel
+    indices, -1-padded.  Triangle slot 0 of pixel p is (p, right-neighbor,
+    above-ring pixel); slots 1-2 close the strip toward the ring above; the
+    polar rings carry the cap-closing triangles.  The full table tiles the
+    sphere: exactly 2*npix - 4 triangles (Euler).  Vectorized host port of
+    the reference's per-pixel ring2triangle.
+    """
+    rt = build_ring_table(order)
+    nside, npix = rt.nside, rt.npix
+    pix = np.arange(npix, dtype=np.int64)
+    ringnum = np.searchsorted(rt.startpix, pix, side="right")  # 1-based
+    sp = rt.startpix[ringnum - 1]
+    Np = rt.ringpix[ringnum - 1]
+    sh = rt.shifted[ringnum - 1].astype(np.int64)
+    ip = pix - sp
+    ringA = ringnum - 1
+    iA = np.clip(ringA, 1, rt.nrings) - 1
+    spA = rt.startpix[iA]
+    NpA = rt.ringpix[iA]
+
+    tri = np.full((npix, 4, 3), -1, dtype=np.int64)
+    right = (ip + 1) % Np + sp
+
+    def put(mask, slot, a, b, c):
+        tri[mask, slot, 0] = a[mask] if a.shape else a
+        tri[mask, slot, 1] = b[mask]
+        tri[mask, slot, 2] = c[mask]
+
+    # north polar cap rings 2..nside
+    m = (ringnum >= 2) & (ringnum <= nside)
+    ib = ip % np.maximum(ringnum, 1)
+    bnum = ip // np.maximum(ringnum, 1)
+    interior = ib < ringnum - 1
+    X_int = (ib + bnum * ringA) % NpA + spA
+    X_cor = (ib + bnum * ringA - 1) % NpA + spA
+    X = np.where(interior, X_int, X_cor)
+    put(m, 0, pix, right, X)
+    X2 = (X_int - spA - 1) % NpA + spA
+    put(m & interior, 1, pix, X_int, X2)
+
+    # equatorial rings nside+1 .. 3*nside
+    me = (ringnum > nside) & (ringnum <= 3 * nside)
+    ibe = ip % nside
+    bne = ip // nside
+    above_nr = np.where(ringA > nside, nside, ringA)
+    Xe = (sh + ibe + bne * above_nr) % NpA + spA
+    Xe2 = (Xe - spA - 1) % NpA + spA
+    put(me, 0, pix, right, Xe)
+    put(me, 1, pix, Xe, Xe2)
+
+    # south polar cap rings 3*nside+1 .. 4*nside-1
+    ms = ringnum > 3 * nside
+    nring = np.maximum(4 * nside - ringnum, 1)
+    nringA = np.maximum(4 * nside - ringA, 1)
+    ibs = ip % nring
+    bns = ip // nring
+    Xs = (sh + ibs + bns * nringA) % NpA + spA
+    Xs2 = (Xs - spA - 1) % NpA + spA
+    Xs3 = (Xs2 - spA - 1) % NpA + spA
+    put(ms, 0, pix, right, Xs)
+    put(ms, 1, pix, Xs, Xs2)
+    put(ms & (ibs == 0), 2, pix, Xs2, Xs3)
+
+    # north pole cap-closers (ring 1: pixels 0..3)
+    tri[0, 0] = (0, 2, 3)
+    tri[1, 0] = -1
+    tri[2, 0] = (2, 0, 1)
+    tri[3, 0] = -1
+    # reference only emits the two closers for ring-1 pixels; clear any strip
+    # entries the cap formulas would not produce
+    tri[0, 1:] = -1
+    tri[1, :] = -1
+    tri[2, 1:] = -1
+    tri[3, :] = -1
+
+    # south pole cap-closers appended at the pixels' next free slot
+    last = ringnum == 4 * nside - 1
+    for p, t in ((npix - 1, (npix - 1, npix - 3, npix - 4)),
+                 (npix - 3, (npix - 3, npix - 2, npix - 1))):
+        slot = int(np.sum(tri[p, :, 0] >= 0))
+        tri[p, slot] = t
+    del last
+    return tri

@@ -260,10 +260,9 @@ class InterpTables:
         self.npix = int(hp.order2npix(order))
 
 
-def _ring_geo_closed(ir, nside: int, npix: int, fdtype):
-    """Closed-form per-ring geometry for 1-indexed ring numbers ir: (first
-    pixel, pixels in ring, azimuth shift in pixels, theta) — the RingTable
-    formulas as vector arithmetic instead of table gathers."""
+def _ring_layout(ir, nside: int, npix: int):
+    """Closed-form RingTable entries for 1-indexed ring numbers ir, in ir's
+    integer dtype: (first pixel, pixels in ring, shifted flag)."""
     north = ir < nside
     south = ir > 3 * nside
     isouth = 4 * nside - ir
@@ -274,7 +273,18 @@ def _ring_geo_closed(ir, nside: int, npix: int, fdtype):
         north, 2 * ir * (ir - 1),
         torch.where(south, npix - 2 * isouth * (isouth + 1),
                     ncap + (ir - nside) * (4 * nside)))
-    shift = (north | south | (((ir + nside) & 1) == 0)).to(fdtype) * 0.5
+    return sp, nr, north | south | (((ir + nside) & 1) == 0)
+
+
+def _ring_geo_closed(ir, nside: int, npix: int, fdtype):
+    """Closed-form per-ring geometry for 1-indexed ring numbers ir: (first
+    pixel, pixels in ring, azimuth shift in pixels, theta) — the RingTable
+    formulas as vector arithmetic instead of table gathers."""
+    sp, nr, shifted = _ring_layout(ir, nside, npix)
+    north = ir < nside
+    south = ir > 3 * nside
+    isouth = 4 * nside - ir
+    shift = shifted.to(fdtype) * 0.5
     irf = ir.to(fdtype)
     isf = isouth.to(fdtype)
     # caps: theta = 2 asin(ir sqrt(1/(6 nside^2))) — the cancellation-free
@@ -384,3 +394,145 @@ def get_interpol(tab: InterpTables, theta, phi):
     (the deposits' scatter-adds take one column per tap)."""
     pix, wgt = get_interpol_soa(tab, theta, phi)
     return torch.stack(pix, dim=-1), torch.stack(wgt, dim=-1)
+
+
+def _ring_above(theta, nside: int):
+    """The ring just north of colatitude theta (0 above the first ring),
+    the reference get_interpol's ring_above."""
+    z = torch.cos(theta)
+    az = z.abs()
+    ir_cap = (nside * torch.sqrt(torch.clamp(3.0 * (1.0 - az), min=0.0))
+              ).to(torch.int32)
+    ir_eq = (nside * (2.0 - 1.5 * z)).to(torch.int32)
+    return torch.where(az <= 2.0 / 3.0, ir_eq,
+                       torch.where(z > 0, ir_cap, 4 * nside - ir_cap - 1))
+
+
+def triangles_ring(tab: InterpTables, pix):
+    """Triangulation of the pixel-centre grid: RING pixels [...] -> the
+    RING vertices of their triangles [..., 4, 3] int32, -1-padded (the
+    reference's per-pixel ring2triangle, healpix_utils.c:1273-1423; equal to
+    the host table healpix.core.build_triangles).  A pixel's ring and the
+    ring above it come from ring_decode_pix and _ring_layout, int32 (exact
+    through order 13); every modulus is Python's (the sign of the divisor),
+    as in the host table and in JAX."""
+    nside = tab.nside
+    npix = tab.npix
+    nrings = 4 * nside - 1
+    i32 = torch.int32
+    pix = pix.to(i32)
+    ringnum, ip = (t.to(i32) for t in ring_decode_pix(pix, nside, npix))
+    sp, Np, sh = _ring_layout(ringnum, nside, npix)
+    sh = sh.to(i32)
+    ringA = ringnum - 1
+    spA, NpA, _ = _ring_layout(torch.clamp(ringA, 1, nrings), nside, npix)
+
+    def mod(a, b):
+        return torch.remainder(a, b)
+
+    def fdiv(a, b):
+        return torch.div(a, b, rounding_mode="floor")
+
+    right = mod(ip + 1, Np) + sp
+    shape = pix.shape
+    neg = torch.full(shape, -1, dtype=i32, device=pix.device)
+
+    # north polar cap rings 2..nside
+    rn = torch.clamp(ringnum, min=1)
+    ib = mod(ip, rn)
+    bnum = fdiv(ip, rn)
+    interior = ib < ringnum - 1
+    X_int = mod(ib + bnum * ringA, NpA) + spA
+    X_cor = mod(ib + bnum * ringA - 1, NpA) + spA
+    Xn = torch.where(interior, X_int, X_cor)
+    X2n = mod(X_int - spA - 1, NpA) + spA
+
+    # equatorial rings nside+1 .. 3*nside
+    ibe = mod(ip, nside)
+    bne = fdiv(ip, nside)
+    above_nr = torch.where(ringA > nside, nside, ringA)
+    Xe = mod(sh + ibe + bne * above_nr, NpA) + spA
+    Xe2 = mod(Xe - spA - 1, NpA) + spA
+
+    # south polar cap rings 3*nside+1 .. 4*nside-1
+    nring = torch.clamp(4 * nside - ringnum, min=1)
+    nringA = torch.clamp(4 * nside - ringA, min=1)
+    ibs = mod(ip, nring)
+    bns = fdiv(ip, nring)
+    Xs = mod(sh + ibs + bns * nringA, NpA) + spA
+    Xs2 = mod(Xs - spA - 1, NpA) + spA
+    Xs3 = mod(Xs2 - spA - 1, NpA) + spA
+
+    m_n = (ringnum >= 2) & (ringnum <= nside)
+    m_e = (ringnum > nside) & (ringnum <= 3 * nside)
+    m_s = ringnum > 3 * nside
+
+    def tri_row(ok, b, c):
+        return torch.stack([torch.where(ok, pix, neg),
+                            torch.where(ok, b, neg),
+                            torch.where(ok, c, neg)], dim=-1)
+
+    tri = torch.stack([
+        # slot 0: (pix, right, X)
+        tri_row(m_n | m_e | m_s, right,
+                torch.where(m_n, Xn, torch.where(m_e, Xe, Xs))),
+        # slot 1: (pix, X, X2)
+        tri_row((m_n & interior) | m_e | m_s,
+                torch.where(m_n, X_int, torch.where(m_e, Xe, Xs)),
+                torch.where(m_n, X2n, torch.where(m_e, Xe2, Xs2))),
+        # slot 2: the south corner closer
+        tri_row(m_s & (ibs == 0), Xs2, Xs3),
+        neg[..., None].expand(shape + (3,)),
+    ], dim=-2)  # [..., 4, 3]
+
+    # ring-1 cap closers (pixels 0..3): exactly two triangles in all
+    r1 = torch.stack([
+        torch.where(pix == 0, 0, torch.where(pix == 2, 2, -1)),
+        torch.where(pix == 0, 2, torch.where(pix == 2, 0, -1)),
+        torch.where(pix == 0, 3, torch.where(pix == 2, 1, -1)),
+    ], dim=-1).to(i32)
+    r1tri = torch.cat([r1[..., None, :],
+                       neg[..., None, None].expand(shape + (3, 3))], dim=-2)
+    tri = torch.where((ringnum == 1)[..., None, None], r1tri, tri)
+
+    # south pole closers in slot 3 of the last ring's two pixels
+    last1 = pix == npix - 1
+    last3 = pix == npix - 3
+    close = torch.stack([
+        torch.where(last1, npix - 1, torch.where(last3, npix - 3, -1)),
+        torch.where(last1, npix - 3, torch.where(last3, npix - 2, -1)),
+        torch.where(last1, npix - 4, torch.where(last3, npix - 1, -1)),
+    ], dim=-1).to(i32)
+    slot3 = torch.where((last1 | last3)[..., None], close, tri[..., 3, :])
+    return torch.cat([tri[..., :3, :], slot3[..., None, :]], dim=-2)
+
+
+def ring_window(tab: InterpTables, theta, phi, nring_w: int, nphi_w: int):
+    """Candidate RING pixels in a (2 nring_w) x (2 nphi_w + 2) window
+    around (theta, phi): rows are consecutive rings bracketing theta,
+    columns the pixels nearest phi in each ring (the device analog of the
+    galaxy search's candidate prep), from the closed-form ring layout.
+    int32, floor and modulus with Python's semantics, as in JAX.
+
+    Returns (pix [..., R, C] int32, valid [..., R, C] bool)."""
+    nside = tab.nside
+    nrings = 4 * nside - 1
+    i32 = torch.int32
+    dev = theta.device
+    ring_above = _ring_above(theta, nside)
+    drs = torch.arange(-nring_w + 1, nring_w + 1, dtype=i32, device=dev)
+    ir = ring_above[..., None] + drs  # [..., R] 1-based
+    rvalid = (ir >= 1) & (ir <= nrings)
+    sp, nr, shifted = _ring_layout(torch.clamp(ir, 1, nrings), nside,
+                                   tab.npix)
+    shift = shifted.to(theta.dtype) * 0.5
+    # a true division (a Python scalar over a tensor is reciprocal-times)
+    dphi = torch.div(2.0 * math.pi, nr.to(theta.dtype))
+    i0 = torch.floor(phi[..., None] / dphi - shift).to(i32) - nphi_w
+
+    cols = torch.arange(2 * nphi_w + 2, dtype=i32, device=dev)
+    ic = torch.remainder(i0[..., None] + cols, nr[..., None])  # [..., R, C]
+    pixw = sp[..., None] + ic
+    # duplicate columns when the window wraps a small polar ring
+    cvalid = cols < nr[..., None]
+    return pixw, rvalid[..., None] & cvalid

@@ -27,6 +27,7 @@ from .healpix import torchhp
 from .io import fits
 
 DRIVER_MAP_ORDER = 11  # reference raytrace.c map_n_side = 2048
+CMB_MAP_ORDER = 12     # propagate_to_cmb_from_restart.c order-12 maps
 HUBBLE_DISTANCE = 2997.92458  # Mpc/h
 
 

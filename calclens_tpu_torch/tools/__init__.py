@@ -3,13 +3,15 @@
     python -m calclens_tpu_torch.tools.roofline_legendre [--order 12]
     python -m calclens_tpu_torch.tools.exp_gather
     python -m calclens_tpu_torch.tools.legendre_variants [--order 12]
+    python -m calclens_tpu_torch.tools.bench_gals [--device cpu]
 
 `roofline_legendre` measures the ceilings of the Legendre sweep (P1) and
 each Legendre kernel's share of them; `exp_gather` measures gathers from a
 table held on chip (P2-P4) beside torch's own `tab[idx]`;
 `legendre_variants` times design variants of K1-K4 built from edited
-copies of their sources.  All need a CUDA device: a measurement that finds
-none fails.  Nothing is compiled or
+copies of their sources; `bench_gals` times the galaxy image search.  All
+need a CUDA device: a measurement that finds none fails (`bench_gals
+--device cpu` runs on the CPU, for tests).  Nothing is compiled or
 launched when these modules are imported.
 """
 

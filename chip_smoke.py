@@ -102,7 +102,29 @@ of which must pass:
  11. CUDA vs CPU traces of the new paths at SHTOrder 7 / rayOrder 6 (3
      planes each, 5e-4, the same ray pixels, the launches per plane
      exact): SPH, CIC in a 40 x 40 degree box, and precomputed mass-map
-     planes.
+     planes;
+ 12. the galaxy image search and the CMB mode: Raytracer.run at the
+     headline shape over 8 planes with Profile on, each plane's 2^21
+     particles through load_particles, GalsFileList naming 10^6 sources
+     at 300-1900 Mpc/h (written by the port's write_source_gals) and
+     GalOutputName set: K1 and K2 launched once per plane and nothing
+     else, every source imaged at least once (the catalogs read back), the
+     sources with more than one image, each plane's GRIDSEARCH and step
+     times and the peak memory; the search alone on the run's rays before
+     plane 4, 10^6 sources in its bin (tools/bench_gals.py's shape):
+     find_images_device (its dispatch under
+     torch.cuda.set_sync_debug_mode("error"), so a host sync there fails)
+     and find_images_born, in gals/s; 16384 of those sources searched on
+     the same float32 buffer on the card, on the CPU and in float64 on the
+     card (index multisets equal; card vs CPU, positions within 1e-3 of a
+     ray pixel off the polar caps, positions and A within twice the
+     float32 search's distance from float64); a legacy restart of the run's final rays loaded by a new
+     Raytracer and run_cmb_mode at CMBMapOrder 10 (12,582,912 rays counted,
+     their radii chi(1100) within 1e-6, the three files read back); at
+     SHTOrder 7 / rayOrder 6, Raytracer.run with 20,000 sources on the CPU
+     and on the card (per plane the imaged sources equal but for at most 1
+     in 10^3, each printed) and the CMB mode from one legacy restart on
+     both (5e-4).
 
 It prints the card's line, a JSON line {"kernels": [...]} with each
 kernel's launches on its path's run, its error against its twin, its
@@ -114,6 +136,7 @@ or there is no GPU.
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -204,6 +227,40 @@ SLOTS_PER_ELEMENT = {"legendre_analysis": 6, "legendre_analysis_dot": 4,
                      "legendre_synth": 12, "legendre_synth_phi": 6,
                      "legendre_synth_vpu": 19, "legendre_synth_vpu_phi": 6}
 SLOT_RATE = 132 * 4 * 32 * 1980e6  # thread-instructions/s
+
+
+# phase 12, the galaxy image search and the CMB mode: (SHTOrder, rayOrder)
+# and particles per plane of its headline run and of its card-vs-CPU runs;
+# sources of the headline run's catalog and of the search alone, of the
+# CPU-vs-card search on one buffer, and of the order-7/6 runs
+GALS_HEAD_ORDERS = (12, 10)
+GALS_HEAD_PARTICLES = 1 << 21
+GALS_TRACE_ORDERS = (7, 6)
+GALS_HEADLINE = 10**6
+GALS_CPU_CHECK = 16384
+GALS_TRACE = 20000
+# the headline rays are snapshotted before this plane's step for the
+# search alone (sources in its radial bin)
+GALS_SEARCH_PLANE = 4
+# the search on one float32 buffer, card vs CPU: image positions within
+# this share of a ray pixel (the dedup's own tolerance) outside the polar
+# caps (|dec| > GALS_POLAR_DEC), where float32 arccos and the parallel
+# transport's 1 - z lose their digits (there a float32 search lies 3.4e-3
+# of a pixel and 4.9e-3 of max |A| from a float64 search of its buffer, on
+# an H100); and everywhere within GALS_F64_FACTOR times the card's own
+# float32 distance from that float64 search: the CPU and the card round
+# transcendentals their own ways, and float32 A lies ~2e-5 of max |A| from
+# float64 off the caps too (both printed by this phase)
+GALS_POS_BOUND = 1e-3
+GALS_POLAR_DEC = 80.0
+GALS_F64_FACTOR = 2.0
+# the order-7/6 run with galaxies, card vs CPU: the traces lie up to
+# TRACE_BOUND apart, so a source next to a triangle edge may be imaged on
+# one device and not the other; at most this share of a plane's sources
+GALS_SET_SLACK = 1e-3
+# the CMB radii: float32 rays against chi(1100)
+CMB_RADIUS_BOUND = 1e-6
+CMB_MAP_ORDER = 10
 
 
 class SmokeFailure(Exception):
@@ -1369,6 +1426,390 @@ def report_headline_path(label, h, scheme):
                     for c in h["plane_counts"]))
 
 
+def write_catalog(stem, n, seed, rmin, rmax):
+    """n sources in random directions at radii uniform in [rmin, rmax],
+    written by the port's write_source_gals as <stem>.fit and listed in
+    <stem>.txt.  Returns (list path, positions)."""
+    from calclens_tpu_torch.gals import io as galsio
+
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(n, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    pos = v * rng.uniform(rmin, rmax, (n, 1))
+    galsio.write_source_gals(f"{stem}.fit", pos)
+    with open(f"{stem}.txt", "w") as fp:
+        fp.write(f"{stem}.fit\n")
+    return f"{stem}.txt", pos
+
+
+def gals_run(device, out, sht_order, ray_order, ngals, particles,
+             profile=False, counted=False):
+    """Raytracer.run with GalsFileList (ngals sources at 300-1900 Mpc/h,
+    seed 31) and GalOutputName over 8 planes, f32, each plane's particles
+    through load_particles: `particles(cfg, cosmo, p)`.  Returns the
+    Raytracer, the launches of the run, those of each plane, the rays
+    before plane GALS_SEARCH_PLANE's step (the step never writes into
+    them), its seconds and the peak device memory."""
+    import torch
+    from calclens_tpu_torch import _ext
+    from calclens_tpu_torch.config import RayTraceConfig
+    from calclens_tpu_torch.driver import Raytracer
+
+    os.makedirs(out, exist_ok=True)
+    glist, _ = write_catalog(f"{out}/sources", ngals, 31, 300.0, 1900.0)
+    cfg = RayTraceConfig(OmegaM=0.3, maxComvDistance=2000.0, NumLensPlanes=8,
+                         SHTOrder=sht_order, rayOrder=ray_order,
+                         bundleOrder=3, Precision="f32", Profile=profile,
+                         GalsFileList=glist, GalOutputName="gal_",
+                         OutputPath=f"{out}/run").finalize()
+    gc.collect()
+    rt = Raytracer(cfg, device=device)
+    rt.load_particles = lambda p: particles(cfg, rt.cosmo, p)
+    plane_counts, snap = [], {}
+    step = rt.step
+
+    def counted_step(p, *a, **k):
+        if p == GALS_SEARCH_PLANE:
+            snap["rays"] = rt.rays_packed
+        before = dict(_ext.launches)
+        out_ = step(p, *a, **k)
+        plane_counts.append({k_: v - before[k_]
+                             for k_, v in _ext.launches.items()})
+        return out_
+
+    rt.step = counted_step
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _ext.reset_launches()
+    t0 = time.perf_counter()
+    rt.run(progress=False)
+    run_s = time.perf_counter() - t0
+    launches = dict(_ext.launches)
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    check(bool(torch.isfinite(rt.rays_packed).all()),
+          f"run() with galaxies on {device}: non-finite rays")
+    return rt, launches, plane_counts, snap["rays"], run_s, peak
+
+
+def plane_images(rt, num_planes=8):
+    """plane -> the image rows that run() wrote for it."""
+    from calclens_tpu_torch.gals import io as galsio
+
+    out = {}
+    for p in range(num_planes):
+        fn = os.path.join(rt.cfg.OutputPath, f"gal_{p:04d}.0000.fit")
+        if os.path.exists(fn):
+            out[p] = galsio.read_image_gals(fn)
+    return out
+
+
+def search_card_vs_cpu(cfg, rays, gal_pos, wpm1, wpm2):
+    """find_images_device on the same float32 buffer on the card and on
+    the CPU, and on the buffer in float64 on the card: the three index
+    multisets equal; card vs CPU, positions within GALS_POS_BOUND of a ray
+    pixel off the polar caps, and positions and A within GALS_F64_FACTOR
+    times the card's float32 distance from float64.  Returns the
+    distances: card vs CPU (positions off the caps, positions, A), float32
+    vs float64 (positions, A), A off the caps card vs CPU and float32 vs
+    float64, in ray pixels and of max |A|."""
+    from calclens_tpu_torch.gals import gridsearch as gs
+    from calclens_tpu_torch.healpix import core as hp
+    from calclens_tpu_torch.healpix import torchhp
+
+    tab = torchhp.InterpTables(cfg.rayOrder)
+    idx = np.arange(len(gal_pos))
+    runs = [gs.find_images_device(cfg, tab, r, gal_pos, idx, wpm1, wpm2)
+            for r in (rays, rays.cpu(), rays.double())]
+    orders = [np.lexsort((x.ra, x.index)) for x in runs]
+    got, ref, exact = ([getattr(x, k)[o] for k in ("index", "ra", "dec", "A")]
+                       for x, o in zip(runs, orders))
+    check(np.array_equal(got[0], ref[0]) and np.array_equal(got[0], exact[0]),
+          f"search card vs CPU vs float64: {len(got[0])}, {len(ref[0])} and "
+          f"{len(exact[0])} images, or their source indices differ")
+    pix = np.sqrt(4.0 * np.pi / hp.order2npix(cfg.rayOrder))
+    amax = float(np.abs(exact[3]).max())
+    cap = np.abs(exact[2]) > GALS_POLAR_DEC
+
+    def dist(a, b):
+        d = np.linalg.norm(hp.radec2vec(a[1], a[2])
+                           - hp.radec2vec(b[1], b[2]), axis=1) / pix
+        da = np.abs(a[3] - b[3]).reshape(len(d), -1).max(axis=1) / amax
+        return d, float(da.max()), float(da[~cap].max())
+
+    (d, a_err, a_off), (d64, a64, a64_off) = (dist(got, ref),
+                                              dist(got, exact))
+    off = float(d[~cap].max())
+    check(off < GALS_POS_BOUND and d.max() <= GALS_F64_FACTOR * d64.max()
+          and a_err <= GALS_F64_FACTOR * a64,
+          f"search card vs CPU: positions {off:.3e} of a pixel off the caps "
+          f"(bound {GALS_POS_BOUND:g}), {d.max():.3e} with them, A "
+          f"{a_err:.3e} of max |A|; float32 vs float64 {d64.max():.3e} and "
+          f"{a64:.3e} (factor {GALS_F64_FACTOR:g})")
+    return off, float(d.max()), a_err, float(d64.max()), a64, a_off, a64_off
+
+
+def search_alone(cfg, rt, rays, ngals):
+    """The search alone on the headline rays before plane
+    GALS_SEARCH_PLANE, ngals sources in its bin (tools/bench_gals.py's
+    shape): the device search (its dispatch under
+    torch.cuda.set_sync_debug_mode("error"): a host sync there raises),
+    then find_images_born, each timed after one warm-up chunk.  Returns
+    seconds, images and dispatch seconds."""
+    import torch
+    from calclens_tpu_torch.driver import plane_params
+    from calclens_tpu_torch.gals import gridsearch as gs
+    from calclens_tpu_torch.healpix import torchhp
+
+    pp = plane_params(cfg, rt.cosmo, GALS_SEARCH_PLANE)
+    binL = cfg.maxComvDistance / cfg.NumLensPlanes
+    rng = np.random.default_rng(5)
+    v = rng.normal(size=(ngals, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    pos = v * rng.uniform(GALS_SEARCH_PLANE * binL + 1.0,
+                          (GALS_SEARCH_PLANE + 1) * binL - 1.0, (ngals, 1))
+    idx = np.arange(ngals)
+    tab = torchhp.InterpTables(cfg.rayOrder)
+    args = (pp.rad, pp.rad_minus1)
+    gs.find_images_device(cfg, tab, rays, pos[:16384], idx[:16384], *args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        collect = gs.find_images_device_async(cfg, tab, rays, pos, idx,
+                                              *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    dispatch_s = time.perf_counter() - t0
+    dev = collect()
+    dev_s = time.perf_counter() - t0
+    gs.find_images_born(cfg, tab, rays, pos[:16384], idx[:16384], *args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    born = gs.find_images_born(cfg, tab, rays, pos, idx, *args)
+    born_s = time.perf_counter() - t0
+    check(len(born.index) == ngals, "find_images_born lost sources")
+    check(np.array_equal(np.unique(dev.index), idx),
+          f"search alone: {ngals - len(np.unique(dev.index))} sources "
+          f"without an image")
+    return dict(dev_s=dev_s, dispatch_s=dispatch_s, born_s=born_s,
+                images=len(dev.index), pos=pos)
+
+
+def run_cmb(device, restart_dir, cfg_kw, out):
+    """A new Raytracer loads the legacy restart in restart_dir and runs
+    run_cmb_mode with CMBMapOrder CMB_MAP_ORDER into out: the three files,
+    read back.  Returns (seconds, rays at the CMB on the host, the ray map
+    table, the convergence, the legacy file's meta)."""
+    import torch
+    from calclens_tpu_torch.config import RayTraceConfig
+    from calclens_tpu_torch.driver import Raytracer
+    from calclens_tpu_torch.io import fits
+    from calclens_tpu_torch.io import legacy_restart as lr
+    from calclens_tpu_torch.raytrace import run_cmb_mode
+
+    cfg = RayTraceConfig(OmegaM=0.3, maxComvDistance=2000.0, NumLensPlanes=8,
+                         bundleOrder=3, Precision="f32", CMBLensing=1,
+                         OutputPath=out, **cfg_kw).finalize()
+    gc.collect()
+    t0 = time.perf_counter()
+    rt = Raytracer(cfg, device=device)
+    rt.load_legacy_restart(restart_dir)
+    written = run_cmb_mode(rt)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    nside = 1 << cfg.CMBMapOrder
+    names = sorted(os.path.basename(w) for w in written)
+    check(names == sorted(["restart_rays_at_cmb.0",
+                           f"CMB_convergence_{nside}.fits",
+                           f"CMB_rays_{nside}.fits"]),
+          f"run_cmb_mode wrote {names}")
+    meta, _, rays, _ = lr.read_legacy_restart_file(
+        os.path.join(out, "restart_rays_at_cmb.0"))
+    check(len(rays) == rt.rays_packed.shape[1],
+          "restart_rays_at_cmb.0 does not read back")
+    rec = fits.read_fits(os.path.join(out, f"CMB_rays_{nside}.fits"))[1][1]
+    sig = fits.read_fits(os.path.join(
+        out, f"CMB_convergence_{nside}.fits"))[1][1]["SIGNAL"]
+    check(len(rec) == len(sig) == 12 * nside * nside
+          and bool(np.isfinite(sig).all()), "CMB maps do not read back")
+    return secs, rt.rays_packed.cpu(), rec, sig, meta
+
+
+def gals_cmb_phase():
+    """Phase 12: Raytracer.run with galaxies at the headline shape (the
+    launches per plane, every source imaged, the GRIDSEARCH column, peak
+    memory, the catalogs read back); the search alone on its rays; the
+    search card vs CPU on one buffer; the CMB mode at full width from a
+    legacy restart of the run's final rays; the same run and CMB mode at
+    SHTOrder 7 / rayOrder 6, card vs CPU."""
+    import tempfile
+
+    import torch
+    from calclens_tpu_torch import maps as tmaps
+    from calclens_tpu_torch.driver import plane_params
+    from calclens_tpu_torch.gals import concat
+    from calclens_tpu_torch.io import legacy_restart as lr
+
+    res = {}
+    unit, mass = seeded_particles(GALS_HEAD_PARTICLES, 1.0, 12)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rt, launches, plane_counts, rays4, run_s, peak = gals_run(
+            "cuda", f"{tmp}/head", *GALS_HEAD_ORDERS, GALS_HEADLINE,
+            lambda cfg, cosmo, p: (unit * plane_params(cfg, cosmo, p).rad,
+                                   mass),
+            profile=True)
+        check_plane_launches("headline run() with galaxies", plane_counts,
+                             "NGP")
+        cfg = rt.cfg
+        imgs = concat.read_all_images(cfg.OutputPath, "gal_", 8)
+        per_source = np.bincount(imgs["index"], minlength=GALS_HEADLINE)
+        missing = np.flatnonzero(per_source == 0)
+        check(len(missing) == 0, f"headline run(): {len(missing)} sources "
+              f"without an image, e.g. {missing[:10]}")
+        rows = dict(rt.phase_rows)
+        res["run"] = dict(
+            seconds=run_s, peak=peak, launches=launches,
+            steps=dict(rt.timings), images=len(imgs),
+            multiple=int((per_source > 1).sum()),
+            gridsearch={p: rows[p].get("GRIDSEARCH", 0.0) for p in rows},
+            rows=rows, wall_s=time.perf_counter() - t0)
+
+        res["alone"] = search_alone(cfg, rt, rays4, GALS_HEADLINE)
+        pp = plane_params(cfg, rt.cosmo, GALS_SEARCH_PLANE)
+        res["cpu"] = search_card_vs_cpu(
+            cfg, rays4, res["alone"]["pos"][:GALS_CPU_CHECK], pp.rad,
+            pp.rad_minus1)
+        del rays4
+
+        # the CMB mode at full width from the run's final rays
+        t0 = time.perf_counter()
+        lr.write_legacy_restart(tmp, cfg, rt.rays_packed.cpu().numpy(),
+                                rt.ray_nest, rt.current_plane)
+        write_s = time.perf_counter() - t0
+        del rt
+        torch.cuda.empty_cache()
+        sht, ray = GALS_HEAD_ORDERS
+        secs, crays, rec, sig, meta = run_cmb(
+            "cuda", tmp, dict(SHTOrder=sht, rayOrder=ray,
+                              CMBMapOrder=min(CMB_MAP_ORDER, ray)),
+            f"{tmp}/cmb")
+        w_cmb = float(tmaps.comoving_distance_2f1(1100.0, 0.3))
+        rad_err = float(np.abs(np.linalg.norm(
+            crays[0:3].double().numpy(), axis=0) / w_cmb - 1.0).max())
+        check(int(rec["N_RAYS"].sum()) == 12 * 4**ray and
+              rad_err < CMB_RADIUS_BOUND and meta["CurrentPlaneNum"] == 8,
+              f"CMB at full width: {int(rec['N_RAYS'].sum())} rays, radii "
+              f"{rad_err:.3e} off chi(1100)")
+        res["cmb"] = dict(seconds=secs, write_s=write_s, rad_err=rad_err,
+                          kappa_rms=float(np.sqrt(np.mean(sig ** 2))))
+        del crays
+        torch.cuda.empty_cache()
+
+        # SHTOrder 7 / rayOrder 6: run() with galaxies and the CMB mode,
+        # card vs CPU
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            rt, launches, plane_counts, _, run_s, _ = gals_run(
+                dev, f"{tmp}/trace_{dev}", *GALS_TRACE_ORDERS, GALS_TRACE,
+                lambda cfg, cosmo, p: pixel_centre_particles(
+                    cfg, cosmo, p, 20000, 100 + p))
+            runs[dev] = (rt, plane_images(rt))
+        check_plane_launches("order-7/6 run() with galaxies", plane_counts,
+                             "NGP")
+        diffs = {}
+        for p, ref in runs["cpu"][1].items():
+            got = runs["cuda"][1].get(p)
+            check(got is not None, f"plane {p}: no catalog on the card")
+            a, b = set(got["index"].tolist()), set(ref["index"].tolist())
+            d = sorted(a ^ b)
+            diffs[p] = (len(b), d)
+            check(len(d) <= GALS_SET_SLACK * len(b),
+                  f"order-7/6 run() plane {p}: {len(d)} of {len(b)} "
+                  f"sources imaged on one device only: {d}")
+        res["trace_sets"] = diffs
+        rt_cpu = runs["cpu"][0]
+        lr.write_legacy_restart(f"{tmp}/trace_cpu", rt_cpu.cfg,
+                                rt_cpu.rays_packed.numpy(), rt_cpu.ray_nest,
+                                rt_cpu.current_plane)
+        del runs
+        sht, ray = GALS_TRACE_ORDERS
+        cmb = {dev: run_cmb(dev, f"{tmp}/trace_cpu",
+                            dict(SHTOrder=sht, rayOrder=ray,
+                                 CMBMapOrder=ray - 2),
+                            f"{tmp}/cmb7_{dev}") for dev in ("cpu", "cuda")}
+        (_, rg, mg, sg, _), (_, rc, mc, sc, _) = cmb["cuda"], cmb["cpu"]
+        err = grouped_row_err(rg, rc)
+        check(np.array_equal(mg["N_RAYS"], mc["N_RAYS"]),
+              "CMB order 7/6: ray counts differ between card and CPU")
+        amax = max(float(np.abs(mc[k]).max())
+                   for k in ("A00", "A01", "A10", "A11"))
+        for k, scale in (("A00", amax), ("A01", amax), ("A10", amax),
+                         ("A11", amax), ("ra", float(np.abs(mc["ra"]).max())),
+                         ("dec", float(np.abs(mc["dec"]).max()))):
+            err = max(err, float(np.abs(mg[k] - mc[k]).max()) / scale)
+        err = max(err, float(np.abs(sg - sc).max()) / amax)
+        check(err < TRACE_BOUND, f"CMB order 7/6 card vs CPU: {err:.3e}")
+        res["cmb_trace_err"] = err
+    return res
+
+
+def report_gals_cmb(res, card):
+    r = res["run"]
+    sht, ray = GALS_HEAD_ORDERS
+    say(f"phase 12 ({card}): headline run() with galaxies, SHTOrder {sht} / "
+        f"rayOrder {ray} / {GALS_HEAD_PARTICLES} particles per plane f32, 8 "
+        f"planes, Profile on, {GALS_HEADLINE} sources at 300-1900 Mpc/h: "
+        f"run {r['seconds']:.2f} s ({r['wall_s']:.2f} s with the catalog "
+        f"written and read back), {r['images']} images, {r['multiple']} sources with more than "
+        f"one image, every source imaged; K1 and K2 once per plane "
+        f"({r['launches']['legendre_analysis']} and "
+        f"{r['launches']['legendre_synth']} in the run); peak "
+        f"{r['peak'] / 2**30:.2f} GiB")
+    for p, row in sorted(r["rows"].items()):
+        step = r["steps"][p]
+        say(f"  plane {p}: step {step:.4f} s, GRIDSEARCH "
+            f"{row.get('GRIDSEARCH', 0.0):.4f} s, "
+            + ", ".join(f"{k} {v:.4f}" for k, v in sorted(row.items())
+                        if k != "GRIDSEARCH"))
+    a = res["alone"]
+    say(f"phase 12 ({card}): the search alone on the headline rays before "
+        f"plane {GALS_SEARCH_PLANE}, {GALS_HEADLINE} sources in its bin: "
+        f"find_images_device {a['dev_s']:.3f} s = "
+        f"{GALS_HEADLINE / a['dev_s']:.0f} gals/s ({a['images']} images; "
+        f"its dispatch {a['dispatch_s']:.3f} s with no host sync), "
+        f"find_images_born {a['born_s']:.3f} s = "
+        f"{GALS_HEADLINE / a['born_s']:.0f} gals/s")
+    off, pos, a_err, pos64, a64, a_off, a64_off = res["cpu"]
+    say(f"phase 12: the search on one float32 buffer, card vs CPU, "
+        f"{GALS_CPU_CHECK} sources: index multisets equal (and equal to a "
+        f"float64 search's); positions {off:.3e} of a ray pixel for |dec| "
+        f"<= {GALS_POLAR_DEC:g} (bound {GALS_POS_BOUND:g}), {pos:.3e} "
+        f"with the caps, A {a_off:.3e} of max |A| for |dec| <= "
+        f"{GALS_POLAR_DEC:g}, {a_err:.3e} with the caps; the card's float32 "
+        f"vs float64: positions {pos64:.3e}, A {a64_off:.3e} and {a64:.3e} "
+        f"(bound {GALS_F64_FACTOR:g}x the whole-sky ones)")
+    c = res["cmb"]
+    say(f"phase 12 ({card}): CMB mode at full width from a legacy restart "
+        f"of the run's rays (written in {c['write_s']:.2f} s): "
+        f"load_legacy_restart + run_cmb_mode at CMBMapOrder "
+        f"{min(CMB_MAP_ORDER, ray)} {c['seconds']:.2f} s, {12 * 4**ray} "
+        f"rays at "
+        f"chi(1100) within {c['rad_err']:.3e} (bound "
+        f"{CMB_RADIUS_BOUND:g}), rms kappa {c['kappa_rms']:.4e}; three "
+        f"files read back")
+    sht, ray = GALS_TRACE_ORDERS
+    say(f"phase 12: order-{sht}/{ray} run() with galaxies ({GALS_TRACE} "
+        f"sources), card vs CPU, per plane "
+        "(sources imaged, on one device only): "
+        + "; ".join(f"{p}: {n}, {d}" for p, (n, d)
+                    in sorted(res["trace_sets"].items()))
+        + f"; CMB mode card vs CPU {res['cmb_trace_err']:.3e} (bound "
+        f"{TRACE_BOUND:g})")
+
+
 def main():
     import torch
 
@@ -1616,6 +2057,14 @@ def main():
             f"{nrays} rays on both; vacuum-mask pixels differing {vac_diff}")
     torch.cuda.empty_cache()
 
+    # 12. the galaxy image search and the CMB mode
+    t0 = time.perf_counter()
+    gals = gals_cmb_phase()
+    report_gals_cmb(gals, card)
+    say(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    gals_launches = gals["run"]["launches"]
+    torch.cuda.empty_cache()
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, **extra):
         b = bounds[name]
         return dict(name=name, route="cuda",
@@ -1632,11 +2081,13 @@ def main():
         entry("legendre_analysis", "legendre_analysis.cu",
               "calclens_tpu/sht/pallas_legendre.py:251",
               h["counts"]["legendre_analysis"], k1[1], k1[2], k1[3],
-              sph_launches=hs["counts"]["legendre_analysis"]),
+              sph_launches=hs["counts"]["legendre_analysis"],
+              gals_run_launches=gals_launches["legendre_analysis"]),
         entry("legendre_synth", "legendre_synth.cu",
               "calclens_tpu/sht/pallas_legendre_mx.py:124",
               h["counts"]["legendre_synth"], k2[1], k2[2], k2[3],
-              sph_launches=hs["counts"]["legendre_synth"]),
+              sph_launches=hs["counts"]["legendre_synth"],
+              gals_run_launches=gals_launches["legendre_synth"]),
         entry("legendre_synth_phi", "legendre_synth.cu",
               "calclens_tpu/sht/pallas_legendre_mx.py:124",
               phi_launches, v12["legendre_synth_phi"][1],

@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's host modules against the
 originals on the same inputs: config, cosmology, healpix.core (the part the
-port calls), the io readers (FITS ring weights and pixel windows, pixLC and
+port calls, the galaxy search's and the legacy restarts' helpers
+included), the io readers (FITS ring weights and pixel windows, pixLC and
 HDF5 lens planes) on files written by the JAX package's writers, the
 precomputed mass maps (io/healpix_maps), utils/profile and bench.py's
 reference constants (benchconst).
@@ -104,6 +105,41 @@ def test_healpix_core_angle_helpers_match_jax(order):
         np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(thp.pix2vec_nest(pix, order),
                                   jhp.pix2vec_nest(pix, order))
+
+
+@pytest.mark.parametrize("order", [2, 3, 5])
+def test_healpix_core_search_helpers_match_jax(order):
+    """The host helpers of the galaxy search and the legacy restarts:
+    ra/dec <-> angles and vectors, ang2pix_nest, vec2pix_nest, the host
+    get_interpol, neighbors_nest, build_triangles and nest2peano, on random
+    vectors, the poles and every pixel."""
+    rng = np.random.default_rng(10 + order)
+    vec = rng.normal(size=(3000, 3)) * rng.uniform(0.1, 900.0, (3000, 1))
+    vec[:3] = [[0.0, 0.0, 2.0], [0.0, 0.0, -1.0], [1.0, -1e-12, 0.0]]
+    ra, dec = jhp.vec2radec(vec)
+    for got, ref in zip(thp.vec2radec(vec), (ra, dec)):
+        np.testing.assert_array_equal(got, ref)
+    for got, ref in zip(thp.radec2ang(ra, dec), jhp.radec2ang(ra, dec)):
+        np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(thp.radec2vec(ra, dec),
+                                  jhp.radec2vec(ra, dec))
+    th, ph = jhp.vec2ang(vec)
+    np.testing.assert_array_equal(thp.ang2pix_nest(th, ph, order),
+                                  jhp.ang2pix_nest(th, ph, order))
+    np.testing.assert_array_equal(thp.vec2pix_nest(vec, order),
+                                  jhp.vec2pix_nest(vec, order))
+    np.testing.assert_array_equal(thp.vec2pix_ring(vec, order),
+                                  jhp.vec2pix_ring(vec, order))
+    for got, ref in zip(thp.get_interpol(th, ph, order),
+                        jhp.get_interpol(th, ph, order)):
+        np.testing.assert_array_equal(got, ref)
+    pix = np.arange(int(jhp.order2npix(order)))
+    np.testing.assert_array_equal(thp.neighbors_nest(pix, order),
+                                  jhp.neighbors_nest(pix, order))
+    np.testing.assert_array_equal(thp.build_triangles(order),
+                                  jhp.build_triangles(order))
+    np.testing.assert_array_equal(thp.nest2peano(pix, order),
+                                  jhp.nest2peano(pix, order))
 
 
 def test_healpix_maps_copy_reads_and_writes_as_jax(tmp_path):

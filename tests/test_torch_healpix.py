@@ -164,7 +164,9 @@ def test_import_port_leaves_jax_unloaded():
     """Importing every module of the port, and every module that
     chip_smoke.py and bench_torch.py import (at any depth), then stepping
     a plane with each deposit (NGP, CIC in a box, SPH) and a precomputed
-    mass-map plane, loads neither jax nor the JAX package calclens_tpu."""
+    mass-map plane, searching a galaxy's images (device and Born), and a
+    legacy restart carried to the CMB, loads neither jax nor the JAX
+    package calclens_tpu."""
     code = (
         "import ast, importlib, pkgutil, sys\n"
         "import calclens_tpu_torch\n"
@@ -203,9 +205,31 @@ def test_import_port_leaves_jax_unloaded():
         "                                  **kw).finalize(), device='cpu')\n"
         "    rt.init_rays()\n"
         "    rt.step(0, pos=[[40.0, 30.0, 0.0]], mass=[1e12])\n"
+        "import numpy as np\n"
+        "from calclens_tpu_torch.gals import gridsearch as gs\n"
+        "from calclens_tpu_torch.healpix import torchhp\n"
+        "from calclens_tpu_torch.io import legacy_restart as lr\n"
+        "from calclens_tpu_torch.tools import bench_gals\n"
+        "rt = Raytracer(cfg.finalize(), device='cpu')\n"
+        "rt.init_rays()\n"
+        "gal = np.array([[20.0, 5.0, 3.0]])\n"
+        "img = gs.find_images_device(rt.cfg, torchhp.InterpTables(2),\n"
+        "                            rt.rays_packed, gal, [0], 25.0, 0.0)\n"
+        "img = gs.find_images_born(rt.cfg, None, rt.rays_packed, gal, [0],\n"
+        "                          25.0, 0.0)\n"
+        "lr.write_legacy_restart(tmp, rt.cfg, rt.rays_packed.numpy(),\n"
+        "                        rt.ray_nest, 1)\n"
+        "rt.load_legacy_restart(tmp)\n"
+        "rt.propagate_to_cmb(map_order=1)\n"
         "for mod in ('calclens_tpu_torch.driver', 'calclens_tpu_torch.poisson',\n"
         "            'calclens_tpu_torch.ops.deposit',\n"
-        "            'calclens_tpu_torch.io.healpix_maps'):\n"
+        "            'calclens_tpu_torch.io.healpix_maps',\n"
+        "            'calclens_tpu_torch.gals.gridsearch',\n"
+        "            'calclens_tpu_torch.gals.io',\n"
+        "            'calclens_tpu_torch.gals.concat',\n"
+        "            'calclens_tpu_torch.rays.paratrans',\n"
+        "            'calclens_tpu_torch.io.legacy_restart',\n"
+        "            'calclens_tpu_torch.tools.bench_gals'):\n"
         "    assert mod in sys.modules, mod\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith(('jax.', 'jaxlib')) or\n"
