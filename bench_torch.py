@@ -11,13 +11,17 @@ bench.py's configuration, seed and protocol: one warm-up plane, then three
 timed planes whose particles were staged on the device before, each ending
 in torch.cuda.synchronize().  Shapes via env:
 BENCH_SHT_ORDER (default 12 -> NSIDE 4096), BENCH_RAY_ORDER (default 10 ->
-12.6M rays), BENCH_NPART (default 2^21 particles).  BENCH_MODE=MG raises
-NotImplementedError (its ROADMAP slice).  The metric name carries the
-scheme as bench.py's does (rays_per_sec_plane_step_sph_nside4096).
+12.6M rays), BENCH_NPART (default 2^21 particles), BENCH_BUNDLE_ORDER
+(default 3).  BENCH_MODE=MG benches the non-SHTONLY multigrid-refined step
+at its design point: SHTOrder 10, rayOrder 12 (201M rays), bundleOrder 6
+unless the variables above say otherwise, 10 fixed V-cycles, BENCH_DEPOSIT
+choosing the SHT map's deposit and the patch deposit as in the driver.  The
+metric name carries the mode and scheme as bench.py's does
+(rays_per_sec_plane_step_sph_nside4096, ..._mg_nside1024).
 
 After the timed planes, one more plane runs with Profile set: its phase row
-(DEPOSIT, SHTSOLVE, SHT, RAYPROP seconds, each up to a device sync) is
-printed as a JSON line.  The last line is one JSON object with bench.py's
+(DEPOSIT, SHTSOLVE, SHT, RAYPROP seconds, each up to a device sync; the MG
+step adds MGDEPOSIT, MGBC, MGSOLVE and MGINTERP) is printed as a JSON line.  The last line is one JSON object with bench.py's
 keys; vs_baseline compares with the same measured reference throughput
 (calclens_tpu_torch/benchconst.py).  It runs on the GPU and fails when
 there is none; --device cpu runs it on the CPU (for tests, at small
@@ -40,6 +44,7 @@ from calclens_tpu_torch.config import RayTraceConfig
 from calclens_tpu_torch.driver import Raytracer
 
 PROFILE_PHASES = ("DEPOSIT", "SHTSOLVE", "SHT", "RAYPROP")
+MG_PHASES = ("MGDEPOSIT", "MGBC", "MGSOLVE", "MGINTERP")
 
 
 def main(argv=None):
@@ -51,16 +56,14 @@ def main(argv=None):
               "bench on the CPU)", file=sys.stderr)
         return 1
     dev = torch.device(args.device)
-    sht_order = int(os.environ.get("BENCH_SHT_ORDER", 12))
-    ray_order = int(os.environ.get("BENCH_RAY_ORDER", 10))
+    mode = os.environ.get("BENCH_MODE", "SHT")
+    mg = mode == "MG"
+    sht_order = int(os.environ.get("BENCH_SHT_ORDER", 10 if mg else 12))
+    ray_order = int(os.environ.get("BENCH_RAY_ORDER", 12 if mg else 10))
+    bundle_order = int(os.environ.get("BENCH_BUNDLE_ORDER", 6 if mg else 3))
     npart = int(os.environ.get("BENCH_NPART", 1 << 21))
     deposit = os.environ.get("BENCH_DEPOSIT", "NGP")
-    mode = os.environ.get("BENCH_MODE", "SHT")
-    if mode == "MG":
-        raise NotImplementedError(
-            "bench_torch.py does not run BENCH_MODE=MG yet: it arrives with "
-            "ROADMAP Queue 1, slice 11")
-    if deposit not in ("NGP", "CIC", "SPH") or mode != "SHT":
+    if deposit not in ("NGP", "CIC", "SPH") or mode not in ("SHT", "MG"):
         raise ValueError(f"BENCH_DEPOSIT={deposit} BENCH_MODE={mode}")
 
     cfg = RayTraceConfig(
@@ -69,10 +72,10 @@ def main(argv=None):
         NumLensPlanes=8,
         SHTOrder=sht_order,
         rayOrder=ray_order,
-        bundleOrder=3,
+        bundleOrder=bundle_order,
         Precision="f32",
         DepositScheme=deposit,
-        SHTOnly=True,
+        SHTOnly=not mg,
     ).finalize()
 
     rt = Raytracer(cfg, device=dev)
@@ -106,16 +109,19 @@ def main(argv=None):
     rt.step(5, *staged[5])
     rt.cfg.Profile = False
     row = dict(rt.phase_rows)[5]
+    phases = PROFILE_PHASES + (MG_PHASES if mg else ())
     print(json.dumps({"profile_plane": 5, "step_s": rt.timings[-1][1],
-                      **{k.lower() + "_s": row[k] for k in PROFILE_PHASES},
-                      "synthesis_rings_mode": rt.plan.synthesis_rings_mode}))
+                      **{k.lower() + "_s": row[k] for k in phases},
+                      "synthesis_rings_mode": rt.plan.synthesis_rings_mode,
+                      **({"mg_cycles": rt.mg_cycles[5]} if mg else {})}))
 
     per_plane = float(np.median(times))
     rays_per_sec = nrays / per_plane
     ref_core_step = reference_core_step_seconds(sht_order, ray_order)
     ref_core_rays = nrays / ref_core_step
     ref_cluster_rays = ref_core_rays * REF_CLUSTER_CORES
-    tag = "" if deposit == "NGP" else f"_{deposit.lower()}"
+    tag = "" if (mode, deposit) == ("SHT", "NGP") else \
+        f"_{mode.lower()}" if deposit == "NGP" else f"_{deposit.lower()}"
     print(json.dumps({
         "metric": f"rays_per_sec_plane_step{tag}_nside{1 << sht_order}",
         "value": rays_per_sec,

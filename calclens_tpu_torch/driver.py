@@ -8,8 +8,11 @@ interpolation, propagation) is torch work on the Raytracer's device.  The
 CUDA kernels run when that device is a GPU; a CPU Raytracer runs their
 plain twins.  After each MapRedshiftList plane, run() writes the lens maps
 (maps.py); with GalsFileList it images the source galaxies of each plane's
-radial bin (gals/) before that plane's step.  propagate_to_cmb carries the
-rays on to the last-scattering surface (the CMB mode).
+radial bin (gals/) before that plane's step; with RayOutputName it writes
+the ray files (io/rayio.py) at the end; with DebugIO each plane's six field
+maps.  SHTOnly = 0 takes the multigrid-refined step (poisson.plane_step_mg,
+mgdriver.py).  propagate_to_cmb carries the rays on to the last-scattering
+surface (the CMB mode).
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ from .healpix import core as hp
 from .healpix import torchhp
 from .ops.deposit import MASS_SCALE, sph_sigma_grid
 from .poisson import (empty_plane_step_packed, plane_scalars,
-                      plane_step_density_packed, plane_step_packed)
+                      plane_step_density_packed, plane_step_mg,
+                      plane_step_packed)
 from .rays import soa
 from .sht.plan import SHTPlan
 from .utils.profile import Profiler, sync
@@ -97,17 +101,10 @@ def _full_sky(cfg) -> bool:
 
 def _check_supported(cfg):
     """Raise for configuration values that later ROADMAP slices bring."""
-    unsupported = [
-        (not cfg.SHTOnly, "SHTOnly = 0 (multigrid refinement)", 11),
-        (cfg.ThreeDPot, "ThreeDPot", 12),
-        (bool(cfg.RayOutputName), "RayOutputName", 10),
-        (cfg.DebugIO, "DebugIO (field-map dumps)", 10),
-    ]
-    for bad, what, slice_no in unsupported:
-        if bad:
-            raise NotImplementedError(
-                f"calclens_tpu_torch does not run {what} yet: it arrives with "
-                f"ROADMAP Queue 1, slice {slice_no}")
+    if cfg.ThreeDPot:
+        raise NotImplementedError(
+            "calclens_tpu_torch does not run ThreeDPot yet: it arrives with "
+            "ROADMAP Queue 1, slice 12")
 
 
 def sph_params(cfg: RayTraceConfig):
@@ -174,6 +171,11 @@ class Raytracer:
         self.current_plane = 0
         self.map_num = 0
         self.timings = []
+        # non-SHTONLY: the patch tables (built at the first plane) and the
+        # V-cycles each plane's patch solve took
+        self.mgsetup = None
+        self.mg_cycles = {}
+        self._nest_dev = (None, None)  # (_ray_nest, its device copy)
         # particle arrays are padded to bucket multiples (zero-mass entries)
         self.part_bucket = 4096
         # per-phase profiler (reference profile.c tags), filled in
@@ -357,10 +359,13 @@ class Raytracer:
     def step(self, plane_num: int, pos=None, mass=None,
              with_maps: bool = False):
         """One plane: Poisson solve at the plane radius, then propagate to
-        the next plane.  Returns the FieldMaps when with_maps.  With
-        UseHEALPixLensPlaneMaps the plane's mass map is read and pos, mass
-        are not used."""
+        the next plane.  Returns the FieldMaps when with_maps (DebugIO
+        with OutputPath sets it and writes them); the multigrid step
+        (SHTOnly = 0) returns none.  With UseHEALPixLensPlaneMaps the
+        plane's mass map is read and pos, mass are not used."""
         cfg = self.cfg
+        if cfg.DebugIO and cfg.OutputPath:
+            with_maps = True
         t0 = time.perf_counter()
         pp = plane_params(cfg, self.cosmo, plane_num)
         kw = {"phase": self._timed_phase(plane_num)} if cfg.Profile else {}
@@ -380,7 +385,16 @@ class Raytracer:
                     self._note_phase(plane_num, "PARTIO",
                                      time.perf_counter() - t0)
             maps = None
-            if len(pos):
+            if not cfg.SHTOnly and len(pos):
+                # multigrid-refined short-range force (non-SHTONLY mode)
+                pos_d, mass_d = self._pad_particles(pos, mass)
+                packed, cycles = plane_step_mg(
+                    self.plan, self.tab, self._mg_setup(), self.rays_packed,
+                    pos_d, mass_d, cfg.DepositScheme, cfg.BornApprx, scal,
+                    self.vacmask, float(cfg.MGConvFact), self.sph,
+                    self._ray_nest_dev(), **kw)
+                self.mg_cycles[plane_num] = cycles
+            elif len(pos):
                 pos_d, mass_d = self._pad_particles(pos, mass)
                 packed, maps = plane_step_packed(
                     self.plan, self.tab, self.rays_packed, pos_d, mass_d,
@@ -396,7 +410,39 @@ class Raytracer:
         self.rays_packed = packed
         self.current_plane = plane_num + 1
         self.timings.append((plane_num, time.perf_counter() - t0))
+        if maps is not None and cfg.DebugIO and cfg.OutputPath:
+            lm.write_debug_field_maps(maps, cfg.poissonOrder, cfg.OutputPath,
+                                      plane_num)
         return maps
+
+    def _ray_nest_dev(self):
+        """_ray_nest on the rays' device (None for full-sky rays in RING
+        order), uploaded once per array: the multigrid step reads each ray
+        chunk's cells from it without a host -> device copy."""
+        if self._ray_nest is None:
+            return None
+        if self._nest_dev[0] is not self._ray_nest:
+            self._nest_dev = (self._ray_nest, torch.as_tensor(
+                np.asarray(self._ray_nest, np.int64), device=self.device))
+        return self._nest_dev[1]
+
+    def _mg_setup(self):
+        """The patch tables of the non-SHTONLY step, built at the first
+        plane: patches of 4 cell widths, fine grid n = choose_patch_n(4
+        cell, cell / 16, 64, 256) (the JAX driver's sizing; 128 at
+        bundleOrder 6), the SPH sigmas when DepositScheme is SPH."""
+        if self.mgsetup is None:
+            from . import mgdriver
+            from .mg import choose_patch_n
+
+            cell = np.sqrt(4.0 * np.pi / hp.order2npix(self.cfg.bundleOrder))
+            n = choose_patch_n(4.0 * cell, cell / 16.0, n_min=64, n_max=256)
+            self.mgsetup = mgdriver.MGSetup(self.cfg.bundleOrder, n,
+                                            self.cfg.rayOrder,
+                                            dtype=self.dtype)
+            if self.sph is not None:
+                self.mgsetup.sph_sigmas = self.sph[:-3]
+        return self.mgsetup
 
     # ------------------------------------------------------------------
     def _phase_row(self, plane_num):
@@ -508,9 +554,11 @@ class Raytracer:
         (reference raytrace.c:131-371): before each plane's step the images
         of the sources in its radial bin (GalsFileList; written per plane
         when GalOutputName is set); after each MapRedshiftList plane the
-        lens maps (when OutputPath is set); npz restarts every
+        lens maps (when OutputPath is set), and the ray files before them
+        with MaxResMap and RayOutputName; npz restarts every
         WallTimeBetweenRestart seconds and before the WallTimeLimit; at the
-        end, the restart and the timing.0 rows."""
+        end, the ray files (RayOutputName), the restart and the timing.0
+        rows."""
         cfg = self.cfg
         if self.rays_packed is None:
             self.init_rays()
@@ -536,6 +584,8 @@ class Raytracer:
                       f"{self.timings[-1][1]:.3f}s", file=sys.stderr)
             if p in map_planes and cfg.OutputPath:
                 tio = time.perf_counter()
+                if cfg.MaxResMap and cfg.RayOutputName:
+                    self.write_rays()
                 self._write_map_outputs()
                 self.map_num += 1
                 if cfg.Profile:
@@ -553,9 +603,19 @@ class Raytracer:
                 if cfg.OutputPath:
                     self.save_restart()
                 return
+        if cfg.OutputPath and cfg.RayOutputName:
+            self.write_rays()
         if cfg.OutputPath:
             self.save_restart()
             self.write_timing()
+
+    def write_rays(self):
+        """The rays' files <RayOutputName><map_num>.<file> in OutputPath
+        (io/rayio.py), from the packed buffer on its device."""
+        from .io import rayio
+
+        return rayio.write_rays_sharded(self.cfg, self.rays_packed,
+                                        self._ray_nest, self.map_num)
 
     def _galaxy_search(self):
         """The source catalog's search, dispatched as calclens_tpu/

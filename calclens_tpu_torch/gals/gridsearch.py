@@ -30,10 +30,14 @@ mesh-sharded search of the JAX package is not ported here (ROADMAP Queue 1,
 slice 14).  Eager torch computes each value once, so the floor() knife
 edges that the JAX package pins with optimization barriers are decided
 once; the search is not compiled, which would bring that hazard back.
+The device search takes an image's theta as atan2(rho, z), not JAX's
+arccos(z / r): in float32 that keeps its polar images as close to a
+float64 search as JAX's or closer.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -416,7 +420,7 @@ def _search_images_chunk(tab, packed, topk, maxh, gvec, grad, tvec, pvec,
     iyh = iy.reshape(-1)[idx]
 
     ivec = gvec[gi] + ixh[:, None] * tvec[gi] + iyh[:, None] * pvec[gi]
-    theta, phi = torchhp.vec2ang(ivec)
+    theta, phi = _image_angles(ivec)
     pix4, wgt4 = torchhp.get_interpol(tab, theta, phi)
     cvec4 = torchhp.pix2vec_ring(pix4, tab.order, dtype)
     wgt4 = wgt4.to(dtype)
@@ -432,6 +436,16 @@ def _search_images_chunk(tab, packed, topk, maxh, gvec, grad, tvec, pvec,
     A_rd = torch.stack([Aimg[:, 1, 1], -Aimg[:, 1, 0],
                         -Aimg[:, 0, 1], Aimg[:, 0, 0]])
     return count, gi, torch.rad2deg(phi), 90.0 - torch.rad2deg(theta), A_rd
+
+
+def _image_angles(ivec):
+    """(theta, phi) of image vectors [N, 3]: theta = atan2(rho, z), whose
+    rounding stays relative next to the poles, where arccos(z / r) in
+    float32 is off by ~eps / sin(theta) (ROADMAP Queue 3)."""
+    x, y, z = ivec[:, 0], ivec[:, 1], ivec[:, 2]
+    theta = torch.atan2(torch.sqrt(x * x + y * y), z)
+    phi = torch.atan2(y, x)
+    return theta, torch.where(phi < 0.0, phi + 2.0 * math.pi, phi)
 
 
 def find_images_device_async(cfg, tab, packed, gal_pos, gal_index, wpm1,

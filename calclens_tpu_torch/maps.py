@@ -200,6 +200,22 @@ def write_single_map_fits(signal, nside, filename, ordering="NESTED"):
     ])
 
 
+def write_debug_field_maps(field_maps, order, output_path, plane_num):
+    """DEBUG_IO analog (shtpoissonsolve.c:584-604): dump the potential and
+    its five covariant derivative maps of a plane as RING-ordered FITS
+    files debug_<name>_<plane>.fits.  field_maps: FieldMaps or the stacked
+    [6, npix] tensor."""
+    os.makedirs(output_path, exist_ok=True)
+    names = ("pot", "dtheta", "dphi", "dthetatheta", "dthetaphi", "dphiphi")
+    paths = []
+    for name, m in zip(names, field_maps):
+        p = os.path.join(output_path, f"debug_{name}_{plane_num:04d}.fits")
+        write_single_map_fits(torch.as_tensor(m).cpu().numpy(), 1 << order,
+                              p, ordering="RING")
+        paths.append(p)
+    return paths
+
+
 def convergence_from_accum(accum: LensMapAccum):
     """kappa = 1 - (A00 + A11)/2 per-pixel mean (raytrace.c:299-301)."""
     cnt = np.asarray(accum.count, np.float64)

@@ -1,5 +1,5 @@
 """Spherical Poisson solve and the per-plane step (reference
-shtpoissonsolve.c + poissondrivers.c), SHT only.
+shtpoissonsolve.c + poissondrivers.c).
 
 Port of calclens_tpu/poisson.py.  Per lens plane: particles -> NGP, CIC or
 sigma-bucketed SPH deposit onto the poissonOrder RING map (or a precomputed
@@ -10,6 +10,8 @@ kernel window) -> alm *= -1/(l(l+1)) (monopole zeroed) -> alm2allmaps (phi
 onto the rays (alpha -= grad phi, U += hess phi) -> geodesic propagation to
 the next plane, as four phase_* calls.  Eager torch: each stage runs as it
 is called; temporaries are dropped as soon as the next stage has its input.
+plane_step_mg is the non-SHTONLY step: the SHT gives the potential map
+alone and the multigrid patches (mgdriver.py) give the rays their fields.
 """
 
 from __future__ import annotations
@@ -187,6 +189,68 @@ def plane_step_density_packed(plan: SHTPlan, tab, packed, density,
     del alm
     packed = phase("RAYPROP", phase_rayside, tab, packed, maps, scal, born)
     return packed, (FieldMaps(*maps.unbind(0)) if with_maps else None)
+
+
+def plane_step_mg(plan: SHTPlan, tab, mgsetup, packed, pos, mass,
+                  scheme: str, born: bool, scal: PlaneScalars, vacmask=None,
+                  conv_fact: float = -1.0, sph=None, ray_nest=None,
+                  phase=_call):
+    """Non-SHTONLY plane step (reference poissondrivers.c:14-80 +
+    mgpoissonsolve.c): the SHT solve gives the long-range potential MAP
+    only (the NGP map deposit, CIC under scheme "CIC"; map2alm, the
+    filter, alm2map: K1 and K2's 4-column form), then the batched
+    tangent-patch multigrid refinement (mgdriver.mg_refine; the patch
+    deposit is CIC, spline-smoothed under scheme "SPH") gives the rays
+    their deflection and shear from finite differences of the patch
+    potential, and the rays propagate.  ray_nest: None for full-sky rays in
+    RING order, else each ray's NEST pixel (int64, on the rays' device).
+
+    The ray side runs in column chunks of RAY_CHUNK: each chunk of the
+    input is copied, its per-plane rows zeroed and set from the patches
+    (MGINTERP), propagated (RAYPROP) and written into a new buffer, so the
+    input is left as it was.  Each part is made as phase(tag, fn, *args):
+    DEPOSIT, SHTSOLVE, SHT, MGDEPOSIT, MGBC, MGSOLVE, then MGINTERP and
+    RAYPROP per chunk.  Returns (packed', V-cycles of the patch solve)."""
+    from . import mgdriver
+
+    density = phase("DEPOSIT", phase_deposit, plan, tab, pos, mass,
+                    "CIC" if scheme == "CIC" else "NGP", scal, vacmask)
+    alm = phase("SHTSOLVE", phase_analysis, plan, density)
+    del density
+    potmap = phase("SHT", T.alm2map, plan, alm)
+    del alm
+    sl = None
+    if scheme == "SPH" and sph is not None:
+        sl = dep.smoothing_lengths(pos, *sph[-3:])
+    field, cycles = mgdriver.mg_refine(
+        mgsetup, tab, lambda a, b: packed[0:3, a:b], ray_nest,
+        mgsetup.ray_order, potmap, pos, mass, scal.densfact, scal.backdens,
+        conv_fact=conv_fact, sl=sl, phase=phase)
+    del potmap
+
+    def interp(a, b):
+        r = packed[:, a:b].clone()
+        r[14:21] = 0.0
+        pot, g0, g1, h00, h01, h10, h11 = field(a, b)
+        # phi = pot, alpha -= grad, U += hess (mgpoissonsolve.c:1150-1346)
+        r[20] = pot
+        r[14] -= g0
+        r[15] -= g1
+        r[16] += h00
+        r[17] += h01
+        r[18] += h10
+        r[19] += h11
+        return r
+
+    N = packed.shape[1]
+    out = torch.empty_like(packed)
+    for a in range(0, N, RAY_CHUNK):
+        b = min(N, a + RAY_CHUNK)
+        r = phase("MGINTERP", interp, a, b)
+        out[:, a:b] = phase("RAYPROP", soa.prop_only_chunk, r, scal.wp,
+                            scal.wpm1, scal.wpm2, born)
+        del r
+    return out, cycles
 
 
 def empty_plane_step_packed(born: bool, packed, scal: PlaneScalars,

@@ -371,6 +371,27 @@ def chunked(fn, packed, chunk_size):
                       for i in range(0, N, chunk_size)], dim=1)
 
 
+NOUT = 10
+
+
+def output_rows_obs_radec(packed, ring_pix, order: int):
+    """Packed [21, N] + observer RING pixel [N] -> [10, N] output columns
+    (nx, ny, nz, A00, A01, A10, A11, alpha0, alpha1, phi) in the OBSERVER
+    frame and (ra, dec) basis (rayio.c:299-347): A parallel-transported
+    from the current position back to the initial pixel center, then
+    basis-swapped theta-phi -> ra-dec.  Elementwise per ray: the device
+    half of the packed ray writer (io/rayio.py:write_rays_packed)."""
+    nx, ny, nz = packed[0], packed[1], packed[2]
+    inv = 1.0 / torch.sqrt(nx * nx + ny * ny + nz * nz)
+    ox, oy, oz = torchhp.pix2vec_ring_soa(ring_pix, order, packed.dtype)
+    c, s = _transport_psi(nx * inv, ny * inv, nz * inv, ox, oy, oz)
+    a00, a01, a10, a11 = _rot_tensor(c, s, packed[6], packed[7],
+                                     packed[8], packed[9])
+    # theta-phi -> ra-dec tensor basis swap (rays/frames.py:_basis_swap)
+    return torch.stack([nx, ny, nz, a11, -a10, -a01, a00,
+                        packed[15], -packed[14], packed[20]])
+
+
 def init_packed_fullsky(order: int, wp, npix: int, device,
                         dtype=torch.float32):
     """Packed ray init for the full sky in RING pixel order (init_rays,

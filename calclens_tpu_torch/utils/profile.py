@@ -14,9 +14,13 @@ import torch
 
 
 def sync(t):
-    """Wait for the device work behind tensor t: torch.cuda.synchronize on
-    its device when it lives on a GPU, nothing on the CPU."""
-    if t.device.type == "cuda":
+    """Wait for the device work behind tensor t (or the tensors of a tuple
+    or list): torch.cuda.synchronize on its device when it lives on a GPU,
+    nothing on the CPU or for other values."""
+    if isinstance(t, (tuple, list)):
+        for x in t:
+            sync(x)
+    elif isinstance(t, torch.Tensor) and t.device.type == "cuda":
         torch.cuda.synchronize(t.device)
 
 

@@ -124,7 +124,27 @@ of which must pass:
      SHTOrder 7 / rayOrder 6, Raytracer.run with 20,000 sources on the CPU
      and on the card (per plane the imaged sources equal but for at most 1
      in 10^3, each printed) and the CMB mode from one legacy restart on
-     both (5e-4).
+     both (5e-4);
+ 13. the multigrid step and the ray outputs: the MG design point
+     (SHTOrder 10, rayOrder 12: 201,326,592 rays, bundleOrder 6: 49,152
+     patches of 130^2, 2^21 particles, f32, NGP map and CIC patch
+     deposits, 10 fixed V-cycles) through Raytracer.step: one warm-up and
+     two timed planes (s/plane, rays/s, the peak device memory under 80
+     GB, K1 and K2-4col launched exactly once per plane and nothing
+     else), one Profile'd plane and one plane with its parts timed by
+     CUDA events (SHT solve, patch deposit, BC fill, FAS solve, ray
+     interpolation, propagation); one plane with MGConvFact 0.1 and SPH
+     (its V-cycles); 3-plane CUDA-vs-CPU MG traces at SHTOrder 5 /
+     rayOrder 6 / bundleOrder 2 with the defaults and with MGConvFact 0.1
+     + SPH (5e-4, V-cycles printed); the headline rays after phase 5's
+     plane 3 written by Raytracer.write_rays in 4 files as FITS and as
+     binary (seconds, bytes), read back and held to a float64 transform
+     of the same buffer (each column within twice the float32 CPU
+     transform's distance from it); Raytracer.run at order 7/6 with
+     MaxResMap, RayOutputName, OutputRayDeflections, OutputPhi and
+     DebugIO on the card, on the CPU and in float64 on the CPU, the card's
+     files within 5e-4 of the CPU's (or, after 8 planes, twice the
+     float32 CPU files' distance from the float64 ones).
 
 It prints the card's line, a JSON line {"kernels": [...]} with each
 kernel's launches on its path's run, its error against its twin, its
@@ -261,6 +281,21 @@ GALS_SET_SLACK = 1e-3
 # the CMB radii: float32 rays against chi(1100)
 CMB_RADIUS_BOUND = 1e-6
 CMB_MAP_ORDER = 10
+# phase 13, the multigrid step and the ray outputs: the MG design point
+# (bench.py's BENCH_MODE=MG: SHTOrder, rayOrder, bundleOrder), its
+# particles and its fixed V-cycles, and the small card-vs-CPU MG trace
+MG_ORDERS = (10, 12, 6)
+MG_PARTICLES = 1 << 21
+MG_TRACE_ORDERS = (5, 6, 2)
+# the MG step's parts (poisson.plane_step_mg's phase tags)
+MG_PARTS = ("DEPOSIT", "SHTSOLVE", "SHT", "MGDEPOSIT", "MGBC", "MGSOLVE",
+            "MGINTERP", "RAYPROP")
+# ray files of the headline rays: files per write, and the bound of the
+# card's columns against a float64 transform of the same buffer, as a
+# multiple of the float32 CPU transform's own distance from it
+RAY_FILES = 4
+RAY_F64_FACTOR = 2.0
+DEVICE_MEMORY = 80e9
 
 
 class SmokeFailure(Exception):
@@ -826,11 +861,13 @@ def trace_cuda_vs_cpu(synth, analysis, rings_mode):
     return errs, counts
 
 
-def traced_run(device, out_dir, map_planes):
+def traced_run(device, out_dir, map_planes, dtype=None, **extra):
     """Raytracer.run, the entry point a user calls, at the trace's shape
     (SHTOrder 7 / rayOrder 6, f32, 8 planes) with MapRedshiftList naming
     `map_planes` and OutputPath `out_dir`: the driver's own map-plane logic
-    writes the lens maps at LensMapOrder 4.  Each plane's particles come
+    writes the lens maps at LensMapOrder 4; extra goes on the
+    configuration, dtype (None: float32) on the Raytracer.  Each plane's
+    particles come
     from pixel_centre_particles through load_particles (the card's machine
     has no h5py for lens-plane files).  Returns (Raytracer, launches)."""
     from calclens_tpu_torch import _ext
@@ -849,9 +886,10 @@ def traced_run(device, out_dir, map_planes):
         fp.write("".join(f"{z:.10f}\n" for z in zs))
     cfg = RayTraceConfig(SHTOrder=7, rayOrder=6, bundleOrder=3,
                          Precision="f32", MapRedshiftList=zpath,
-                         LensMapOrder=4, OutputPath=f"{out_dir}/{device}",
-                         **base).finalize()
-    rt = Raytracer(cfg, device=device)
+                         LensMapOrder=4,
+                         OutputPath=f"{out_dir}/{device}-{dtype}",
+                         **base, **extra).finalize()
+    rt = Raytracer(cfg, device=device, dtype=dtype)
     check(sorted(rt._map_planes()) == sorted(map_planes),
           f"map redshifts {zs} give planes {rt._map_planes()}")
     rt.load_particles = lambda p: pixel_centre_particles(cfg, rt.cosmo, p,
@@ -1233,7 +1271,10 @@ TRACE_BOX = dict(minRa=20.0, maxRa=60.0, minDec=-10.0, maxDec=30.0)
 # analyses (one per sigma bucket) for SPH
 PLANE_LAUNCHES = {"NGP": {"legendre_analysis": 1, "legendre_synth": 1},
                   "CIC": {"legendre_analysis": 1, "legendre_synth": 1},
-                  "SPH": {"legendre_analysis": 8, "legendre_synth": 1}}
+                  "SPH": {"legendre_analysis": 8, "legendre_synth": 1},
+                  # the MG step (any deposit: SPH deposits its SHT map by
+                  # NGP): one analysis, one potential-only synthesis
+                  "MG": {"legendre_analysis": 1, "legendre_synth_phi": 1}}
 
 
 def check_plane_launches(label, plane_counts, scheme):
@@ -1810,6 +1851,378 @@ def report_gals_cmb(res, card):
         f"{TRACE_BOUND:g})")
 
 
+def event_phase(parts):
+    """A plane step's phase hook that times each part with CUDA events:
+    parts[tag] collects (start, stop) pairs."""
+    import torch
+
+    def phase(tag, fn, *args):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn(*args)
+        b.record()
+        parts.setdefault(tag, []).append((a, b))
+        return out
+
+    return phase
+
+
+def mg_config(orders, **kw):
+    from calclens_tpu_torch.config import RayTraceConfig
+
+    sht, ray, bundle = orders
+    return RayTraceConfig(OmegaM=0.3, maxComvDistance=2000.0,
+                          NumLensPlanes=8, SHTOrder=sht, rayOrder=ray,
+                          bundleOrder=bundle, Precision="f32", SHTOnly=False,
+                          **kw).finalize()
+
+
+def mg_design_point():
+    """The multigrid step at its design point (MG_ORDERS, MG_PARTICLES
+    seeded particles, f32, NGP map deposit and the CIC patch deposit, 10
+    fixed V-cycles) through Raytracer.step: plane 1 as warm-up, planes 2
+    and 3 timed, plane 4 with Profile set (the driver's host-timed phase
+    row), plane 5 with its parts timed by CUDA events; K1 and K2-4col
+    launched exactly once per plane and nothing else, the peak device
+    memory under DEVICE_MEMORY, finite rays.  Then a new Raytracer with
+    MGConvFact 0.1 and DepositScheme SPH steps plane 2 once: its time and
+    V-cycles."""
+    import torch
+    from calclens_tpu_torch import _ext
+    from calclens_tpu_torch.driver import Raytracer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = mg_config(MG_ORDERS)
+    t0 = time.perf_counter()
+    rt = Raytracer(cfg, device="cuda")
+    rt.init_rays()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    nrays = rt.rays_packed.shape[1]
+    pos, mass = seeded_particles(MG_PARTICLES, 1.0, 12)
+    staged = {p: rt._pad_particles(pos * (250.0 * p + 125.0), mass)
+              for p in range(1, 6)}
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _ext.reset_launches()
+    plane_counts, times = [], []
+    for p in (1, 2, 3):
+        before = dict(_ext.launches)
+        t = time.perf_counter()
+        rt.step(p, *staged[p])  # ends in torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        plane_counts.append({k: v - before[k]
+                             for k, v in _ext.launches.items()})
+    launches = dict(_ext.launches)
+    peak = torch.cuda.max_memory_allocated()
+    check_plane_launches("MG design point", plane_counts, "MG")
+    check(peak < DEVICE_MEMORY, f"MG design point peak {peak / 1e9:.2f} GB")
+    check(bool(torch.isfinite(rt.rays_packed).all()),
+          "MG design point: non-finite rays")
+    rt.cfg.Profile = True
+    rt.step(4, *staged[4])
+    rt.cfg.Profile = False
+    profile = (rt.timings[-1][1], dict(dict(rt.phase_rows)[4]))
+    parts = {}
+    rt._timed_phase = lambda plane_num: event_phase(parts)
+    rt.cfg.Profile = True  # the step passes the hook only in Profile mode
+    t = time.perf_counter()
+    rt.step(5, *staged[5])  # ends in torch.cuda.synchronize()
+    parts_step_s = time.perf_counter() - t
+    rt.cfg.Profile = False
+    del rt._timed_phase
+    part_ms = {tag: sum(a.elapsed_time(b) for a, b in parts[tag])
+               for tag in MG_PARTS}
+    cycles = dict(rt.mg_cycles)
+    check(set(cycles.values()) == {10}, f"MG fixed solve cycles {cycles}")
+    check(bool(torch.isfinite(rt.rays_packed).all()),
+          "MG design point: non-finite rays after the Profile'd planes")
+    patch = (rt.mgsetup.C, rt.mgsetup.levels[0].N)
+    del rt, staged
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # MGConvFact 0.1 and the spline patch deposit
+    cfg_s = mg_config(MG_ORDERS, MGConvFact=0.1, DepositScheme="SPH")
+    rs = Raytracer(cfg_s, device="cuda")
+    rs.init_rays()
+    pos_d, mass_d = rs._pad_particles(pos * 625.0, mass)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(_ext.launches)
+    t = time.perf_counter()
+    rs.step(2, pos_d, mass_d)
+    sph_s = time.perf_counter() - t
+    check_plane_launches("MG SPH plane", [
+        {k: v - before[k] for k, v in _ext.launches.items()}], "MG")
+    sph_peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(rs.rays_packed).all()),
+          "MG SPH plane: non-finite rays")
+    sph_cycles = rs.mg_cycles[2]
+    del rs, pos_d, mass_d
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(setup_s=setup_s, times=times, nrays=nrays,
+                resident=resident, peak=peak, launches=launches,
+                plane_counts=plane_counts, profile=profile,
+                part_ms=part_ms, parts_step_s=parts_step_s, patch=patch,
+                sph_s=sph_s, sph_peak=sph_peak, sph_cycles=sph_cycles)
+
+
+def mg_trace(**cfg_kw):
+    """A 3-plane CUDA-vs-CPU MG trace at MG_TRACE_ORDERS, f32, particles at
+    pixel centres (cfg_kw on the configuration): the packed rays within
+    TRACE_BOUND of each quantity's max after every plane, the card's
+    launches PLANE_LAUNCHES["MG"] per plane.  Returns (errors per plane,
+    V-cycles per plane on the CPU and on the card)."""
+    from calclens_tpu_torch import _ext
+    from calclens_tpu_torch.driver import Raytracer
+
+    cfg = mg_config(MG_TRACE_ORDERS, **cfg_kw)
+    cpu = Raytracer(cfg, device="cpu")
+    gpu = Raytracer(cfg, device="cuda")
+    for rt in (cpu, gpu):
+        rt.init_rays()
+    errs, plane_counts = [], []
+    for p in range(3):
+        pos, mass = pixel_centre_particles(cfg, cpu.cosmo, p, 20000, 100 + p)
+        cpu.step(p, pos=pos, mass=mass)
+        before = dict(_ext.launches)
+        gpu.step(p, pos=pos, mass=mass)
+        plane_counts.append({k: v - before[k]
+                             for k, v in _ext.launches.items()})
+        errs.append(grouped_row_err(gpu.rays_packed.cpu(), cpu.rays_packed))
+    check_plane_launches(f"MG trace {cfg_kw}", plane_counts, "MG")
+    cycles = (dict(cpu.mg_cycles), dict(gpu.mg_cycles))
+    check(max(errs) < TRACE_BOUND, f"MG trace {cfg_kw}, CUDA vs CPU: {errs} "
+          f"(V-cycles CPU, card: {cycles})")
+    return errs, cycles
+
+
+def ray_file_columns(paths, fmt):
+    """The rows of a write's files, concatenated, and their layouts."""
+    from calclens_tpu_torch.io import rayio
+
+    read = rayio.read_rays_bin if fmt == "bin" else rayio.read_rays
+    parts = [read(p) for p in paths]
+    return (np.concatenate([r for _, _, _, r in parts]),
+            [(h, c, s) for h, c, s, _ in parts])
+
+
+def ray_outputs(snap):
+    """The headline rays `snap` (rayOrder 10, after plane 3) written by the
+    driver's writer (Raytracer.write_rays) from the card in RAY_FILES files,
+    as FITS and as binary: seconds and bytes of each; both read back
+    (layouts and rows equal between the formats) and held to a float64
+    transform of the same buffer on the CPU, each float column within
+    RAY_F64_FACTOR times the float32 CPU transform's own distance from it
+    (NEST, counts and starts equal)."""
+    import tempfile
+
+    import torch
+    from calclens_tpu_torch.config import RayTraceConfig
+    from calclens_tpu_torch.driver import Raytracer
+
+    out = {}
+    ray_order = int(round(math.log(snap.shape[1] / 12, 4)))
+    with tempfile.TemporaryDirectory() as tmp:
+        def writer(device, dtype, fmt):
+            cfg = RayTraceConfig(
+                OmegaM=0.3, maxComvDistance=2000.0, NumLensPlanes=8,
+                SHTOrder=4, rayOrder=ray_order, bundleOrder=3,
+                Precision="f32",
+                OutputPath=f"{tmp}/{device}-{dtype}-{fmt}",
+                RayOutputName="ray_", NumRayOutputFiles=RAY_FILES,
+                OutputRayDeflections=True, OutputPhi=True,
+                RayOutputFormat=fmt).finalize()
+            rt = Raytracer(cfg, device=device, dtype=dtype)
+            rt.load_state(snap, 4)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            paths = rt.write_rays()
+            s_ = time.perf_counter() - t
+            nbytes = sum(os.path.getsize(p) for p in paths)
+            del rt
+            return paths, s_, nbytes
+
+        card = {}
+        for fmt in ("fits", "bin"):
+            paths, s_, nbytes = writer("cuda", torch.float32, fmt)
+            card[fmt] = ray_file_columns(paths, fmt)
+            out[fmt] = (s_, nbytes, len(paths))
+        torch.cuda.empty_cache()
+        (rows, lay), (rows_b, lay_b) = card["fits"], card["bin"]
+        check(len(rows) == snap.shape[1], f"ray files hold {len(rows)} rows")
+        check(all(np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2])
+                  for a, b in zip(lay, lay_b)), "FITS and binary layouts "
+              "differ")
+        check(all(np.array_equal(rows[f], rows_b[f])
+                  for f in rows.dtype.names), "FITS and binary rows differ")
+        ref = {}
+        for dt in (torch.float64, torch.float32):
+            paths, s_, _ = writer("cpu", dt, "fits")
+            ref[dt] = ray_file_columns(paths, "fits")
+            out[f"cpu_{str(dt)[6:]}_s"] = s_
+        (r64, lay64), (r32, _) = ref[torch.float64], ref[torch.float32]
+        check(all(np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2])
+                  for a, b in zip(lay, lay64)), "ray file layouts differ "
+              "from the float64 write's")
+        check(np.array_equal(rows["nest"], r64["nest"]),
+              "NEST column differs from the float64 write's")
+        dist = {}
+        for f in rows.dtype.names[1:]:
+            d_card = float(np.abs(rows[f] - r64[f]).max())
+            d_cpu = float(np.abs(r32[f] - r64[f]).max())
+            dist[f] = (d_card, d_cpu)
+            check(d_card <= RAY_F64_FACTOR * d_cpu,
+                  f"ray column {f}: card {d_card:.3e} from float64, float32 "
+                  f"on the CPU {d_cpu:.3e}")
+        out["dist"] = dist
+    return out
+
+
+def traced_run_outputs():
+    """Raytracer.run at the trace's shape (SHTOrder 7 / rayOrder 6, 8
+    planes) with lens maps after planes 1 and 2, MaxResMap, RayOutputName
+    (2 files), OutputRayDeflections, OutputPhi and DebugIO, in float32 on
+    the card and on the CPU and in float64 on the CPU: ray files at both
+    map planes and at the end, six field maps per plane.  The card's files
+    against the CPU's: names equal; NEST, counts and starts equal; each
+    quantity (the ray files' as the trace groups them, A's four columns
+    and alpha's two together) and each map within the larger of
+    TRACE_BOUND and RAY_F64_FACTOR times the float32 CPU file's own
+    distance from the float64 one (the files after 8 planes carry 8
+    planes of float32 rounding, the trace's bound 3).  Returns ({file set:
+    (card vs CPU, float32 vs float64, worst quantity)}, files compared)."""
+    import tempfile
+
+    import torch
+    from calclens_tpu_torch.io import fits, rayio
+
+    extra = dict(MaxResMap=1, RayOutputName="ray_", NumRayOutputFiles=2,
+                 OutputRayDeflections=True, OutputPhi=True, DebugIO=True)
+    runs = (("cuda", None), ("cpu", None), ("cpu", torch.float64))
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = [traced_run(dev, tmp, (1, 2), dtype=dt, **extra)[0]
+                .cfg.OutputPath for dev, dt in runs]
+        names = [sorted(n for n in os.listdir(d)
+                        if n.startswith(("ray_", "debug_"))) for d in dirs]
+        check(names[0] == names[1] == names[2],
+              f"run() outputs differ: {names}")
+        rays = [n for n in names[0] if n.startswith("ray_")]
+        dbg = [n for n in names[0] if n.startswith("debug_")]
+        check(len(rays) == 6 and len(dbg) == 6 * 8,
+              f"run() wrote {len(rays)} ray files, {len(dbg)} field maps")
+        errs = {}
+
+        def dist(got, ref):
+            return (float(np.abs(got.astype(np.float64) - ref).max())
+                    / max(float(np.abs(ref).max()), 1e-30))
+
+        def note(key, what, g, c, r):
+            """errs[key]: (card vs CPU, CPU float32 vs float64, what) of the
+            quantity with the least room under its bound so far."""
+            e = (dist(g, c), dist(c, r), what)
+            old = errs.get(key)
+            room = e[0] / max(TRACE_BOUND, RAY_F64_FACTOR * e[1])
+            if old is None or room > old[0] / max(TRACE_BOUND,
+                                                  RAY_F64_FACTOR * old[1]):
+                errs[key] = e
+
+        for n in rays:
+            files = [rayio.read_rays(os.path.join(d, n)) for d in dirs]
+            (hg, cg, sg, rg), (hc, cc, sc, rc), (_, _, _, r64) = files
+            check(hc == hg and np.array_equal(cc, cg)
+                  and np.array_equal(sc, sg)
+                  and np.array_equal(rc["nest"], rg["nest"])
+                  and np.array_equal(r64["nest"], rg["nest"]),
+                  f"{n}: header, layout or NEST differ")
+            for q, cols in (("ra", ["ra"]), ("dec", ["dec"]),
+                            ("A", ["A00", "A01", "A10", "A11"]),
+                            ("alpha", ["alpha0", "alpha1"]),
+                            ("phi", ["phi"])):
+                note(n[:8], q, *(np.stack([x[c] for c in cols])
+                                 for x in (rg, rc, r64)))
+        for n in dbg:
+            g, c, r = (fits.read_fits(os.path.join(d, n))[1][1]["SIGNAL"]
+                       for d in dirs)
+            note(f"debug plane {n[-9:-5]}", n[6:-10], g, c, r)
+    say("phase 13: run() outputs, card vs CPU (float32 CPU vs float64 CPU), "
+        "the quantity nearest its bound in each file set, of its max: "
+        + ", ".join(f"{k} {a:.2e} ({b:.2e}, {w})"
+                    for k, (a, b, w) in sorted(errs.items())))
+    bad = {k: v for k, v in errs.items()
+           if v[0] >= max(TRACE_BOUND, RAY_F64_FACTOR * v[1])}
+    check(not bad, f"run() outputs, card vs CPU: {bad}")
+    return errs, len(rays) + len(dbg)
+
+
+def mg_rayio_phase(snap, card):
+    """Phase 13: the MG design point, the small MG traces and the ray
+    outputs, each part's lines printed as it ends."""
+    res = {"design": mg_design_point()}
+    report_mg_design(res["design"], card)
+    for label, kw in (("default", {}), ("MGConvFact 0.1 + SPH",
+                                        dict(MGConvFact=0.1,
+                                             DepositScheme="SPH"))):
+        errs, cycles = res[label] = mg_trace(**kw)
+        say(f"phase 13: MG trace order {MG_TRACE_ORDERS} f32 {label}, CUDA "
+            f"vs CPU per plane: {', '.join(f'{e:.3e}' for e in errs)} (bound "
+            f"{TRACE_BOUND:g}); V-cycles CPU {cycles[0]}, card {cycles[1]}")
+    res["rays"] = ray_outputs(snap)
+    report_ray_outputs(res["rays"], card)
+    errs, nfiles = res["run"] = traced_run_outputs()
+    say(f"phase 13: run() order 7/6 with MaxResMap, RayOutputName, "
+        f"OutputRayDeflections, OutputPhi and DebugIO: {nfiles} files, card "
+        f"vs CPU at most {max(e[0] for e in errs.values()):.3e} of a "
+        f"quantity's max (bound: the larger of {TRACE_BOUND:g} and "
+        f"{RAY_F64_FACTOR:g}x the float32 CPU file's distance from float64)")
+    return res
+
+
+def report_mg_design(d, card):
+    per_plane = float(np.median(d["times"][1:]))
+    sht, ray, bundle = MG_ORDERS
+    say(f"phase 13 ({card}): MG design point SHTOrder {sht} / rayOrder {ray} "
+        f"/ bundleOrder {bundle} ({d['patch'][0]} patches of "
+        f"{d['patch'][1]}^2) / 2^21 particles f32, 10 V-cycles: planes "
+        f"(warm-up, timed) {', '.join(f'{t:.4f}' for t in d['times'])} s, "
+        f"{per_plane:.4f} s/plane, {d['nrays'] / per_plane:.0f} rays/s, "
+        f"peak {d['peak'] / 2**30:.2f} GiB ({d['resident'] / 2**30:.2f} GiB "
+        f"resident), setup {d['setup_s']:.2f} s, launches per plane "
+        + "; ".join(str({k: v for k, v in c.items() if v})
+                    for c in d["plane_counts"]))
+    step, row = d["profile"]
+    say(f"phase 13: MG Profile'd plane: step {step:.4f} s; "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in row.items()))
+    say(f"phase 13: MG step's parts by CUDA events (plane of "
+        f"{d['parts_step_s']:.4f} s): "
+        + ", ".join(f"{k} {d['part_ms'][k]:.2f} ms" for k in MG_PARTS)
+        + f"; SHT solve (DEPOSIT + SHTSOLVE + SHT) "
+        f"{sum(d['part_ms'][k] for k in MG_PARTS[:3]):.2f} ms")
+    say(f"phase 13: MG with MGConvFact 0.1 and SPH, one plane: "
+        f"{d['sph_s']:.4f} s, {d['sph_cycles']} V-cycles, peak "
+        f"{d['sph_peak'] / 2**30:.2f} GiB")
+
+
+def report_ray_outputs(r, card):
+    for fmt in ("fits", "bin"):
+        s_, nbytes, nf = r[fmt]
+        say(f"phase 13 ({card}): headline rays written as {fmt} ({nf} "
+            f"files, {nbytes} bytes) in {s_:.3f} s, {nbytes / s_ / 1e9:.3f} "
+            f"GB/s")
+    say(f"phase 13: the same rays written on the CPU in float64 "
+        f"{r['cpu_float64_s']:.3f} s, float32 {r['cpu_float32_s']:.3f} s; "
+        f"card vs float64 (float32 CPU vs float64) per column: "
+        + ", ".join(f"{k} {a:.3e} ({b:.3e})" for k, (a, b) in
+                    r["dist"].items())
+        + f" (bound {RAY_F64_FACTOR:g}x)")
+
+
 def main():
     import torch
 
@@ -2034,7 +2447,8 @@ def main():
         f"each row's max (bound {MAP_BOUND:g}), counts exact; driver's map "
         f"writer {map_s:.3f} s")
     torch.cuda.empty_cache()
-    mm = mass_map_plane(h.pop("snap"), 4)
+    snap = h.pop("snap")  # the headline rays after plane 3
+    mm = mass_map_plane(snap, 4)
     say(f"mass-map plane 4 at order 12 from the headline rays: density "
         f"equal to the particle deposit's bit for bit; rays vs the particle "
         f"plane (beside the particle plane run twice), of each quantity's "
@@ -2065,6 +2479,15 @@ def main():
     gals_launches = gals["run"]["launches"]
     torch.cuda.empty_cache()
 
+    # 13. the multigrid step at its design point, the small MG traces, and
+    # the ray outputs (the headline rays' files; run() with every output)
+    t0 = time.perf_counter()
+    mgr = mg_rayio_phase(snap, card)
+    del snap
+    say(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    mg_launches = mgr["design"]["launches"]
+    torch.cuda.empty_cache()
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, **extra):
         b = bounds[name]
         return dict(name=name, route="cuda",
@@ -2082,7 +2505,8 @@ def main():
               "calclens_tpu/sht/pallas_legendre.py:251",
               h["counts"]["legendre_analysis"], k1[1], k1[2], k1[3],
               sph_launches=hs["counts"]["legendre_analysis"],
-              gals_run_launches=gals_launches["legendre_analysis"]),
+              gals_run_launches=gals_launches["legendre_analysis"],
+              mg_launches=mg_launches["legendre_analysis"]),
         entry("legendre_synth", "legendre_synth.cu",
               "calclens_tpu/sht/pallas_legendre_mx.py:124",
               h["counts"]["legendre_synth"], k2[1], k2[2], k2[3],
@@ -2090,9 +2514,9 @@ def main():
               gals_run_launches=gals_launches["legendre_synth"]),
         entry("legendre_synth_phi", "legendre_synth.cu",
               "calclens_tpu/sht/pallas_legendre_mx.py:124",
-              phi_launches, v12["legendre_synth_phi"][1],
+              mg_launches["legendre_synth_phi"], v12["legendre_synth_phi"][1],
               v12["legendre_synth_phi"][2], v10["legendre_synth_phi"][3],
-              plain_order=10),
+              plain_order=10, alm2map_launches=phi_launches),
         entry("legendre_synth_vpu", "legendre_synth_vpu.cu",
               "calclens_tpu/sht/pallas_legendre.py:49",
               hv["counts"]["legendre_synth_vpu"],

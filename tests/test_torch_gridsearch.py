@@ -176,6 +176,53 @@ def test_find_images_device_matches_jax(deformed, sky):
     assert_same_images(got, ref)
 
 
+def _image_distance(got, ref):
+    """(max |ra| deg, max |dec| deg, max |A|) between two image sets of
+    equal index multisets, rows matched by (index, ra)."""
+    assert len(got.index) == len(ref.index)
+    og, orf = (np.lexsort((x.ra, x.index)) for x in (got, ref))
+    np.testing.assert_array_equal(got.index[og], ref.index[orf])
+    dra = np.abs(got.ra[og] - ref.ra[orf])
+    dra = np.minimum(dra, 360.0 - dra)
+    return (float(dra.max()), float(np.abs(got.dec[og] - ref.dec[orf]).max()),
+            float(np.abs(got.A[og] - ref.A[orf]).max()))
+
+
+def test_float32_device_search_no_farther_from_float64_than_jax(deformed):
+    """Both packages' find_images_device on one float32 buffer (the deformed
+    grid, its 150 sources and 80 more at |dec| 80-89.9 degrees), each held
+    to a float64 search of the same buffer: the same images, and the port
+    no farther from float64 than JAX in ra, dec and A.  float32 arccos and
+    1 - z make both ~1e-3 degrees off at the poles (ROADMAP Queue 3)."""
+    packed, gal_pos = deformed
+    rng = np.random.default_rng(80)
+    dec = rng.uniform(80.0, 89.9, 80) * rng.choice([-1.0, 1.0], 80)
+    polar = hp.radec2vec(rng.uniform(0.0, 360.0, 80), dec) * 690.0
+    gal_pos = np.concatenate([gal_pos, polar])
+    idx = np.arange(len(gal_pos)) * 3
+    cfg = _cfg(Precision="f32")
+    p32 = packed.astype(np.float32)
+    p64 = p32.astype(np.float64)
+    ref = tgs.find_images_device(_cfg(), torchhp.InterpTables(ORDER),
+                                 torch.tensor(p64), gal_pos, idx, WPM1,
+                                 WPM2, chunk=CHUNK)
+    ref_j = jgs.find_images_device(
+        _cfg(), jaxhp.InterpTables(ORDER, dtype=jnp.float64),
+        jnp.asarray(p64), gal_pos, idx, WPM1, WPM2, chunk=CHUNK)
+    assert_same_images(ref, ref_j)
+    got = tgs.find_images_device(cfg, torchhp.InterpTables(ORDER),
+                                 torch.tensor(p32), gal_pos, idx, WPM1,
+                                 WPM2, chunk=CHUNK)
+    got_j = jgs.find_images_device(
+        cfg, jaxhp.InterpTables(ORDER, dtype=jnp.float32),
+        jnp.asarray(p32), gal_pos, idx, WPM1, WPM2, chunk=CHUNK)
+    d_port, d_jax = _image_distance(got, ref), _image_distance(got_j, ref)
+    print("float32 from float64 (ra, dec, A): port", d_port, "JAX", d_jax)
+    assert len(got.index) >= len(gal_pos)
+    for what, a, b in zip(("ra", "dec", "A"), d_port, d_jax):
+        assert a <= b, f"{what}: port {a:.3e} from float64, JAX {b:.3e}"
+
+
 @pytest.mark.parametrize("sky", ["full", "box"])
 def test_find_images_host_matches_jax(deformed, sky):
     """The host-prep search with nest2index: the full sky's ring_of_nest,

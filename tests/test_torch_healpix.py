@@ -42,14 +42,45 @@ def _numpy_angles(vec):
     return th, np.where(ph < 0.0, ph + 2.0 * np.pi, ph)
 
 
-def _name_the_side_that_left(what, got_t, got_j, ref, tol):
+def _name_the_side_that_left(what, got_t, got_j, ref, tol, describe):
     """Each side against numpy's float64 value, with the parity bound:
-    the message says whether torch, JAX or both left it."""
-    d_t = float(np.max(np.abs(np.asarray(got_t, np.float64) - ref)))
-    d_j = float(np.max(np.abs(np.asarray(got_j, np.float64) - ref)))
-    off = [name for name, d in (("torch", d_t), ("JAX", d_j)) if d > tol]
-    assert not off, (f"{what}: {' and '.join(off)} left numpy's float64 "
-                     f"value (torch {d_t:.3e}, JAX {d_j:.3e}, bound {tol:g})")
+    the message says whether torch, JAX or both left it, and describes
+    each side's worst row (describe(i) -> str)."""
+    d_t = np.abs(np.asarray(got_t, np.float64) - ref)
+    d_j = np.abs(np.asarray(got_j, np.float64) - ref)
+    off = [(name, d) for name, d in (("torch", d_t), ("JAX", d_j))
+           if d.max() > tol]
+    assert not off, (
+        f"{what}: {' and '.join(n for n, _ in off)} left numpy's float64 "
+        f"value (torch {d_t.max():.3e}, JAX {d_j.max():.3e}, bound {tol:g}); "
+        + "; ".join(f"{n}'s worst row {describe(int(np.argmax(d)))}"
+                    for n, d in off))
+
+
+def _describe_vec2ang_row(vec, th_t, th_j, th_n, ph_t, ph_j, ph_n):
+    """describe(i) for vec2ang: the input row, r and z / r as torch, JAX
+    and numpy form them, each side's (theta, phi), torch's value for that
+    row alone and torch's thread count."""
+    v64 = np.asarray(vec, np.float64)
+    r_t = torch.linalg.vector_norm(torch.tensor(vec), dim=-1).numpy()
+    r_j = np.asarray(jnp.linalg.norm(jnp.asarray(vec), axis=-1))
+    r_n = np.linalg.norm(v64, axis=-1)
+
+    def describe(i):
+        alone = [float(x[0]) for x in
+                 torchhp.vec2ang(torch.tensor(vec[i:i + 1]))]
+        return (f"{i}: vec {v64[i].tolist()!r}; r torch {float(r_t[i])!r} "
+                f"JAX {float(r_j[i])!r} numpy {float(r_n[i])!r}; z/r torch "
+                f"{float(vec[i, 2] / r_t[i])!r} JAX "
+                f"{float(vec[i, 2] / r_j[i])!r} numpy "
+                f"{float(v64[i, 2] / r_n[i])!r}; theta torch "
+                f"{float(th_t[i])!r} JAX {float(th_j[i])!r} numpy "
+                f"{float(th_n[i])!r}; phi torch {float(ph_t[i])!r} JAX "
+                f"{float(ph_j[i])!r} numpy {float(ph_n[i])!r}; torch on "
+                f"the row alone (theta, phi) {alone!r}; torch threads "
+                f"{torch.get_num_threads()}")
+
+    return describe
 
 
 @pytest.mark.parametrize("order", [2, 4, 6])
@@ -61,10 +92,13 @@ def test_vec2ang_and_ang2pix_match_jaxhp(order, ndt, tdt, jdt):
     # measured on these inputs: <= 3.6e-15 (float64) and 1.8e-6 (float32)
     # from numpy's theta, 8.9e-16 and 5.2e-7 from its phi, on both sides
     th_n, ph_n = _numpy_angles(vec)
+    describe = _describe_vec2ang_row(vec, th_t.numpy(), np.asarray(th_j),
+                                     th_n, ph_t.numpy(), np.asarray(ph_j),
+                                     ph_n)
     _name_the_side_that_left("theta", th_t.numpy(), np.asarray(th_j), th_n,
-                             FTOL[ndt])
+                             FTOL[ndt], describe)
     _name_the_side_that_left("phi", ph_t.numpy(), np.asarray(ph_j), ph_n,
-                             4 * FTOL[ndt])
+                             4 * FTOL[ndt], describe)
     np.testing.assert_allclose(th_t.numpy(), np.asarray(th_j), rtol=0,
                                atol=FTOL[ndt])
     np.testing.assert_allclose(ph_t.numpy(), np.asarray(ph_j), rtol=0,
@@ -164,8 +198,9 @@ def test_import_port_leaves_jax_unloaded():
     """Importing every module of the port, and every module that
     chip_smoke.py and bench_torch.py import (at any depth), then stepping
     a plane with each deposit (NGP, CIC in a box, SPH) and a precomputed
-    mass-map plane, searching a galaxy's images (device and Born), and a
-    legacy restart carried to the CMB, loads neither jax nor the JAX
+    mass-map plane, searching a galaxy's images (device and Born), a
+    legacy restart carried to the CMB, and a multigrid and an SHT-only
+    plane with DebugIO and their ray files, loads neither jax nor the JAX
     package calclens_tpu."""
     code = (
         "import ast, importlib, pkgutil, sys\n"
@@ -221,6 +256,17 @@ def test_import_port_leaves_jax_unloaded():
         "                        rt.ray_nest, 1)\n"
         "rt.load_legacy_restart(tmp)\n"
         "rt.propagate_to_cmb(map_order=1)\n"
+        "from calclens_tpu_torch.mgdriver import MGSetup\n"
+        "for shtonly in (False, True):\n"
+        "    rt = Raytracer(RayTraceConfig(\n"
+        "        maxComvDistance=100.0, NumLensPlanes=2, SHTOrder=2,\n"
+        "        rayOrder=2, bundleOrder=1, SHTOnly=shtonly, DebugIO=True,\n"
+        "        RayOutputName='r', OutputPath=tempfile.mkdtemp()\n"
+        "        ).finalize(), device='cpu')\n"
+        "    rt.mgsetup = MGSetup(1, 8, 2)  # small patches\n"
+        "    rt.init_rays()\n"
+        "    rt.step(0, pos=[[40.0, 30.0, 0.0]], mass=[1e12])\n"
+        "    rt.write_rays()\n"
         "for mod in ('calclens_tpu_torch.driver', 'calclens_tpu_torch.poisson',\n"
         "            'calclens_tpu_torch.ops.deposit',\n"
         "            'calclens_tpu_torch.io.healpix_maps',\n"
@@ -229,7 +275,10 @@ def test_import_port_leaves_jax_unloaded():
         "            'calclens_tpu_torch.gals.concat',\n"
         "            'calclens_tpu_torch.rays.paratrans',\n"
         "            'calclens_tpu_torch.io.legacy_restart',\n"
-        "            'calclens_tpu_torch.tools.bench_gals'):\n"
+        "            'calclens_tpu_torch.tools.bench_gals',\n"
+        "            'calclens_tpu_torch.mg', 'calclens_tpu_torch.mgdriver',\n"
+        "            'calclens_tpu_torch.io.rayio',\n"
+        "            'calclens_tpu_torch.rays.frames'):\n"
         "    assert mod in sys.modules, mod\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith(('jax.', 'jaxlib')) or\n"

@@ -153,6 +153,31 @@ def test_bench_torch_runs_each_deposit_on_the_cpu(deposit):
     assert all(phases[k.lower() + "_s"] > 0 for k in PHASES)
 
 
+def test_bench_torch_runs_the_mg_mode_on_the_cpu():
+    """BENCH_MODE=MG at a tiny shape (SHTOrder 3, rayOrder 4, bundleOrder 1;
+    the driver's 130^2 patches): bench.py's keys and metric name
+    (rays_per_sec_plane_step_mg_nside8, _cic_ under BENCH_DEPOSIT=CIC), the
+    Profile'd plane's row with the MG parts and its 10 V-cycles."""
+    for deposit, tag in (("NGP", "mg"), ("CIC", "cic")):
+        # one OpenMP thread: the suite's parallel workers would
+        # oversubscribe the cores with the patch solve's thread pools
+        res = _bench("--device", "cpu", BENCH_MODE="MG", BENCH_SHT_ORDER="3",
+                     BENCH_RAY_ORDER="4", BENCH_BUNDLE_ORDER="1",
+                     BENCH_NPART="2000", BENCH_DEPOSIT=deposit,
+                     OMP_NUM_THREADS="1")
+        assert res.returncode == 0, res.stderr
+        lines = res.stdout.strip().splitlines()
+        last = json.loads(lines[-1])
+        assert sorted(last) == _bench_keys()
+        assert last["metric"] == f"rays_per_sec_plane_step_{tag}_nside8"
+        assert last["device"] == "cpu" and last["nrays"] == 3072
+        assert last["value"] > 0 and last["per_plane_s"] > 0
+        phases = json.loads(lines[-2])
+        assert phases["mg_cycles"] == 10
+        assert all(phases[k.lower() + "_s"] > 0 for k in PHASES + (
+            "MGDEPOSIT", "MGBC", "MGSOLVE", "MGINTERP"))
+
+
 def test_bench_torch_refuses_what_it_cannot_run(monkeypatch):
     import bench_torch
 
@@ -160,8 +185,8 @@ def test_bench_torch_refuses_what_it_cannot_run(monkeypatch):
         res = _bench(BENCH_SHT_ORDER="3", BENCH_RAY_ORDER="3")
         assert res.returncode != 0 and not res.stdout.strip()
         assert "no CUDA device" in res.stderr
-    monkeypatch.setenv("BENCH_MODE", "MG")
-    with pytest.raises(NotImplementedError, match="slice 11"):
+    monkeypatch.setenv("BENCH_MODE", "THREEDPOT")
+    with pytest.raises(ValueError, match="BENCH_MODE=THREEDPOT"):
         bench_torch.main(["--device", "cpu"])
     monkeypatch.setenv("BENCH_MODE", "SHT")
     monkeypatch.setenv("BENCH_DEPOSIT", "TSC")
