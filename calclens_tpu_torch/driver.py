@@ -11,8 +11,9 @@ plain twins.  After each MapRedshiftList plane, run() writes the lens maps
 radial bin (gals/) before that plane's step; with RayOutputName it writes
 the ray files (io/rayio.py) at the end; with DebugIO each plane's six field
 maps.  SHTOnly = 0 takes the multigrid-refined step (poisson.plane_step_mg,
-mgdriver.py).  propagate_to_cmb carries the rays on to the last-scattering
-surface (the CMB mode).
+mgdriver.py); ThreeDPot the 3D FFT potential of the nearest N-body
+snapshot (fftpot.py).  propagate_to_cmb carries the rays on to the
+last-scattering surface (the CMB mode).
 """
 
 from __future__ import annotations
@@ -99,14 +100,6 @@ def _full_sky(cfg) -> bool:
             and cfg.minDec <= -90.0 and cfg.maxDec >= 90.0)
 
 
-def _check_supported(cfg):
-    """Raise for configuration values that later ROADMAP slices bring."""
-    if cfg.ThreeDPot:
-        raise NotImplementedError(
-            "calclens_tpu_torch does not run ThreeDPot yet: it arrives with "
-            "ROADMAP Queue 1, slice 12")
-
-
 def sph_params(cfg: RayTraceConfig):
     """The SPH deposit's static tuple (8 sigmas..., csl, min_sl, max_sl):
     the clamp range from the ray-grid floor to the first plane's angular
@@ -132,7 +125,6 @@ class Raytracer:
     """
 
     def __init__(self, cfg: RayTraceConfig, device="cuda", dtype=None):
-        _check_supported(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -175,6 +167,9 @@ class Raytracer:
         # V-cycles each plane's patch solve took
         self.mgsetup = None
         self.mg_cycles = {}
+        # ThreeDPot: the snapshot list and the cached potential grid (built
+        # at the first plane)
+        self.threedpot = None
         self._nest_dev = (None, None)  # (_ray_nest, its device copy)
         # particle arrays are padded to bucket multiples (zero-mass entries)
         self.part_bucket = 4096
@@ -362,7 +357,9 @@ class Raytracer:
         the next plane.  Returns the FieldMaps when with_maps (DebugIO
         with OutputPath sets it and writes them); the multigrid step
         (SHTOnly = 0) returns none.  With UseHEALPixLensPlaneMaps the
-        plane's mass map is read and pos, mass are not used."""
+        plane's mass map is read, with ThreeDPot the nearest snapshot's 3D
+        potential grid gives the plane (fftpot.py), and pos, mass are not
+        used."""
         cfg = self.cfg
         if cfg.DebugIO and cfg.OutputPath:
             with_maps = True
@@ -370,7 +367,14 @@ class Raytracer:
         pp = plane_params(cfg, self.cosmo, plane_num)
         kw = {"phase": self._timed_phase(plane_num)} if cfg.Profile else {}
         scal = plane_scalars(pp, self.dtype, self.device)
-        if cfg.UseHEALPixLensPlaneMaps:
+        if cfg.ThreeDPot:
+            # 3D FFT potential path (THREEDPOT, fftpoissondriver.c:45): no
+            # particle load, the snapshot's grid gives the plane's rows
+            packed = self._threedpot().step(
+                self.rays_packed, scal, cfg.BornApprx, pp.rad,
+                cfg.maxComvDistance / cfg.NumLensPlanes, **kw)
+            maps = None
+        elif cfg.UseHEALPixLensPlaneMaps:
             density = self.load_mass_map(plane_num)
             if cfg.Profile:
                 self._note_phase(plane_num, "PARTIO",
@@ -414,6 +418,16 @@ class Raytracer:
             lm.write_debug_field_maps(maps, cfg.poissonOrder, cfg.OutputPath,
                                       plane_num)
         return maps
+
+    def _threedpot(self):
+        """The THREEDPOT snapshot driver (fftpot.ThreeDPotDriver), made at
+        the first plane on the rays' device."""
+        if self.threedpot is None:
+            from .fftpot import ThreeDPotDriver
+
+            self.threedpot = ThreeDPotDriver(self.cfg, self.cosmo,
+                                             self.device)
+        return self.threedpot
 
     def _ray_nest_dev(self):
         """_ray_nest on the rays' device (None for full-sky rays in RING

@@ -3,9 +3,10 @@
 The port's own copy of the part of calclens_tpu/healpix/core.py that it
 calls: pixel counts, the per-ring geometry table of the SHT, angles <->
 vectors <-> ra/dec, RING and NEST pixel <-> angle and vector, RING <-> NEST,
-NEST -> Peano index (the legacy restart files), the host 4-pixel bilinear
-interpolation, NEST neighbours and the grid triangulation (the galaxy
-image search) (the port imports nothing of the JAX package;
+NEST <-> Peano index (the legacy restart files, the lens-plane files), the
+host 4-pixel bilinear interpolation, NEST neighbours and the grid
+triangulation (the galaxy image search), the ring-walk disc query (the SPH
+oracle) (the port imports nothing of the JAX package;
 tests/test_torch_copies.py holds the copy to the original).  Device-side
 HEALPix work lives in torchhp.py.
 
@@ -347,6 +348,40 @@ def nest2peano(pix, order):
     return result + (_FACE2PEANOFACE[face] << (2 * order))
 
 
+def _peano_inverse_tables():
+    """The automaton run backwards: (curve position -> nest child, its
+    state) per state, and the face and state of each Peano face."""
+    subpix_inv = np.zeros_like(_SUBPIX)
+    subpath_inv = np.zeros_like(_SUBPATH)
+    for s in range(8):
+        for c in range(4):
+            out = _SUBPIX[s, c]
+            subpix_inv[s, out] = c
+            subpath_inv[s, out] = _SUBPATH[s, c]
+    pf2f = np.zeros(12, dtype=np.int64)
+    pf2p = np.zeros(12, dtype=np.int64)
+    for f in range(12):
+        pf2f[_FACE2PEANOFACE[f]] = f
+        pf2p[_FACE2PEANOFACE[f]] = _FACE2PATH[f]
+    return subpix_inv, subpath_inv, pf2f, pf2p
+
+
+(_PEANO_SUBPIX_INV, _PEANO_SUBPATH_INV, _PEANOFACE2FACE,
+ _PEANOFACE2PATH) = _peano_inverse_tables()
+
+
+def peano2nest(pix, order):
+    pix = np.asarray(pix, dtype=np.int64)
+    pface = pix >> (2 * order)
+    path = _PEANOFACE2PATH[pface].copy()
+    result = np.zeros_like(pix)
+    for shift in range(2 * order - 2, -2, -2):
+        spix = (pix >> shift) & 3
+        result = (result << 2) | _PEANO_SUBPIX_INV[path, spix]
+        path = _PEANO_SUBPATH_INV[path, spix]
+    return result + (_PEANOFACE2FACE[pface] << (2 * order))
+
+
 class RingTable:
     """Static per-ring geometry for a given order (the analog of the
     reference's ``get_ring_info2``, healpix_utils.h:103).
@@ -400,6 +435,51 @@ def build_ring_table(order) -> RingTable:
         rt = RingTable(order)
         _ring_table_cache[order] = rt
     return rt
+
+
+def query_disc(theta, phi, radius, order, fact=2):
+    """Return RING pixel indices whose centers may fall within ``radius`` of
+    (theta, phi), inclusive of boundary pixels (coarse, conservative).
+
+    Host-side utility used for buffer-region marking and SPH deposits during
+    setup (reference healpix_fastdiscquery.c:30).  Simple ring-walk version.
+    """
+    rt = build_ring_table(order)
+    # inclusive: pad by the max pixel radius ~ pixel diagonal
+    pad = np.pi / (4.0 * rt.nside) * 1.4143
+    cosrad = np.cos(min(radius + pad, np.pi))
+    out = []
+    z0 = np.cos(theta)
+    sin0 = np.sqrt(max(0.0, 1.0 - z0 * z0))
+    for iring in range(1, rt.nrings + 1):
+        idx = iring - 1
+        zr = rt.z[idx]
+        sr = np.sqrt(max(0.0, 1.0 - zr * zr))
+        # cos of angular distance from (theta,phi) to ring point at dphi:
+        # cosd = z0*zr + sin0*sr*cos(dphi) ; need cosd >= cosrad
+        denom = sin0 * sr
+        num = cosrad - z0 * zr
+        if denom <= 0.0:
+            if num <= 0.0:
+                dphi_max = np.pi
+            else:
+                continue
+        else:
+            c = num / denom
+            if c >= 1.0:
+                continue
+            dphi_max = np.pi if c <= -1.0 else np.arccos(c)
+        nr = rt.ringpix[idx]
+        shift = 0.5 if rt.shifted[idx] else 0.0
+        ip_lo = int(np.ceil(nr * (phi - dphi_max) / (2 * np.pi) - shift))
+        ip_hi = int(np.floor(nr * (phi + dphi_max) / (2 * np.pi) - shift))
+        if ip_hi < ip_lo:
+            continue
+        ips = np.arange(ip_lo, ip_hi + 1, dtype=np.int64) % nr
+        out.append(rt.startpix[idx] + np.unique(ips))
+    if not out:
+        return np.zeros(0, dtype=np.int64)
+    return np.concatenate(out)
 
 
 # ----------------------------------------------------------------------------

@@ -144,7 +144,29 @@ of which must pass:
      MaxResMap, RayOutputName, OutputRayDeflections, OutputPhi and
      DebugIO on the card, on the CPU and in float64 on the CPU, the card's
      files within 5e-4 of the CPU's (or, after 8 planes, twice the
-     float32 CPU files' distance from the float64 ones).
+     float32 CPU files' distance from the float64 ones);
+ 14. the THREEDPOT path (fftpot.py) at full width: 2^27 particles from a
+     numpy seed (uniform, a quarter in 4096 Gaussian clumps of 2 Mpc/h)
+     in a 1050 Mpc/h box, written by the port's io/lgadget as two files
+     in a temporary directory the phase deletes; ThreeDPot with NFFT 1024,
+     rayOrder 10, float32, 40 planes of 25 Mpc/h (nint 48) through
+     Raytracer.step: one grid build, s/plane (first, median, last, with
+     their radii), rays/s, the peak device memory under 80 GB, plane 0
+     (with the build) by parts with CUDA events (snapshot read, upload,
+     CIC deposit, FFT solve, path sampling, propagation); the grid built
+     again with cuFFT's plan cache as it is and cleared (peaks); the
+     deposit's float64 total within 1e-6 of the particle count; the
+     float32 potential against float64 of the same counts (bound: twice
+     the card's distance at NFFT 128; the CPU's there printed beside it);
+     the float32 fields of 2^16 rays against float64 sampling of the same
+     grid (bound: twice the same comparison on the CPU, same grid and
+     rays); a 4-plane card-vs-CPU trace (box 200, NFFT 64, rayOrder 6,
+     float32, two snapshots, one in two files: the nearest snapshot
+     switches, each grid built once) within 5e-4.  The lens-plane maker and
+     the lightcone readers (io/lightcone.py, lensplane_maker.py) are host
+     numpy and h5py with no device path, and the card's machine has no
+     h5py: no phase drives them (tests/test_torch_lightcone.py and
+     tests/test_torch_copies.py do, on the CPU).
 
 It prints the card's line, a JSON line {"kernels": [...]} with each
 kernel's launches on its path's run, its error against its twin, its
@@ -296,6 +318,45 @@ MG_PARTS = ("DEPOSIT", "SHTSOLVE", "SHT", "MGDEPOSIT", "MGBC", "MGSOLVE",
 RAY_FILES = 4
 RAY_F64_FACTOR = 2.0
 DEVICE_MEMORY = 80e9
+# phase 14, the THREEDPOT path (fftpot.py) at full width: particles of one
+# snapshot (uniform, plus TDP_CLUMP_SHARE of them in TDP_CLUMPS Gaussian
+# clumps of TDP_CLUMP_SIGMA Mpc/h, structure on the grid's scale) written
+# as two LGadget files, box, grid, rays, depth and shells of 25 Mpc/h
+# (nint = 48 samples per ray and plane)
+TDP_PARTICLES = 1 << 27
+TDP_BOX = 1050.0
+TDP_NFFT = 1024
+TDP_RAY_ORDER = 10
+TDP_MAX_DIST = 1000.0
+TDP_PLANES = 40
+TDP_CLUMPS = 4096
+TDP_CLUMP_SHARE = 0.25
+TDP_CLUMP_SIGMA = 2.0
+# the deposit's float64 total against the particle count, relative
+TDP_DEPOSIT_BOUND = 1e-6
+# the float32 potential and the float32 fields of TDP_CHECK_RAYS rays at
+# plane TDP_CHECK_PLANE against float64 on the card: the potential within
+# TDP_F64_FACTOR times the same comparison on the card at NFFT
+# TDP_CPU_NFFT (the same counts deposited on the coarse grid; the CPU's
+# distance there is printed beside it: MKL's float32 transform lies nearer
+# float64 than cuFFT's at equal size, so the CPU cannot bound the card's
+# transform), the fields within
+# TDP_F64_FACTOR times the CPU's distance on the same grid and rays (in
+# float32 a second difference loses digits as the cells shrink, so a
+# coarser grid would not bound a finer one)
+TDP_CHECK_RAYS = 1 << 16
+TDP_CHECK_PLANE = 20
+TDP_CPU_NFFT = 128
+TDP_F64_FACTOR = 2.0
+# the card-vs-CPU trace: box, grid, rays, planes over maxComvDistance, and
+# two snapshots (at these comoving distances; the second in two files) of
+# this many particles and clumps each, so the nearest snapshot switches
+# after plane 1 and each grid is built once
+TDP_TRACE = dict(box=200.0, nfft=64, ray_order=6, planes=4, max_dist=400.0,
+                 snap_chi=(100.0, 300.0), particles=1 << 16, clumps=64)
+# the THREEDPOT step's parts (fftpot.ThreeDPotDriver's phase tags)
+TDP_PARTS = ("PARTIO", "UPLOAD", "DEPOSIT", "FFTSOLVE", "FFTSAMPLE",
+             "RAYPROP")
 
 
 class SmokeFailure(Exception):
@@ -2223,6 +2284,340 @@ def report_ray_outputs(r, card):
         + f" (bound {RAY_F64_FACTOR:g}x)")
 
 
+def clumpy_snapshot(n, box, seed, clumps=TDP_CLUMPS):
+    """n float32 positions in [0, box)^3 from a numpy seed: a uniform
+    background, and TDP_CLUMP_SHARE of them in `clumps` Gaussian clumps of
+    TDP_CLUMP_SIGMA."""
+    rng = np.random.default_rng(seed)
+    box = np.float32(box)
+    nc = int(n * TDP_CLUMP_SHARE)
+    pos = np.empty((n, 3), np.float32)
+    pos[nc:] = rng.random((n - nc, 3), dtype=np.float32) * box
+    centres = rng.random((clumps, 3), dtype=np.float32) * box
+    pos[:nc] = centres[rng.integers(0, clumps, nc)]
+    pos[:nc] += rng.standard_normal((nc, 3), dtype=np.float32) * np.float32(
+        TDP_CLUMP_SIGMA)
+    np.mod(pos[:nc], box, out=pos[:nc])
+    return pos
+
+
+def write_lgadget(stem, pos, box, time_a, nfiles):
+    """pos as one LGadget snapshot of nfiles files (<stem>.0 ... when
+    nfiles > 1, else <stem>), each particle of the box's mean mass at
+    OmegaM 0.3, through the port's io/lgadget.write_snapshot."""
+    from calclens_tpu_torch.cosmology import RHO_CRIT
+    from calclens_tpu_torch.io import lgadget
+
+    n = len(pos)
+    mass = RHO_CRIT * 0.3 * box ** 3 / n / 1e10
+    for i, part in enumerate(np.array_split(pos, nfiles)):
+        lgadget.write_snapshot(stem if nfiles == 1 else f"{stem}.{i}", part,
+                               mass1_1e10=mass, time=time_a, boxsize=box,
+                               num_files=nfiles, npart_total=n)
+
+
+def threedpot_config(snaplist, ray_order, nfft, max_dist, planes):
+    """A float32 full-sky THREEDPOT run (the SHT plan the Raytracer builds
+    is not used; SHTOrder 6 keeps it small)."""
+    from calclens_tpu_torch.config import RayTraceConfig
+
+    return RayTraceConfig(OmegaM=0.3, maxComvDistance=max_dist,
+                          NumLensPlanes=planes, SHTOrder=6,
+                          rayOrder=ray_order, bundleOrder=min(ray_order, 5),
+                          ThreeDPot=True, ThreeDPotSnapList=snaplist,
+                          NFFT=nfft, Precision="f32").finalize()
+
+
+def max_rel(got, ref, chunk=1 << 26):
+    """max |got - ref| / max |ref| over flat views, in float64, chunk by
+    chunk (no full float64 copy of a float32 grid)."""
+    g, r = got.reshape(-1), ref.reshape(-1)
+    num = den = 0.0
+    for a in range(0, g.numel(), chunk):
+        rr = r[a:a + chunk].double()
+        num = max(num, float((g[a:a + chunk].double() - rr).abs().max()))
+        den = max(den, float(rr.abs().max()))
+    return num / den
+
+
+def field_distances(padded, nfft, box, rows, plane_rad, binL, nint):
+    """The THREEDPOT rows (alpha, U, phi) of the [21, R] rays `rows` from
+    one padded grid, float32 against float64: (distances per quantity, the
+    float32 rows)."""
+    import torch
+    from calclens_tpu_torch import fftpot
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        r = rows.to(dtype).clone()
+        r[14:21] = 0.0
+
+        def s(x):
+            return torch.tensor(x, dtype=dtype, device=rows.device)
+
+        out[dtype] = fftpot.threedpot_rows(r, padded, nfft, nint, s(box),
+                                           s(plane_rad), s(binL))
+    f32, f64 = out[torch.float32], out[torch.float64]
+    dist = {q: max_rel(f32[a:b], f64[a:b])
+            for q, (a, b) in (("alpha", (14, 16)), ("U", (16, 20)),
+                              ("phi", (20, 21)))}
+    return dist, f32
+
+
+def threedpot_full(tmp):
+    """Phase 14's full-width run: the snapshot (TDP_PARTICLES in two
+    files), Raytracer.step over TDP_PLANES planes, plane 0 (with the grid
+    build) timed by parts with CUDA events; the fields of TDP_CHECK_RAYS
+    rays against float64 on the card and on the CPU; the grid built again
+    with cuFFT's plan cache as it is and cleared; the deposit's total and
+    the float32 potential against float64 of the same counts (and the same
+    comparison on the CPU at TDP_CPU_NFFT)."""
+    import torch
+    from calclens_tpu_torch import fftpot
+    from calclens_tpu_torch.cosmology import RHO_CRIT
+    from calclens_tpu_torch.driver import Raytracer, plane_params
+    from calclens_tpu_torch.io import lgadget
+
+    res = {}
+    t0 = time.perf_counter()
+    pos = clumpy_snapshot(TDP_PARTICLES, TDP_BOX, 14)
+    stem = os.path.join(tmp, "snap_full")
+    write_lgadget(stem, pos, TDP_BOX, 1.0, 2)
+    del pos
+    res["snapshot_s"] = time.perf_counter() - t0
+    res["snapshot_bytes"] = sum(os.path.getsize(f)
+                                for f in fftpot.snapshot_files(stem))
+    lst = os.path.join(tmp, "full.txt")
+    with open(lst, "w") as fp:
+        fp.write(stem + "\n")
+    cfg = threedpot_config(lst, TDP_RAY_ORDER, TDP_NFFT, TDP_MAX_DIST,
+                           TDP_PLANES)
+    rt = Raytracer(cfg, device="cuda")
+    rt.init_rays()
+    nrays = rt.rays_packed.shape[1]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    parts = {}
+    rt._timed_phase = lambda plane_num: event_phase(parts)
+    rt.cfg.Profile = True  # the step passes the hook only in Profile mode
+    times = []
+    for p in range(TDP_PLANES):
+        if p == 1:
+            rt.cfg.Profile = False
+            del rt._timed_phase
+        t = time.perf_counter()
+        rt.step(p)  # ends in torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    res["peak"] = torch.cuda.max_memory_allocated()
+    res["part_ms"] = {tag: sum(a.elapsed_time(b) for a, b in parts[tag])
+                      for tag in TDP_PARTS}
+    check(rt.threedpot.builds == 1,
+          f"THREEDPOT grid built {rt.threedpot.builds} times")
+    check(bool(torch.isfinite(rt.rays_packed).all()),
+          "THREEDPOT: non-finite rays")
+    check(res["peak"] < DEVICE_MEMORY,
+          f"THREEDPOT peak {res['peak'] / 1e9:.2f} GB")
+    res.update(times=times, nrays=nrays, radii=[
+        plane_params(cfg, rt.cosmo, p).rad for p in range(TDP_PLANES)])
+
+    # the fields of TDP_CHECK_RAYS rays at plane TDP_CHECK_PLANE, float32
+    # against float64, on the card and (same grid, same rays) on the CPU
+    grid, box, padded = rt.threedpot._cached[2:]
+    binL = TDP_MAX_DIST / TDP_PLANES
+    nint = rt.threedpot.nint(box, TDP_NFFT, binL)
+    rad = plane_params(cfg, rt.cosmo, TDP_CHECK_PLANE).rad
+    sel = torch.arange(0, nrays, nrays // TDP_CHECK_RAYS,
+                       device="cuda")[:TDP_CHECK_RAYS]
+    rows = rt.rays_packed[:, sel]
+    card_d, card32 = field_distances(padded, TDP_NFFT, box, rows, rad, binL,
+                                     nint)
+    t = time.perf_counter()
+    cpu_d, cpu32 = field_distances(padded.cpu(), TDP_NFFT, box, rows.cpu(),
+                                   rad, binL, nint)
+    res["fields_cpu_s"] = time.perf_counter() - t
+    check(bool(torch.isfinite(card32).all()), "THREEDPOT fields non-finite")
+    res["fields"] = dict(card=card_d, cpu=cpu_d, nint=nint, rad=rad,
+                         card_vs_cpu=grouped_row_err(card32.cpu(), cpu32))
+    for q in card_d:
+        check(card_d[q] <= TDP_F64_FACTOR * cpu_d[q],
+              f"THREEDPOT float32 {q} {card_d[q]:.3e} from float64 on the "
+              f"card, {cpu_d[q]:.3e} on the CPU")
+    del grid, padded, rows, card32, cpu32
+
+    # the grid build again, cuFFT's plan cache as it is, then cleared
+    builds = []
+    for clear in (False, True):
+        rt.threedpot._cached = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        if clear:
+            torch.backends.cuda.cufft_plan_cache.clear()
+        plans = torch.backends.cuda.cufft_plan_cache.size
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        rt.threedpot.grid_for_plane(res["radii"][0], fftpot.MIN_SL)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        # the CUDA context and cuFFT's plans: device memory in use that
+        # PyTorch's allocator does not hold
+        builds.append(dict(cleared=clear, plans_before=plans, s=build_s,
+                           peak=peak, plans_after=(
+                               torch.backends.cuda.cufft_plan_cache.size),
+                           outside=total - free
+                           - torch.cuda.memory_reserved()))
+    res["builds"] = builds
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the deposit's total, and the float32 potential against float64 of the
+    # same counts: on the card at TDP_NFFT and TDP_CPU_NFFT, on the CPU at
+    # TDP_CPU_NFFT
+    counts = torch.zeros((TDP_NFFT,) * 3, dtype=torch.float32, device="cuda")
+    coarse = torch.zeros((TDP_CPU_NFFT,) * 3, dtype=torch.float32,
+                         device="cuda")
+    for fn in fftpot.snapshot_files(stem):
+        pos, _ = lgadget.read_positions_f32(fn)
+        pos_d = torch.from_numpy(pos).cuda()
+        del pos
+        fftpot.cic_deposit_3d(pos_d, TDP_NFFT, np.float32(TDP_BOX), counts)
+        fftpot.cic_deposit_3d(pos_d, TDP_CPU_NFFT, np.float32(TDP_BOX),
+                              coarse)
+        del pos_d
+    total = float(counts.double().sum())
+    res["deposit_total"] = total
+    check(abs(total - TDP_PARTICLES) / TDP_PARTICLES < TDP_DEPOSIT_BOUND,
+          f"THREEDPOT deposit total {total!r} of {TDP_PARTICLES}")
+    mp = RHO_CRIT * 0.3 * TDP_BOX ** 3 / TDP_PARTICLES
+    pot = {}
+    for label, c, n in (("card", counts, TDP_NFFT),
+                        ("card_coarse", coarse, TDP_CPU_NFFT),
+                        ("cpu", coarse.cpu(), TDP_CPU_NFFT)):
+        p32 = fftpot.potential_from_counts(c, n, TDP_BOX, 1.0, mp)
+        p64 = fftpot.solve_potential(c.double(), n, TDP_BOX, 1.0, mp,
+                                     torch.float64)
+        pot[label] = max_rel(p32, p64)
+        check(bool(torch.isfinite(p32).all()), f"{label} potential")
+        del p32, p64
+    res["potential"] = pot
+    check(pot["card"] <= TDP_F64_FACTOR * pot["card_coarse"],
+          f"THREEDPOT float32 potential {pot['card']:.3e} from float64 on "
+          f"the card at NFFT {TDP_NFFT}, {pot['card_coarse']:.3e} at "
+          f"{TDP_CPU_NFFT} ({pot['cpu']:.3e} on the CPU)")
+    del counts, coarse
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def threedpot_trace(tmp):
+    """The card-vs-CPU THREEDPOT trace (TDP_TRACE, float32): two snapshots,
+    the second in two files; the packed rays within TRACE_BOUND of each
+    quantity's max after every plane; each driver built each grid once."""
+    from calclens_tpu_torch import fftpot
+    from calclens_tpu_torch.cosmology import Cosmology
+    from calclens_tpu_torch.driver import Raytracer, plane_params
+
+    T = TDP_TRACE
+    cosmo = Cosmology(0.3)
+    stems = []
+    for k, chi in enumerate(T["snap_chi"]):
+        stem = os.path.join(tmp, f"snap_{k}")
+        write_lgadget(stem, clumpy_snapshot(T["particles"], T["box"], 20 + k,
+                                            T["clumps"]),
+                      T["box"], float(cosmo.acomvdist(chi)), k + 1)
+        stems.append(stem)
+    lst = os.path.join(tmp, "trace.txt")
+    with open(lst, "w") as fp:
+        fp.write("\n".join(stems) + "\n")
+    cfg = threedpot_config(lst, T["ray_order"], T["nfft"], T["max_dist"],
+                           T["planes"])
+    cpu = Raytracer(cfg, device="cpu")
+    gpu = Raytracer(cfg, device="cuda")
+    for rt in (cpu, gpu):
+        rt.init_rays()
+    errs = []
+    for p in range(T["planes"]):
+        cpu.step(p)
+        gpu.step(p)
+        errs.append(grouped_row_err(gpu.rays_packed.cpu(), cpu.rays_packed))
+    snaps = [fftpot.nearest_snap(gpu.threedpot.snaps,
+                                 plane_params(cfg, cosmo, p).rad)
+             for p in range(T["planes"])]
+    check(snaps[0] != snaps[-1], f"THREEDPOT trace snapshots {snaps}")
+    check(cpu.threedpot.builds == gpu.threedpot.builds == 2,
+          f"THREEDPOT trace builds {cpu.threedpot.builds}, "
+          f"{gpu.threedpot.builds}")
+    check(max(errs) < TRACE_BOUND,
+          f"THREEDPOT trace, CUDA vs CPU: {errs}")
+    return dict(errs=errs, snaps=snaps, nrays=gpu.rays_packed.shape[1])
+
+
+def threedpot_phase():
+    """Phase 14: the full-width run and the card-vs-CPU trace, each in a
+    temporary directory deleted at its end."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        full = threedpot_full(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = threedpot_trace(tmp)
+    return dict(full=full, trace=trace)
+
+
+def report_threedpot(r, card):
+    f = r["full"]
+    times = f["times"]
+    med = float(np.median(times[1:]))
+    say(f"phase 14 ({card}): THREEDPOT NFFT {TDP_NFFT}, rayOrder "
+        f"{TDP_RAY_ORDER} ({f['nrays']} rays), {TDP_PARTICLES} particles in "
+        f"2 LGadget files ({f['snapshot_bytes']} bytes, made and written in "
+        f"{f['snapshot_s']:.2f} s), {TDP_PLANES} planes of "
+        f"{TDP_MAX_DIST / TDP_PLANES:g} Mpc/h, nint {f['fields']['nint']}, "
+        f"float32: first plane (with the grid build) {times[0]:.4f} s at "
+        f"{f['radii'][0]:.1f} Mpc/h, median of planes 1-{TDP_PLANES - 1} "
+        f"{med:.4f} s/plane ({f['nrays'] / med:.0f} rays/s), plane "
+        f"{len(times) // 2} {times[len(times) // 2]:.4f} s at "
+        f"{f['radii'][len(times) // 2]:.1f}, last {times[-1]:.4f} s at "
+        f"{f['radii'][-1]:.1f}; all {sum(times):.2f} s; peak "
+        f"{f['peak'] / 2**30:.2f} GiB")
+    pm = f["part_ms"]
+    say("phase 14: plane 0 by parts (CUDA events): "
+        + ", ".join(f"{t} {pm[t]:.2f} ms" for t in TDP_PARTS)
+        + f"; grid build (read, upload, deposit, solve) "
+        f"{sum(pm[t] for t in TDP_PARTS[:4]) / 1e3:.4f} s")
+    for b in f["builds"]:
+        say(f"phase 14: grid build with cuFFT's plan cache "
+            f"{'cleared' if b['cleared'] else 'as it is'} ({b['plans_before']}"
+            f" plans before, {b['plans_after']} after): {b['s']:.4f} s, peak "
+            f"{b['peak'] / 2**30:.2f} GiB allocated; device memory outside "
+            f"PyTorch's allocator after it {b['outside'] / 2**30:.2f} GiB")
+    fl = f["fields"]
+    say(f"phase 14: fields of {TDP_CHECK_RAYS} rays at {fl['rad']:.1f} Mpc/h, "
+        f"float32 vs float64, card | CPU (same grid and rays; bound "
+        f"{TDP_F64_FACTOR:g}x the CPU's): "
+        + ", ".join(f"{q} {fl['card'][q]:.3e} | {fl['cpu'][q]:.3e}"
+                    for q in fl["card"])
+        + f"; float32 card vs CPU {fl['card_vs_cpu']:.3e}; the CPU's two "
+        f"samplings {f['fields_cpu_s']:.2f} s")
+    say(f"phase 14: deposit total {f['deposit_total']!r} of {TDP_PARTICLES} "
+        f"(bound {TDP_DEPOSIT_BOUND:g}); float32 potential vs float64 of the "
+        f"same counts: card NFFT {TDP_NFFT} {f['potential']['card']:.3e} "
+        f"(bound {TDP_F64_FACTOR:g}x the card's at NFFT {TDP_CPU_NFFT}, "
+        f"{f['potential']['card_coarse']:.3e}); CPU NFFT {TDP_CPU_NFFT} "
+        f"{f['potential']['cpu']:.3e}")
+    t = r["trace"]
+    say(f"phase 14: THREEDPOT trace order {TDP_TRACE['ray_order']} "
+        f"({t['nrays']} rays), NFFT {TDP_TRACE['nfft']}, f32, CUDA vs CPU per "
+        f"plane: {', '.join(f'{e:.3e}' for e in t['errs'])} (bound "
+        f"{TRACE_BOUND:g}); snapshot per plane {t['snaps']}")
+
+
 def main():
     import torch
 
@@ -2486,6 +2881,13 @@ def main():
     del snap
     say(f"phase 13: {time.perf_counter() - t0:.1f} s")
     mg_launches = mgr["design"]["launches"]
+    torch.cuda.empty_cache()
+
+    # 14. the THREEDPOT path at full width (NFFT 1024, 2^27 particles in two
+    # files, rayOrder 10) and its card-vs-CPU trace
+    t0 = time.perf_counter()
+    report_threedpot(threedpot_phase(), card)
+    say(f"phase 14: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, **extra):

@@ -1,10 +1,12 @@
 """The port's own copies of the JAX package's host modules against the
 originals on the same inputs: config, cosmology, healpix.core (the part the
-port calls, the galaxy search's and the legacy restarts' helpers
-included), the io readers (FITS ring weights and pixel windows, pixLC and
-HDF5 lens planes) on files written by the JAX package's writers, the
-precomputed mass maps (io/healpix_maps), utils/profile and bench.py's
-reference constants (benchconst).
+port calls, the galaxy search's, the legacy restarts' and the lens planes'
+helpers included), the io readers (FITS ring weights and pixel windows,
+pixLC and HDF5 lens planes) on files written by the JAX package's writers,
+the HDF5 plane writer, LGadget snapshots, the lightcone readers and the
+lens-plane maker, the point-mass and NFW plane writers and the SPH oracle
+(testing/), the precomputed mass maps (io/healpix_maps), utils/profile and
+bench.py's reference constants (benchconst).
 The copies run the same numpy code, so every result must be equal."""
 import dataclasses
 
@@ -276,3 +278,228 @@ def test_bench_constants_match_bench_py():
                 1.0 if ray_order <= 10 else
                 1.0 + 0.012 * (4.0 ** (ray_order - 10) - 1.0))
             assert bc.reference_core_step_seconds(order, ray_order) == want
+
+
+def _h5_datasets(path):
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return {k: np.asarray(f[k]) for k in f.keys()}
+
+
+def _same_h5(got_path, ref_path):
+    got, ref = _h5_datasets(got_path), _h5_datasets(ref_path)
+    assert sorted(got) == sorted(ref)
+    for key in ref:
+        np.testing.assert_array_equal(got[key], ref[key])
+        assert got[key].dtype == ref[key].dtype, key
+
+
+@pytest.mark.parametrize("order", [2, 3, 5])
+def test_healpix_core_plane_helpers_match_jax(order):
+    """peano2nest (the subset plane reads) and query_disc (the SPH oracle)."""
+    pix = np.arange(int(jhp.order2npix(order)))
+    np.testing.assert_array_equal(thp.peano2nest(pix, order),
+                                  jhp.peano2nest(pix, order))
+    np.testing.assert_array_equal(thp.peano2nest(thp.nest2peano(pix, order),
+                                                 order), pix)
+    for theta, phi, radius in ((0.3, 1.0, 0.2), (0.0, 0.0, 0.05),
+                               (2.9, 5.5, 0.6), (1.57, 3.1, 0.01)):
+        np.testing.assert_array_equal(
+            thp.query_disc(theta, phi, radius, order),
+            jhp.query_disc(theta, phi, radius, order))
+
+
+def test_lgadget_copy_writes_and_reads_as_jax(tmp_path):
+    from calclens_tpu.io import lgadget as jlg
+    from calclens_tpu_torch.io import lgadget as tlg
+
+    for args in ((5, 2.5, 0.7, 0.4, 5, 1, 1000.0, 0.3, 0.7, 0.7),
+                 (7, 1.0, 1.0, 0.0, (3 << 32) + 11, 8, 50.0, 0.25, 0.75,
+                  0.68)):
+        assert tlg.write_header(*args) == jlg.write_header(*args)
+    pos = np.random.default_rng(3).uniform(-5.0, 505.0, (777, 3))
+    kw = dict(mass1_1e10=4.5, time=0.6, boxsize=500.0, num_files=2,
+              npart_total=1554)
+    jlg.write_snapshot(str(tmp_path / "j.0"), pos, **kw)
+    tlg.write_snapshot(str(tmp_path / "t.0"), pos, **kw)
+    assert (tmp_path / "t.0").read_bytes() == (tmp_path / "j.0").read_bytes()
+    fn = str(tmp_path / "j.0")
+    assert tlg.read_header(fn) == jlg.read_header(fn)
+    got, ref = tlg.read_positions(fn), jlg.read_positions(fn)
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[1], ref[1])
+    assert got[0].dtype == ref[0].dtype and got[2] == ref[2]
+    raw, hd = tlg.read_positions_f32(fn)
+    assert raw.dtype == np.float32 and hd == ref[2]
+    np.testing.assert_array_equal(raw.astype(np.float64), ref[0])
+
+
+def test_lightcone_copy_matches_jax(tmp_path):
+    """The GADGET2 and ARTLC writers write the same bytes, the readers and
+    chunk iterators give the same arrays."""
+    from calclens_tpu.io import lightcone as jlc
+    from calclens_tpu_torch.io import lightcone as tlc
+
+    rng = np.random.default_rng(5)
+    pos = rng.normal(size=(900, 3)) * 300.0
+    vel = rng.normal(size=(900, 3))
+    g2 = dict(vel=vel, npart_by_type=(100, 800, 0, 0, 0, 0),
+              mass_by_type=(3.0, 1.5, 0, 0, 0, 0), time=0.7)
+    jlc.write_gadget2(str(tmp_path / "j.g2"), pos, **g2)
+    tlc.write_gadget2(str(tmp_path / "t.g2"), pos, **g2)
+    jlc.write_artlc(str(tmp_path / "j.art"), pos, vel=vel,
+                    partid=np.arange(900) * 2)
+    tlc.write_artlc(str(tmp_path / "t.art"), pos, vel=vel,
+                    partid=np.arange(900) * 2)
+    for ext in ("g2", "art"):
+        assert (tmp_path / f"t.{ext}").read_bytes() == \
+            (tmp_path / f"j.{ext}").read_bytes()
+    g2f, artf = str(tmp_path / "j.g2"), str(tmp_path / "j.art")
+    got, ref = tlc.read_gadget2(g2f), jlc.read_gadget2(g2f)
+    for g, r in zip(got[:3], ref[:3]):
+        np.testing.assert_array_equal(g, r)
+    assert got[3] == ref[3]
+    for g, r in zip(tlc.read_artlc(artf), jlc.read_artlc(artf)):
+        np.testing.assert_array_equal(g, r)
+    for t_it, j_it in (
+            (tlc.gadget2_chunks([g2f], 1e10, 1e-3, 256),
+             jlc.gadget2_chunks([g2f], 1e10, 1e-3, 256)),
+            (tlc.artlc_chunks([artf], 2e11, 256),
+             jlc.artlc_chunks([artf], 2e11, 256))):
+        t_l, j_l = list(t_it), list(j_it)
+        assert len(t_l) == len(j_l) == 4
+        for (gp, gm), (rp, rm) in zip(t_l, j_l):
+            np.testing.assert_array_equal(gp, rp)
+            np.testing.assert_array_equal(gm, rm)
+
+
+def test_lensplanes_writer_and_subset_reader_match_jax(tmp_path):
+    """write_plane writes JAX's datasets; read_plane of every cell and of
+    a subset of cells at the file's order, a coarser and a finer one reads
+    JAX's particles."""
+    rng = np.random.default_rng(9)
+    pos = rng.normal(size=(500, 3)) * 400.0
+    mass = rng.uniform(1e11, 1e12, 500)
+    vel = rng.normal(size=(500, 3))
+    jfn = str(tmp_path / "j.h5")
+    tfn = str(tmp_path / "t.h5")
+    jlens.write_plane(jfn, 3, pos, mass, vel=vel, partid=np.arange(500) + 7)
+    tlens.write_plane(tfn, 3, pos, mass, vel=vel, partid=np.arange(500) + 7)
+    _same_h5(tfn, jfn)
+    assert tlens.LCPARTICLE_DTYPE == jlens.LCPARTICLE_DTYPE
+    for cells, order in ((None, None), ([0, 5, 77, 700], 3), ([1, 9], 2),
+                         (list(range(40, 300)), 4)):
+        got = tlens.read_plane(jfn, cells, order)
+        ref = jlens.read_plane(jfn, cells, order)
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g, r)
+        if cells is not None:
+            assert tlens._file_cells_for(cells, order, 3) == \
+                jlens._file_cells_for(cells, order, 3)
+    assert len(tlens.read_plane(jfn, [1, 9], 2)[0]) > 0
+
+
+def test_lensplane_maker_copy_matches_jax(tmp_path):
+    """lgadget_chunks, make_lensplanes (PlaneWriter's appends over several
+    chunks) and make_debug_maps: the same chunks, plane files and maps."""
+    from calclens_tpu import lensplane_maker as jmk
+    from calclens_tpu.io import lgadget as jlg
+    from calclens_tpu_torch import lensplane_maker as tmk
+
+    rng = np.random.default_rng(12)
+    v = rng.normal(size=(3000, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    pos = v * rng.uniform(1.0, 1000.0, (3000, 1))
+    pos[:2] = [[0.0, 0.0, 1000.0], [999.9999, 0.0, 0.0]]  # the last shell
+    fn = str(tmp_path / "lc.0")
+    jlg.write_snapshot(fn, pos, mass1_1e10=2.0)
+    t_l = list(tmk.lgadget_chunks([fn], chunk=1000))
+    j_l = list(jmk.lgadget_chunks([fn], chunk=1000))
+    assert len(t_l) == len(j_l) == 3
+    for (gp, gm), (rp, rm) in zip(t_l, j_l):
+        np.testing.assert_array_equal(gp, rp)
+        np.testing.assert_array_equal(gm, rm)
+    kw = dict(num_planes=5, max_comv_distance=1000.0, lens_plane_order=2,
+              mass_conv=1.5, length_conv=1.0, partid_start=10)
+    counts_t = tmk.make_lensplanes(iter(t_l), str(tmp_path / "t"), "p", **kw)
+    counts_j = jmk.make_lensplanes(iter(j_l), str(tmp_path / "j"), "p", **kw)
+    assert counts_t == counts_j and sum(counts_t) == 3000
+    for p in range(5):
+        _same_h5(tlens.plane_filename(str(tmp_path / "t"), "p", p),
+                 jlens.plane_filename(str(tmp_path / "j"), "p", p))
+    np.testing.assert_array_equal(
+        tmk.make_debug_maps(str(tmp_path / "j"), "p", 5, map_order=3),
+        jmk.make_debug_maps(str(tmp_path / "j"), "p", 5, map_order=3))
+
+
+def test_pointmass_copy_matches_jax(tmp_path):
+    """The point-mass and NFW plane writers write JAX's planes, and every
+    analytic helper gives JAX's values."""
+    from calclens_tpu.testing import pointmass as jpm
+    from calclens_tpu_torch.testing import pointmass as tpm
+
+    kw = dict(OmegaM=0.3, maxComvDistance=2000.0, NumLensPlanes=4,
+              LensPlaneName="pm", SHTOrder=4, rayOrder=4, bundleOrder=2,
+              partMass=5.0e15, raPointMass=32.0, decPointMass=14.0,
+              radPointMass=625.0, PointMassTest=True)
+    for snap in (None, 4):
+        jc = jconfig.RayTraceConfig(LensPlanePath=str(tmp_path / f"j{snap}"),
+                                    **kw).finalize()
+        tc = tconfig.RayTraceConfig(LensPlanePath=str(tmp_path / f"t{snap}"),
+                                    **kw).finalize()
+        (tv, tp), (jv, jp) = (tpm.make_pointmass_planes(tc, snap),
+                              jpm.make_pointmass_planes(jc, snap))
+        np.testing.assert_array_equal(tv, jv)
+        assert tp == jp
+        for p in range(4):
+            _same_h5(tlens.plane_filename(tc.LensPlanePath, "pm", p),
+                     jlens.plane_filename(jc.LensPlanePath, "pm", p))
+    jc = jconfig.RayTraceConfig(LensPlanePath=str(tmp_path / "jn"),
+                                **kw).finalize()
+    tc = tconfig.RayTraceConfig(LensPlanePath=str(tmp_path / "tn"),
+                                **kw).finalize()
+    got = tpm.make_nfw_planes(tc, n_parts=2000, seed=4)
+    ref = jpm.make_nfw_planes(jc, n_parts=2000, seed=4)
+    np.testing.assert_array_equal(got[0], ref[0])
+    assert got[1:] == ref[1:]
+    for p in range(4):
+        _same_h5(tlens.plane_filename(tc.LensPlanePath, "pm", p),
+                 jlens.plane_filename(jc.LensPlanePath, "pm", p))
+    gamma = np.linspace(0.01, 0.5, 40)
+    tco, jco = tcosmo.Cosmology(0.3), jcosmo.Cosmology(0.3)
+    q = jpm.charge(jc, jco, 625.0)
+    assert tpm.charge(tc, tco, 625.0) == q
+    assert tpm.G_OVER_C2 == jpm.G_OVER_C2
+    bl = np.exp(-np.arange(41) / 30.0)
+    for name, args in (("alpha_exact", (gamma, q)),
+                       ("alpha_smallangle", (gamma, q)),
+                       ("alpha_bandlimited", (gamma, q, 40)),
+                       ("alpha_bandlimited", (gamma, q, 40, bl)),
+                       ("shear_tangential", (gamma, q, 625.0, 1500.0)),
+                       ("nfw_rho", (gamma * 10.0, 1.2, 5.0)),
+                       ("nfw_mass_2d", (np.append(gamma, 0.24), 1.2, 5.0,
+                                        1e14))):
+        np.testing.assert_array_equal(getattr(tpm, name)(*args),
+                                      getattr(jpm, name)(*args))
+    np.testing.assert_array_equal(
+        tpm.sample_nfw(np.random.default_rng(2), 500, 1.2, 5.0),
+        jpm.sample_nfw(np.random.default_rng(2), 500, 1.2, 5.0))
+    np.testing.assert_array_equal(
+        tpm.alpha_nfw(gamma, tc, tco, 625.0, 1.2, 5.0, 1e14),
+        jpm.alpha_nfw(gamma, jc, jco, 625.0, 1.2, 5.0, 1e14))
+
+
+def test_sph_oracle_copy_matches_jax():
+    """deposit_sph_exact: the same RING map, adaptive query orders and the
+    NGP fallback included."""
+    from calclens_tpu.testing import sph_oracle as jso
+    from calclens_tpu_torch.testing import sph_oracle as tso
+
+    rng = np.random.default_rng(6)
+    pos = rng.normal(size=(12, 3)) * 500.0
+    mass = rng.uniform(1e12, 1e13, 12)
+    sl = np.concatenate([rng.uniform(0.02, 0.4, 11), [1e-4]])
+    np.testing.assert_array_equal(tso.deposit_sph_exact(4, pos, mass, sl),
+                                  jso.deposit_sph_exact(4, pos, mass, sl))
+    assert tso.SMOOTHKERN_SHTRESOLVE_FAC == jso.SMOOTHKERN_SHTRESOLVE_FAC

@@ -199,15 +199,22 @@ def test_import_port_leaves_jax_unloaded():
     chip_smoke.py and bench_torch.py import (at any depth), then stepping
     a plane with each deposit (NGP, CIC in a box, SPH) and a precomputed
     mass-map plane, searching a galaxy's images (device and Born), a
-    legacy restart carried to the CMB, and a multigrid and an SHT-only
-    plane with DebugIO and their ray files, loads neither jax nor the JAX
-    package calclens_tpu."""
+    legacy restart carried to the CMB, a multigrid and an SHT-only plane
+    with DebugIO and their ray files, and a THREEDPOT plane from an LGadget
+    snapshot, loads neither jax nor the JAX package calclens_tpu; and
+    importing them (the lens-plane maker and the HDF5 plane module
+    included) loads no h5py, which the card's machine does not have."""
     code = (
         "import ast, importlib, pkgutil, sys\n"
         "import calclens_tpu_torch\n"
         "for mod in pkgutil.walk_packages(calclens_tpu_torch.__path__,\n"
         "                                 'calclens_tpu_torch.'):\n"
         "    importlib.import_module(mod.name)\n"
+        "for mod in ('fftpot', 'io.lgadget', 'io.lightcone', 'io.lensplanes',\n"
+        "            'lensplane_maker', 'testing.pointmass',\n"
+        "            'testing.sph_oracle'):\n"
+        "    assert 'calclens_tpu_torch.' + mod in sys.modules, mod\n"
+        "assert 'h5py' not in sys.modules, 'h5py loaded at import'\n"
         "for script in ('chip_smoke.py', 'bench_torch.py'):\n"
         "    with open(script) as fp:\n"
         "        tree = ast.parse(fp.read())\n"
@@ -267,6 +274,18 @@ def test_import_port_leaves_jax_unloaded():
         "    rt.init_rays()\n"
         "    rt.step(0, pos=[[40.0, 30.0, 0.0]], mass=[1e12])\n"
         "    rt.write_rays()\n"
+        "from calclens_tpu_torch.io import lgadget\n"
+        "lgadget.write_snapshot(tmp + '/snap', [[1.0, 2.0, 3.0]],\n"
+        "                       boxsize=10.0)\n"
+        "with open(tmp + '/snaps.txt', 'w') as fp:\n"
+        "    fp.write(tmp + '/snap\\n')\n"
+        "rt = Raytracer(RayTraceConfig(\n"
+        "    maxComvDistance=100.0, NumLensPlanes=2, SHTOrder=2, rayOrder=2,\n"
+        "    bundleOrder=1, ThreeDPot=True, NFFT=8,\n"
+        "    ThreeDPotSnapList=tmp + '/snaps.txt').finalize(), device='cpu')\n"
+        "rt.init_rays()\n"
+        "rt.step(0)\n"
+        "assert rt.threedpot.builds == 1\n"
         "for mod in ('calclens_tpu_torch.driver', 'calclens_tpu_torch.poisson',\n"
         "            'calclens_tpu_torch.ops.deposit',\n"
         "            'calclens_tpu_torch.io.healpix_maps',\n"
@@ -278,7 +297,8 @@ def test_import_port_leaves_jax_unloaded():
         "            'calclens_tpu_torch.tools.bench_gals',\n"
         "            'calclens_tpu_torch.mg', 'calclens_tpu_torch.mgdriver',\n"
         "            'calclens_tpu_torch.io.rayio',\n"
-        "            'calclens_tpu_torch.rays.frames'):\n"
+        "            'calclens_tpu_torch.rays.frames',\n"
+        "            'calclens_tpu_torch.fftpot'):\n"
         "    assert mod in sys.modules, mod\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith(('jax.', 'jaxlib')) or\n"

@@ -260,16 +260,13 @@ def test_npz_restart_roundtrip_jax_port_jax(jax_tracer, tmp_path):
     ("GalsFileList", "gals.txt", 8), ("DebugIO", True, 10),
     ("RayOutputName", "rays", 10), ("CMBLensing", 1, 9)])
 def test_out_of_slice_config_raises(field, value, slice_no):
-    """Each configuration value of a slice not ported yet (12, ThreeDPot)
-    raises, naming its slice; those of the ported slices 8 (galaxies), 9
-    (CMB mode), 10 (ray outputs, DebugIO) and 11 (multigrid) build a
-    Raytracer."""
+    """The configuration values of the slices ported after the main path,
+    8 (galaxies), 9 (CMB mode), 10 (ray outputs, DebugIO), 11 (multigrid)
+    and 12 (ThreeDPot), build a Raytracer: no configuration value is
+    refused any longer."""
     cfg = _trace_cfg(**{field: value})
-    if slice_no in (8, 9, 10, 11):
-        assert tdriver.Raytracer(cfg, device="cpu").cfg is cfg
-        return
-    with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
-        tdriver.Raytracer(cfg, device="cpu")
+    assert slice_no in (8, 9, 10, 11, 12)
+    assert tdriver.Raytracer(cfg, device="cpu").cfg is cfg
 
 
 # ----------------------------------------------------------------------------
