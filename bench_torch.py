@@ -21,7 +21,12 @@ metric name carries the mode and scheme as bench.py's does
 
 After the timed planes, one more plane runs with Profile set: its phase row
 (DEPOSIT, SHTSOLVE, SHT, RAYPROP seconds, each up to a device sync; the MG
-step adds MGDEPOSIT, MGBC, MGSOLVE and MGINTERP) is printed as a JSON line.  The last line is one JSON object with bench.py's
+step adds MGDEPOSIT, MGBC, MGSOLVE and MGINTERP) is printed as a JSON line,
+beside the timed planes' median step time, their peak device memory
+(peak_bytes: torch.cuda.max_memory_allocated after a reset; 0 on the CPU)
+and the synthesis' j-blocks (synth_stream_blocks; BENCH_SHT_ORDER=13
+BENCH_RAY_ORDER=12 is NSIDE 8192 on 201M rays, streamed over the plan's
+default count).  The last line is one JSON object with bench.py's
 keys; vs_baseline compares with the same measured reference throughput
 (calclens_tpu_torch/benchconst.py).  It runs on the GPU and fails when
 there is none; --device cpu runs it on the CPU (for tests, at small
@@ -42,6 +47,7 @@ from calclens_tpu_torch.benchconst import (REF_CLUSTER_CORES,
                                            reference_core_step_seconds)
 from calclens_tpu_torch.config import RayTraceConfig
 from calclens_tpu_torch.driver import Raytracer
+from calclens_tpu_torch.sht import transforms as T
 
 PROFILE_PHASES = ("DEPOSIT", "SHTSOLVE", "SHT", "RAYPROP")
 MG_PHASES = ("MGDEPOSIT", "MGBC", "MGSOLVE", "MGINTERP")
@@ -96,6 +102,8 @@ def main(argv=None):
     staged = {p: rt._pad_particles(v * (250.0 * p + 125.0), mass)
               for p in (2, 3, 4, 5)}
     sync()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     times = []
     for p in (2, 3, 4):
         pos_d, mass_d = staged[p]
@@ -103,6 +111,8 @@ def main(argv=None):
         rt.step(p, pos=pos_d, mass=mass_d)
         sync()
         times.append(time.perf_counter() - t0)
+
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
 
     # one more plane phase by phase (Profile), outside the timed planes
     rt.cfg.Profile = True
@@ -112,6 +122,9 @@ def main(argv=None):
     phases = PROFILE_PHASES + (MG_PHASES if mg else ())
     print(json.dumps({"profile_plane": 5, "step_s": rt.timings[-1][1],
                       **{k.lower() + "_s": row[k] for k in phases},
+                      "timed_per_plane_s": float(np.median(times)),
+                      "peak_bytes": peak,
+                      "synth_stream_blocks": T.synth_stream_blocks(rt.plan),
                       "synthesis_rings_mode": rt.plan.synthesis_rings_mode,
                       **({"mg_cycles": rt.mg_cycles[5]} if mg else {})}))
 

@@ -333,6 +333,28 @@ def _rows_of_pix(ring_rows, pix):
     return rows, ring_rows[rows] == pix
 
 
+def _candidates(tab, gvec, topk, dtype):
+    """[G, topk] RING pixels of the search window around each galaxy
+    (torchhp.ring_window) whose centres lie nearest it, by a stable
+    ascending sort of the squared chord |c - g|^2: ties keep the lower
+    window index first, as jax.lax.top_k does.  The JAX package ranks by
+    the dot product c . g, which in float32 rounds to 1 within ~3.5e-4 rad
+    (sqrt(2 eps)) of the galaxy, so from rayOrder 12 (pixels of 2.5e-4
+    rad) its nearest centres tie and the window order picks the
+    candidates; the chord keeps ~eps of each component of c - g."""
+    G = gvec.shape[0]
+    theta, phi = torchhp.vec2ang(gvec)
+    nring_w, nphi_w = search_windows(tab.order)
+    pixw, valid = torchhp.ring_window(tab, theta, phi, nring_w, nphi_w)
+    pixf = pixw.reshape(G, -1)
+    cx, cy, cz = torchhp.pix2vec_ring_soa(pixf, tab.order, dtype)
+    dist = ((cx - gvec[:, 0:1]) ** 2 + (cy - gvec[:, 1:2]) ** 2
+            + (cz - gvec[:, 2:3]) ** 2)
+    dist = torch.where(valid.reshape(G, -1), dist, 8.0)
+    sel = torch.sort(dist, dim=1, stable=True).indices
+    return torch.gather(pixf, 1, sel[:, :topk])
+
+
 def _bary_search(tab, topk, packed, gvec, grad, tvec, pvec, wpm1,
                  ring_rows=None):
     """Device candidate prep and barycentric test for one galaxy chunk.
@@ -346,16 +368,7 @@ def _bary_search(tab, topk, packed, gvec, grad, tvec, pvec, wpm1,
     [G, T], ix, iy) with T = 4 topk."""
     dtype = packed.dtype
     G = gvec.shape[0]
-    theta, phi = torchhp.vec2ang(gvec)
-    nring_w, nphi_w = search_windows(tab.order)
-    pixw, valid = torchhp.ring_window(tab, theta, phi, nring_w, nphi_w)
-    pixf = pixw.reshape(G, -1)
-    cx, cy, cz = torchhp.pix2vec_ring_soa(pixf, tab.order, dtype)
-    score = cx * gvec[:, 0:1] + cy * gvec[:, 1:2] + cz * gvec[:, 2:3]
-    score = torch.where(valid.reshape(G, -1), score, -2.0)
-    sel = torch.sort(score, dim=1, descending=True, stable=True).indices
-    cand = torch.gather(pixf, 1, sel[:, :topk])
-
+    cand = _candidates(tab, gvec, topk, dtype)
     tri = torchhp.triangles_ring(tab, cand).reshape(G, -1, 3)  # [G, T, 3]
     vmask = tri[:, :, 0] >= 0
     verts = torch.clamp(tri, min=0).long()            # global ray pixels

@@ -28,8 +28,14 @@ from .rays import soa
 from .sht import transforms as T
 from .sht.plan import SHTPlan
 
-# column chunk of the ray side: bounds its transient working set
+# column chunk of the multigrid and THREEDPOT ray sides: bounds their
+# transient working sets
 RAY_CHUNK = 1 << 24
+# column chunk of the SHT-only ray side (phase_rayside, the empty plane):
+# its interpolation and propagation hold ~290 floats per ray at their
+# peak, 18 GiB at 2^24 rays (the peak of the order-13 step on an H100;
+# chip_smoke.py phase 15, PERF.md)
+RAYSIDE_CHUNK = 1 << 22
 
 
 class PlaneScalars(NamedTuple):
@@ -135,19 +141,27 @@ def phase_analysis_sph(plan: SHTPlan, dens_b, sigmas):
 
 
 def phase_synthesis(plan: SHTPlan, alm):
-    """alm -> the six field maps stacked [6, npix] (SHT: alm2allmaps)."""
-    return T.alm2allmaps(plan, alm)
+    """alm -> [7, npix]: the six field maps (SHT: alm2allmaps, streamed
+    over j-blocks where transforms.synth_stream_blocks says so) written
+    into rows 0-5, and row 6 the pixel ids the ray side's gathers return
+    (soa.pixel_id_row), made once per plane."""
+    out = torch.empty((7, plan.npix), dtype=plan.dtype, device=alm.device)
+    out[6] = soa.pixel_id_row(plan.npix, plan.dtype, alm.device)
+    T.alm2allmaps(plan, alm, out=out[:6])
+    return out
 
 
-def phase_rayside(tab, packed, maps, scal: PlaneScalars, born: bool):
-    """Zero the per-plane rows, interpolate the stacked maps to the rays
-    and propagate (INTERP + RAYPROP), on the packed buffer in column
-    chunks with the global gather from the whole maps."""
+def phase_rayside(tab, packed, maps7, scal: PlaneScalars, born: bool):
+    """Interpolate the maps to the rays and propagate (INTERP + RAYPROP)
+    in column chunks of RAYSIDE_CHUNK, each chunk's per-plane rows zeroed on a
+    copy, with the global gather from the whole maps ([7, npix] from
+    phase_synthesis), into a new [21, N] buffer; packed is left as it
+    was."""
     def block(b):
-        return soa.interp_and_prop_chunk(tab, maps, b, scal.wp, scal.wpm1,
+        return soa.interp_and_prop_chunk(tab, maps7, b, scal.wp, scal.wpm1,
                                          scal.wpm2, born)
 
-    return soa.chunked(block, soa.zero_plane_rows(packed), RAY_CHUNK)
+    return soa.chunked_into(block, packed, RAYSIDE_CHUNK)
 
 
 def _call(tag, fn, *args):
@@ -172,7 +186,7 @@ def plane_step_packed(plan: SHTPlan, tab, packed, pos, mass, born: bool,
     maps = phase("SHT", phase_synthesis, plan, alm)
     del alm
     packed = phase("RAYPROP", phase_rayside, tab, packed, maps, scal, born)
-    return packed, (FieldMaps(*maps.unbind(0)) if with_maps else None)
+    return packed, (FieldMaps(*maps[:6].unbind(0)) if with_maps else None)
 
 
 def plane_step_density_packed(plan: SHTPlan, tab, packed, density,
@@ -188,7 +202,7 @@ def plane_step_density_packed(plan: SHTPlan, tab, packed, density,
     maps = phase("SHT", phase_synthesis, plan, alm)
     del alm
     packed = phase("RAYPROP", phase_rayside, tab, packed, maps, scal, born)
-    return packed, (FieldMaps(*maps.unbind(0)) if with_maps else None)
+    return packed, (FieldMaps(*maps[:6].unbind(0)) if with_maps else None)
 
 
 def plane_step_mg(plan: SHTPlan, tab, mgsetup, packed, pos, mass,
@@ -258,8 +272,7 @@ def empty_plane_step_packed(born: bool, packed, scal: PlaneScalars,
     """Particle-free plane: zero the per-plane rows and propagate.  radial=True takes the reference's alpha == 0 rayprop branch
     (radial position rescale, rayprop.c:125-131); the default keeps the beta
     chord."""
-    packed = soa.zero_plane_rows(packed)
-    return soa.chunked(
+    return soa.chunked_into(
         lambda b: soa.prop_only_chunk(b, scal.wp, scal.wpm1, scal.wpm2, born,
                                       radial_when_straight=radial),
-        packed, RAY_CHUNK)
+        packed, RAYSIDE_CHUNK)

@@ -112,17 +112,21 @@ def _tangent_basis(nx, ny, nz):
 # field interpolation + propagation
 # ----------------------------------------------------------------------------
 
-def _with_pixel_ids(maps6):
-    """[6, W] maps -> [7, W] with a bit-exact pixel-id row: float32 holds
-    the int32 id with bit 0x40000000 set (a normal float, so no denormal
-    flush can touch it; npix < 2^30 through order 13), float64 the exact
-    id."""
-    W = maps6.shape[1]
-    glob = torch.arange(W, dtype=torch.int32, device=maps6.device)
-    if maps6.dtype == torch.float32:
-        ids = (glob | 0x40000000).view(torch.float32)
-    else:
-        ids = glob.to(maps6.dtype)
+def pixel_id_row(W: int, dtype, device):
+    """[W] bit-exact pixel ids 0..W-1 as a map row: float32 holds the int32
+    id with bit 0x40000000 set (a normal float, so no denormal flush can
+    touch it; npix < 2^30 through order 13), float64 the exact id."""
+    glob = torch.arange(W, dtype=torch.int32, device=device)
+    if dtype == torch.float32:
+        return (glob | 0x40000000).view(torch.float32)
+    return glob.to(dtype)
+
+
+def with_pixel_ids(maps):
+    """FieldMaps or stacked [6, W] maps -> [7, W] with the pixel-id row
+    (pixel_id_row), the maps interp_and_prop_chunk reads."""
+    maps6 = maps if isinstance(maps, torch.Tensor) else torch.stack(list(maps))
+    ids = pixel_id_row(maps6.shape[1], maps6.dtype, maps6.device)
     return torch.cat([maps6, ids[None, :]], dim=0)
 
 
@@ -132,17 +136,18 @@ def _decode_pixel_ids(row):
     return row.to(torch.int64)
 
 
-def interp_and_prop_chunk(tab, maps, chunk, wp, wpm1, wpm2, born: bool):
+def interp_and_prop_chunk(tab, maps7, chunk, wp, wpm1, wpm2, born: bool):
     """Packed chunk [21, c]: interpolate (pot, alpha, U) from the six field
     maps with 4-pixel bilinear taps and parallel transport, then propagate
     to radius wp.  Returns the updated packed chunk.
 
-    maps: FieldMaps or a stacked [6, npix] tensor (pot, gt, gp, gtt, gtp,
-    gpp).  One gather per tap returns the tap's six fields AND its pixel id
-    (the 7th row); the tap's ring geometry, weight and transport are rebuilt
-    from that id, so each weight is paired with the field it was computed
-    for (rays/soa.py of the JAX package, "mispairing-proof tap structure")."""
-    maps6 = maps if isinstance(maps, torch.Tensor) else torch.stack(list(maps))
+    maps7: [7, npix], the six maps (pot, gt, gp, gtt, gtp, gpp) and the
+    pixel-id row (poisson.phase_synthesis' output, or with_pixel_ids of
+    the six), made once for all of a plane's chunks.  One gather per tap
+    returns the tap's six fields AND its pixel id (the 7th row); the tap's
+    ring geometry, weight and transport are rebuilt from that id, so each
+    weight is paired with the field it was computed for (rays/soa.py of
+    the JAX package, "mispairing-proof tap structure")."""
     r = chunk
     nx, ny, nz = r[0], r[1], r[2]
     rad = torch.sqrt(nx * nx + ny * ny + nz * nz)
@@ -153,9 +158,7 @@ def interp_and_prop_chunk(tab, maps, chunk, wp, wpm1, wpm2, born: bool):
     phi = torch.where(phi < 0.0, phi + 2.0 * math.pi, phi)
     pix4, _ = torchhp.get_interpol_soa(tab, theta, phi)
 
-    maps7 = _with_pixel_ids(maps6)
     fld4 = [torch.index_select(maps7, 1, pk) for pk in pix4]
-    del maps7
     return _finish_from_fields(tab, fld4, r, theta, phi, hx, hy, hz,
                                wp, wpm1, wpm2, born)
 
@@ -361,14 +364,17 @@ def prop_only_chunk(chunk, wp, wpm1, wpm2, born: bool,
                       radial_when_straight=radial_when_straight)
 
 
-def chunked(fn, packed, chunk_size):
-    """Apply fn over column chunks of packed [21, N] (bounds the transient
-    working set)."""
+def chunked_into(fn, packed, chunk_size):
+    """fn over column chunks of packed [21, N] (each chunk's per-plane rows
+    reset on a copy, zero_plane_rows), each result written into one
+    preallocated [21, N] buffer: the input, one chunk's transients and the
+    output are alive at once, never a list of chunk outputs."""
     N = packed.shape[1]
-    if N <= chunk_size or N % chunk_size:
-        return fn(packed)
-    return torch.cat([fn(packed[:, i: i + chunk_size])
-                      for i in range(0, N, chunk_size)], dim=1)
+    out = torch.empty_like(packed)
+    for a in range(0, N, chunk_size):
+        b = min(N, a + chunk_size)
+        out[:, a:b] = fn(zero_plane_rows(packed[:, a:b]))
+    return out
 
 
 NOUT = 10
@@ -393,16 +399,20 @@ def output_rows_obs_radec(packed, ring_pix, order: int):
 
 
 def init_packed_fullsky(order: int, wp, npix: int, device,
-                        dtype=torch.float32):
+                        dtype=torch.float32, chunk=1 << 24):
     """Packed ray init for the full sky in RING pixel order (init_rays,
     raytrace_utils.c:302-349): n = wp * pixel center, beta = n_hat,
-    A = Aprev = I."""
-    pix = torch.arange(npix, dtype=torch.int64, device=device)
-    vx, vy, vz = torchhp.pix2vec_ring_soa(pix, order, dtype=dtype)
-    del pix
+    A = Aprev = I; the pixel vectors are formed `chunk` pixels at a time
+    (at rayOrder 12 one pass over every pixel would hold ~10 int64 and
+    float temporaries of 1.6 GB each)."""
     out = torch.zeros((NROWS, npix), dtype=dtype, device=device)
     wp = torch.as_tensor(wp, dtype=dtype, device=device)
-    out[0], out[1], out[2] = vx * wp, vy * wp, vz * wp
-    out[3], out[4], out[5] = vx, vy, vz
+    for a in range(0, npix, chunk):
+        pix = torch.arange(a, min(npix, a + chunk), dtype=torch.int64,
+                           device=device)
+        vx, vy, vz = torchhp.pix2vec_ring_soa(pix, order, dtype=dtype)
+        b = a + len(pix)
+        out[0, a:b], out[1, a:b], out[2, a:b] = vx * wp, vy * wp, vz * wp
+        out[3, a:b], out[4, a:b], out[5, a:b] = vx, vy, vz
     out[6] = out[9] = out[10] = out[13] = 1.0
     return out

@@ -56,21 +56,31 @@ def czt_tables(n, N, K, L, sign, cdtype, Nk=None):
 
 class TableCache:
     """Tables that depend on the geometry alone (chirp tables, phase tables,
-    gather indices), each built once per key on first use and kept.
-    `builds` counts the tables built; nbytes(kind) sums the bytes of the
-    tables whose key starts with `kind` (all of them when None)."""
+    gather indices), each built once per key on first use and kept, unless
+    it is larger than max_bytes (None: no limit): such a table is built
+    anew at every call.  `builds` counts the tables built; nbytes(kind)
+    sums the bytes of the tables whose key starts with `kind` (all of them
+    when None)."""
 
-    def __init__(self, device):
+    def __init__(self, device, max_bytes=None):
         self.device = torch.device(device)
+        self.max_bytes = max_bytes
         self._tables = {}
         self.builds = 0
 
+    def keeps(self, nbytes):
+        """Whether a table of nbytes would be kept."""
+        return self.max_bytes is None or nbytes <= self.max_bytes
+
     def get(self, key, build):
-        """The table under `key`, from build() the first time."""
+        """The table under `key`, from build() the first time (every time
+        when it is too large to keep)."""
         hit = self._tables.get(key)
         if hit is None:
-            hit = self._tables[key] = build()
+            hit = build()
             self.builds += 1
+            if self.keeps(_size(hit)):
+                self._tables[key] = hit
         return hit
 
     def chirp(self, name, n, N, K, L, sign, cdtype, Nk=None):
@@ -90,15 +100,18 @@ class TableCache:
                          cdtype), build)
 
     def nbytes(self, kind=None):
-        def size(t):
-            if isinstance(t, torch.Tensor):
-                return t.numel() * t.element_size()
-            if isinstance(t, tuple):
-                return sum(size(x) for x in t)
-            return getattr(t, "nbytes", 0)  # host arrays; ints count 0
-
-        return sum(size(t) for k, t in self._tables.items()
+        return sum(_size(t) for k, t in self._tables.items()
                    if kind is None or k[0] == kind)
+
+
+def _size(t):
+    """Bytes of a table: a tensor, a tuple of them, or a host array (ints
+    count 0)."""
+    if isinstance(t, torch.Tensor):
+        return t.numel() * t.element_size()
+    if isinstance(t, tuple):
+        return sum(_size(x) for x in t)
+    return getattr(t, "nbytes", 0)
 
 
 def czt(x, K, tables):

@@ -23,7 +23,7 @@ the 2^64 scale counter, the per-j-tile turning-point cutoffs of K1-K4)
 with the same float32 roundings, op for op, as the kernels' recurrence
 (csrc/legendre_common.cuh): near the poles the recurrence amplifies a rounding difference by up to ~1/sin(theta), so only an
 evaluation that rounds alike can be held to float32 accuracy.  A twin
-computes every m row by default; the twins of K2, K3 and K4 take `m` (an
+computes every m row by default; the twins of K1-K4 take `m` (an
 int64 tensor of the m value of each input row) to compute some rows only,
 which is how a large problem's kernel output is checked row by row.
 A wrapper takes its twin only for tensors on the CPU; for a CUDA tensor it
@@ -304,12 +304,13 @@ def _analysis_sources(ere, eim, ore, oim, mcut, m, tile_j):
 
 
 def analysis_plain(ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl: int,
-                   tile_j: int = ANALYSIS_TILE_J):
+                   tile_j: int = ANALYSIS_TILE_J, m=None):
     """K1's twin.  E/O planes [nm, J]; cth, ln_sth [J]; logc [nm]; mcut
     int32 [ceil(J / tile_j)].  Returns (alm_re, alm_im), each TRANSPOSED
-    [nm, nl] like the kernel's output."""
+    [nm, nl] like the kernel's output.  With m, the planes and logc hold
+    only those rows, and so does the output."""
     dt, dev = ere.dtype, ere.device
-    m = _m_rows(None, ere.shape[0], dev)
+    m = _m_rows(m, ere.shape[0], dev)
     s0r, s0i, s1r, s1i = _analysis_sources(ere, eim, ore, oim, mcut, m,
                                            tile_j)
     rec = _direct_recurrence(cth, ln_sth, logc, m)

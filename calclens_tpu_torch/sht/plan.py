@@ -7,13 +7,17 @@ nrings-1-j south, j == J-1 the equator) live on the plan's device in the
 plan's dtype.  The tables of the ring stage that depend on the geometry
 alone (chirp tables, the [nrings_pad, nm] phase tables, the ring <-> map
 gather indices) are built on the device at their first use and kept in
-the plan's TableCache (`plan.tables`), so later calls rebuild none of them.
+the plan's TableCache (`plan.tables`), so later calls rebuild none of them;
+a table larger than TABLE_MAX_BYTES is not kept but built per call, and a
+phase table that large is applied in blocks of rows (times_phase), so at
+order 13 no [nrings_pad, nm] table exists whole.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import weakref
 
 import numpy as np
 import torch
@@ -26,6 +30,13 @@ SYNTHESIS_RINGS_MODES = ("uniform", "v2")
 # the faster of the two on the H100 at order 12 (chip_smoke.py phase 9
 # checks that it stays so)
 DEFAULT_SYNTHESIS_RINGS_MODE = "v2"
+# the largest table plan.tables keeps: every table up to order 12 (the
+# largest, a [nrings_pad, nm] phase table, is 1.61 GB there); at order 13
+# the phase tables (6.4 GB) and the ring <-> map indices (3.2-4.3 GB) are
+# built per call instead (PERF.md)
+TABLE_MAX_BYTES = 2 << 30
+# rows per block of a phase table applied without the whole table
+PHASE_ROWS = 1024
 
 
 class SHTPlan:
@@ -56,6 +67,10 @@ class SHTPlan:
         ported: v2 beats it on the H100 (PERF.md).
     use_rings_v2 : the analysis ring stage: True (default) the bucketed
         stage of sht/rings.py, False the uniform chirp-Z over all rings.
+    synth_stream : j-blocks of the streamed synthesis (transforms.
+        synth_stream_blocks), or None for the per-order default; the
+        environment variable CALCLENS_SYNTH_STREAM sets it when the plan is
+        built.
     """
 
     def __init__(self, order, device, lmax=None, dtype=torch.float32,
@@ -150,12 +165,15 @@ class SHTPlan:
             self.window_dev = None
         self._ring_stage = None
         self._mcut = {}
-        self.tables = TableCache(self.device)
+        self._windows = {}
+        self.tables = TableCache(self.device, max_bytes=TABLE_MAX_BYTES)
         self.synthesis_rings_mode = DEFAULT_SYNTHESIS_RINGS_MODE
         self.use_rings_v2 = True
         self.synth_kernel = "k2"
         self.analysis_kernel = ("k4" if os.environ.get("CALCLENS_ANA_DOT",
                                                        "0") == "1" else "k1")
+        env = os.environ.get("CALCLENS_SYNTH_STREAM")
+        self.synth_stream = int(env) if env else None
 
     def ring_stage(self):
         """The bucketed ring-DFT stage (sht/rings.py), built on first use;
@@ -179,6 +197,15 @@ class SHTPlan:
                 tile_mcut(self.sth_host, self.nl, self.nm, tile_j),
                 device=self.device)
         return self._mcut[tile_j]
+
+    def window(self, j0, j1):
+        """The ring-pair geometry of columns [j0, j1) (RingPairWindow),
+        made once per window; the whole plan for [0, J)."""
+        if (j0, j1) == (0, self.J):
+            return self
+        if (j0, j1) not in self._windows:
+            self._windows[(j0, j1)] = RingPairWindow(self, j0, j1)
+        return self._windows[(j0, j1)]
 
     def rings_to_map(self, X):
         """[..., nrings_pad, P] ring matrix -> [..., npix] RING-ordered map."""
@@ -217,6 +244,55 @@ class SHTPlan:
             self.m_int, self.n_dev, self.shift_dev, +1, self.dtype,
             mfold=True))
 
+    def times_ring_phase(self, X, sign, mfold=False, inplace=False):
+        """X [..., nrings_pad, nm] times ring_phase(sign) (mfold:
+        synthesis_phase()) through times_phase: the cached table when it
+        fits the plan's TableCache, else blocks of PHASE_ROWS rows."""
+        key = ("synthesis_phase",) if mfold else ("ring_phase", sign)
+        return times_phase(X, self.tables, key, self.m_int, self.n_dev,
+                           self.shift_dev, sign, self.dtype, mfold, inplace)
+
+
+class RingPairWindow:
+    """The plan's ring-pair geometry restricted to columns [j0, j1): the
+    unit of the streamed synthesis (calclens_tpu/sht/transforms.py::
+    _geo_view).  It carries what transforms.legendre_synthesis reads of a
+    plan: contiguous slices of the [J] tables (so the kernel wrappers'
+    contiguity checks pass) and its own turning-point cutoffs, the
+    kernels' per-tile cutoff over the window's rings (finer than the JAX
+    window's single cutoff at granularity 512; both drop only lambda below
+    float32 significance)."""
+
+    def __init__(self, plan, j0, j1):
+        if not 0 <= j0 < j1 <= plan.J:
+            raise ValueError(f"window [{j0}, {j1}) outside [0, {plan.J})")
+        # weak: the plan keeps its windows, and a cycle would keep the
+        # plan's tables alive after its last reference until a gc pass
+        self._plan = weakref.ref(plan)
+        self.j0, self.j1, self.J = j0, j1, j1 - j0
+        for name in ("order", "nl", "nm", "dtype", "cdtype", "device",
+                     "m_f", "m_int", "logc"):
+            setattr(self, name, getattr(plan, name))
+        for name in ("cth", "sth", "cot", "inv_sth", "ln_sth"):
+            setattr(self, name, getattr(plan, name)[j0:j1].contiguous())
+        self.sth_host = plan.sth_host[j0:j1]
+        self._mcut = {}
+
+    @property
+    def synth_kernel(self):
+        return self._plan().synth_kernel
+
+    def mcut(self, tile_j):
+        """legendre.tile_mcut over the window's own rings, from its first
+        ring pair, int32 on the plan's device, built once per tile width."""
+        if tile_j not in self._mcut:
+            from .legendre import tile_mcut
+
+            self._mcut[tile_j] = torch.as_tensor(
+                tile_mcut(self.sth_host, self.nl, self.nm, tile_j),
+                device=self.device)
+        return self._mcut[tile_j]
+
 
 def phase_table(m, n, shift, sign, dtype, mfold=False):
     """exp(sign * i * pi * m * shift_r / n_r) [rows, nm] complex for m [nm]
@@ -235,15 +311,51 @@ def phase_table(m, n, shift, sign, dtype, mfold=False):
     return out
 
 
-def pix2ring_index(startpix, base, npix, device):
+def times_phase(X, tables, key, m, n, shift, sign, dtype, mfold=False,
+                inplace=False):
+    """X [..., R, nm] complex times phase_table(m, n, shift, sign, dtype,
+    mfold) [R, nm]: with the table kept in `tables` under `key` when its
+    bytes fit tables.max_bytes, else formed and applied PHASE_ROWS rows at
+    a time, so the whole table never exists.  inplace=True writes into X
+    (else X is left as it was)."""
+    R = n.shape[0]
+    cdtype = torch.complex64 if dtype == torch.float32 else torch.complex128
+    itemsize = torch.empty((), dtype=cdtype).element_size()
+    if tables.keeps(R * m.shape[0] * itemsize):
+        tab = tables.get(key, lambda: phase_table(m, n, shift, sign, dtype,
+                                                  mfold))
+        return X.mul_(tab) if inplace else X * tab
+    out = X if inplace else torch.empty(X.shape, dtype=cdtype,
+                                        device=X.device)
+    for r in range(0, R, PHASE_ROWS):
+        rs = slice(r, r + PHASE_ROWS)
+        ph = phase_table(m, n[rs], shift[rs], sign, dtype, mfold)
+        torch.mul(X[..., rs, :], ph, out=out[..., rs, :])
+    return out
+
+
+# pixels per block of pix2ring_index: bounds its int64 temporaries
+PIX_CHUNK = 1 << 26
+
+
+def pix2ring_index(startpix, base, npix, device, chunk=PIX_CHUNK):
     """int32 [npix]: base[ring(p)] + (p - startpix[ring(p)]), the gather
     index from ring rows laid out at offsets base [nrings] (host) to the
-    RING-ordered map.  int32 holds npix and every offset up to order 13."""
-    p = torch.arange(npix, dtype=torch.int64, device=device)
-    sp = torch.as_tensor(np.asarray(startpix, dtype=np.int64), device=device)
-    r = torch.searchsorted(sp, p, right=True) - 1
-    base = torch.as_tensor(np.asarray(base, dtype=np.int64), device=device)
-    idx = base[r] + (p - sp[r])
-    if int(idx.max()) >= 2**31:
+    RING-ordered map, built `chunk` pixels at a time (at order 13 a whole
+    int64 pass over the pixels would take 6.4 GB per temporary).  int32
+    holds npix and every offset up to order 13."""
+    startpix = np.asarray(startpix, dtype=np.int64)
+    base = np.asarray(base, dtype=np.int64)
+    # the largest index: the last pixel of the ring that reaches furthest
+    ends = np.append(startpix[1:], npix) - startpix
+    if len(base) and int(np.max(base + ends - 1)) >= 2**31:
         raise ValueError("ring -> map index beyond int32")
-    return idx.to(torch.int32)
+    sp = torch.as_tensor(startpix, device=device)
+    bs = torch.as_tensor(base, device=device)
+    out = torch.empty(npix, dtype=torch.int32, device=device)
+    for a in range(0, npix, chunk):
+        p = torch.arange(a, min(npix, a + chunk), dtype=torch.int64,
+                         device=device)
+        r = torch.searchsorted(sp, p, right=True) - 1
+        out[a: a + len(p)] = bs[r] + (p - sp[r])
+    return out

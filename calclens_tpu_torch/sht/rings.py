@@ -36,7 +36,7 @@ import torch
 
 from ..healpix import core as hp
 from .czt import czt_blocked
-from .plan import phase_table, pix2ring_index
+from .plan import pix2ring_index, times_phase
 
 
 def _pad_rows(n, mult=8):
@@ -56,6 +56,32 @@ def _block(rows, L):
     """Rows per chirp-Z block: a divisor of `rows` that bounds the [block,
     L] work arrays as SHTPlan.ring_block does for the uniform stage."""
     return math.gcd(rows, max(8, min(4096, (1 << 26) // L)))
+
+
+def belt_rows(Ye, P, cdtype):
+    """Belt rows Ye [..., rows, nm] (ring length P each) -> their pixels
+    [..., rows * P] real: the Hermitian half-spectrum half[k] = c_k Y_k +
+    Y_{P-k}^* / 2 (c_k 1 at k = 0 and P/2, 1/2 between; the second term
+    where P - k < nm and 0 < k < P/2), then one irfft.  Modes m > P/2
+    alias: Re[Y_m e^{2 pi i m p/P}] = Re[Y_m^* e^{2 pi i (P-m) p/P}].  The
+    imaginary parts at k = 0 and P/2, which a real transform drops, are
+    zeroed here rather than left to the FFT library."""
+    nm = Ye.shape[-1]
+    H = P // 2 + 1
+    half = torch.zeros(Ye.shape[:-1] + (H,), dtype=cdtype, device=Ye.device)
+    nd = min(nm, H)
+    half[..., :nd] = 0.5 * Ye[..., :nd]
+    half[..., 0] = Ye[..., 0]
+    if nm > P // 2:
+        half[..., P // 2] = Ye[..., P // 2]
+    if nm > H:
+        half[..., P - nm + 1: P // 2] += 0.5 * torch.conj(
+            Ye[..., H: nm].flip(-1))
+    im = half.imag
+    im[..., 0] = 0.0
+    im[..., P // 2] = 0.0
+    Xe = torch.fft.irfft(half, n=P, dim=-1, norm="forward")
+    return Xe.reshape(Xe.shape[:-2] + (-1,))
 
 
 class RingStage:
@@ -178,6 +204,7 @@ class RingStage:
         npad[: self.nrings] = self.ringpix
         self.ashift = torch.as_tensor(ash, device=self.device)
         self.n_allrows = torch.as_tensor(npad, device=self.device)
+        self.m_int = torch.arange(nm, dtype=torch.int64, device=self.device)
 
     def _make_bucket(self, rows, nmax):
         """Rows (ascending), padded to a multiple of 8 with rows of length
@@ -195,14 +222,6 @@ class RingStage:
     # ------------------------------------------------------------------
     # analysis
     # ------------------------------------------------------------------
-    def _phase_analysis(self):
-        """e^{-i pi m (shift - 2 d)/n} [nrings_pad, nm] (plan.phase_table)."""
-        def build():
-            m = torch.arange(self.nm, dtype=torch.int64, device=self.device)
-            return phase_table(m, self.n_allrows, self.ashift, -1, self.dtype)
-
-        return self.tables.get(("phase_analysis",), build)
-
     def _gather_rows_blocked(self, maps, k):
         """Aligned block-row gather for analysis group k: [..., rows_pad,
         nbl*B] with row r's ring pixels at columns [d_r, d_r + n_r), zeros
@@ -274,37 +293,18 @@ class RingStage:
         pad = torch.zeros(lead + (self.nrings_pad - self.nrings, nm),
                           dtype=self.cdtype, device=self.device)
         out = torch.cat([p for _, p in pieces] + [pad], dim=-2)
-        return out * self._phase_analysis()
+        return times_phase(out, self.tables, ("phase_analysis",),
+                           self.m_int, self.n_allrows, self.ashift, -1,
+                           self.dtype, inplace=True)
 
     # ------------------------------------------------------------------
     # synthesis
     # ------------------------------------------------------------------
     def _belt(self, Y):
-        """Belt rings of Y [..., nrings_pad, nm] -> [..., ne_pad * P] real:
-        the Hermitian half-spectrum half[k] = c_k Y_k + Y_{P-k}^* / 2 (c_k
-        1 at k = 0 and P/2, 1/2 between; the second term where P - k < nm
-        and 0 < k < P/2), then one irfft.  Modes m > P/2 alias:
-        Re[Y_m e^{2 pi i m p/P}] = Re[Y_m^* e^{2 pi i (P-m) p/P}].  The
-        imaginary parts at k = 0 and P/2, which a real transform drops, are
-        zeroed here rather than left to the FFT library."""
-        P, nm = self.P, self.nm
-        H = P // 2 + 1
-        Ye = Y.index_select(-2, self.eq_rows_pad)
-        half = torch.zeros(Ye.shape[:-1] + (H,), dtype=self.cdtype,
-                           device=self.device)
-        nd = min(nm, H)
-        half[..., :nd] = 0.5 * Ye[..., :nd]
-        half[..., 0] = Ye[..., 0]
-        if nm > P // 2:
-            half[..., P // 2] = Ye[..., P // 2]
-        if nm > H:
-            half[..., P - nm + 1: P // 2] += 0.5 * torch.conj(
-                Ye[..., H: nm].flip(-1))
-        im = half.imag
-        im[..., 0] = 0.0
-        im[..., P // 2] = 0.0
-        Xe = torch.fft.irfft(half, n=P, dim=-1, norm="forward")
-        return Xe.reshape(Xe.shape[:-2] + (-1,))
+        """Belt rings of Y [..., nrings_pad, nm] -> [..., ne_pad * P] real
+        (belt_rows on the belt's rows)."""
+        return belt_rows(Y.index_select(-2, self.eq_rows_pad), self.P,
+                         self.cdtype)
 
     def _fold_index(self, k):
         """int32 [jmax, rows_pad, nmax] flat index into Y [nrings_pad * nm]

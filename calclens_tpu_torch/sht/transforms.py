@@ -1,7 +1,7 @@
 """Spherical-harmonic transforms of the full-sky plane step.
 
-Port of calclens_tpu/sht/transforms.py (unstreamed single-device path; the
-reference's map2alm_transpose_mpi.c and alm2allmaps_transpose_mpi.c):
+Port of calclens_tpu/sht/transforms.py on one device (the reference's
+map2alm_transpose_mpi.c and alm2allmaps_transpose_mpi.c):
 
   * ring DFTs (rings.py, czt.py): for the analysis the bucketed belt-rfft +
     cap chirp-Z stage, or the uniform chirp-Z over all rings; for the
@@ -12,7 +12,13 @@ reference's map2alm_transpose_mpi.c and alm2allmaps_transpose_mpi.c):
     potential alone) for CUDA tensors, their plain twins for CPU tensors;
   * the six covariant outputs phi, d_theta, d_phi/sin and the covariant
     second derivatives, with the cot corrections of
-    alm2allmaps_transpose_mpi.c:1094-1147 applied in ring-row space.
+    alm2allmaps_transpose_mpi.c:1094-1147 applied in ring-row space;
+  * the j-block streamed synthesis (_alm2allmaps_streamed): per block of
+    ring pairs the Legendre synthesis on that window of columns, then the
+    ring DFTs of only its rows, written as contiguous pixel segments of
+    the RING maps, so one block's working set is alive at a time (the
+    reference bounds the same memory by 20-ring chunks,
+    alm2allmaps_transpose_mpi.c:76,256-261).
 """
 
 from __future__ import annotations
@@ -21,8 +27,24 @@ import numpy as np
 import torch
 
 from . import legendre
-from .czt import czt_blocked
-from .plan import SYNTHESIS_RINGS_MODES, SHTPlan
+from .czt import TableCache, czt_blocked
+from .plan import SYNTHESIS_RINGS_MODES, SHTPlan, phase_table, pix2ring_index
+from .rings import _next_fft_len, belt_rows
+
+# j-blocks of the streamed synthesis per HEALPix order, the H100's own; an
+# order below 13 takes 1 (unstreamed), an order above 13 takes 13's.
+# chip_smoke.py phase 15 times every count at orders 10-13 and checks that
+# the default is within 15 % of the fastest (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md §6 has each call's times).  Below order 13 the synthesis stays
+# unstreamed: in every call it was the fastest, or within the noise of the
+# fastest count.  Order 13, where it does not fit, takes 32.
+SYNTH_STREAM_BLOCKS = {13: 32}
+# rows per chirp-Z of a streamed cap range: at most the JAX package's
+# min(ring_block, 1024), and so few that one work array of the k streams
+# holds at most STREAM_CZT_ELEMS complex values (at order 13, L = 65536 and
+# six streams: 85 rows, 256 MB per array in complex64)
+STREAM_CZT_ROWS = 1024
+STREAM_CZT_ELEMS = 1 << 25
 
 
 def analysis_rings(plan: SHTPlan, maps):
@@ -46,8 +68,9 @@ def analysis_rings(plan: SHTPlan, maps):
 
     idx = plan.tables.get(("m_mod_n",), mmod)
     G = F.reshape(F.shape[:-2] + (-1,)).index_select(-1, idx)
-    return G.reshape(F.shape[:-2] + (plan.nrings_pad, plan.nm)) \
-        * plan.ring_phase(-1)
+    return plan.times_ring_phase(
+        G.reshape(F.shape[:-2] + (plan.nrings_pad, plan.nm)), -1,
+        inplace=True)
 
 
 def synthesis_rings(plan: SHTPlan, Q):
@@ -63,7 +86,7 @@ def synthesis_rings(plan: SHTPlan, Q):
     if mode not in SYNTHESIS_RINGS_MODES:
         raise ValueError(f"synthesis_rings_mode {mode!r}: expected one of "
                          f"{SYNTHESIS_RINGS_MODES}")
-    Y = Q * plan.synthesis_phase()
+    Y = plan.times_ring_phase(Q, +1, mfold=True)
     if mode == "v2":
         return plan.ring_stage().synthesis(Y)
     X = czt_blocked(Y, plan.n_host, plan.P, plan.L, +1, plan.cdtype,
@@ -120,7 +143,20 @@ def legendre_analysis(plan: SHTPlan, E, O):
     return torch.complex(re, im).T.contiguous().to(plan.cdtype)
 
 
-def legendre_synthesis(plan: SHTPlan, alm, derivs: bool = True):
+def synthesis_streams(plan: SHTPlan, alm, derivs: bool = True):
+    """The planes the synthesis kernel reads, from alm [nl, nm]: K2's
+    stream planes (legendre.mx_prep), or K3's two a-planes."""
+    if plan.synth_kernel == "k3":
+        return legendre.mx_prep(plan.nl, plan.nm, alm, plan.dtype,
+                                derivs=False)
+    if plan.synth_kernel != "k2":
+        raise ValueError(f"synth_kernel {plan.synth_kernel!r}: expected "
+                         "'k2' or 'k3'")
+    return legendre.mx_prep(plan.nl, plan.nm, alm, plan.dtype, derivs)
+
+
+def legendre_synthesis(plan: SHTPlan, alm, derivs: bool = True,
+                       streams=None):
     """alm [nl, nm] complex -> (qN, qS), each [3, nm, J] complex (phi,
     d_theta, d_theta_theta) when derivs, else [1, nm, J] (phi): kernel K2
     (plan.synth_kernel "k2") or K3 ("k3") for CUDA tensors, its twin for CPU
@@ -128,21 +164,19 @@ def legendre_synthesis(plan: SHTPlan, alm, derivs: bool = True):
     and K3 leave 0 beyond their per-tile turning-point cutoff (plan.mcut),
     where lambda is below float32 significance; the JAX package cuts its
     streamed synthesis on ring windows by the same rule (_geo_view and
-    _legendre_synth_dispatch)."""
+    _legendre_synth_dispatch).  plan may be a RingPairWindow (J its
+    columns); streams, synthesis_streams(plan, alm, derivs) made once for
+    all the windows of a streamed synthesis, replaces alm."""
+    if streams is None:
+        streams = synthesis_streams(plan, alm, derivs)
+    mcut = plan.mcut(legendre.SYNTH_TILE_J)
     if plan.synth_kernel == "k3":
-        a_re, a_im = legendre.mx_prep(plan.nl, plan.nm, alm, plan.dtype,
-                                      derivs=False)
-        c = legendre.synth_vpu_columns(a_re, a_im, plan.cth, plan.sth,
-                                       plan.cot, plan.inv_sth, derivs,
-                                       plan.mcut(legendre.SYNTH_TILE_J))
-        del a_re, a_im
+        c = legendre.synth_vpu_columns(*streams, plan.cth, plan.sth,
+                                       plan.cot, plan.inv_sth, derivs, mcut)
+        del streams
         return legendre.q_from_buckets(plan, c)
-    if plan.synth_kernel != "k2":
-        raise ValueError(f"synth_kernel {plan.synth_kernel!r}: expected "
-                         "'k2' or 'k3'")
-    streams = legendre.mx_prep(plan.nl, plan.nm, alm, plan.dtype, derivs)
     c = legendre.synth_columns(streams, plan.cth, plan.ln_sth, plan.logc,
-                               plan.mcut(legendre.SYNTH_TILE_J))
+                               mcut)
     del streams
     return legendre.q_from_columns(plan, c)
 
@@ -191,10 +225,18 @@ def _streams_from_q_rows(plan, qphi, qth, qthth, sth, cot):
     ])
 
 
-def alm2allmaps(plan: SHTPlan, alm):
+def alm2allmaps(plan: SHTPlan, alm, out=None):
     """alm -> [6, npix]: phi, d_theta, d_phi, d_theta_theta, d_theta_phi,
     d_phi_phi, the covariant components on the orthonormal (e_theta,
-    e_phi) basis (alm2allmaps_transpose_mpi.c:121-131, 1080-1147)."""
+    e_phi) basis (alm2allmaps_transpose_mpi.c:121-131, 1080-1147), written
+    into `out` ([6, npix], rows contiguous) when given.  Streamed over
+    synth_stream_blocks(plan) j-blocks when that is above 1."""
+    if out is None:
+        out = torch.empty((6, plan.npix), dtype=plan.dtype,
+                          device=alm.device)
+    nblk = synth_stream_blocks(plan)
+    if nblk > 1:
+        return _alm2allmaps_streamed(plan, alm, nblk, out)
     qN, qS = legendre_synthesis(plan, alm, True)
     qrows = [unfold_pairs(plan, qN[k], qS[k]) for k in range(3)]
     del qN, qS
@@ -206,7 +248,132 @@ def alm2allmaps(plan: SHTPlan, alm):
     del qrows
     # the six synthesis ring stages run in pairs to bound peak memory, each
     # pair written in place into the one output buffer
-    out = torch.empty((6, plan.npix), dtype=plan.dtype, device=alm.device)
     for i in range(0, 6, 2):
         out[i: i + 2] = synthesis_rings(plan, streams[i: i + 2])
+    return out
+
+
+# ----------------------------------------------------------------------------
+# the j-block streamed synthesis (calclens_tpu/sht/transforms.py:542-1087)
+# ----------------------------------------------------------------------------
+
+def synth_stream_blocks(plan) -> int:
+    """j-blocks of the streamed synthesis (1: unstreamed): plan.synth_stream
+    when set (CALCLENS_SYNTH_STREAM sets it when the plan is built), else
+    SYNTH_STREAM_BLOCKS of the order, 1 where it names none
+    (calclens_tpu/sht/transforms.py::_synth_stream_blocks, whose per-order
+    counts are the TPU's)."""
+    nblk = getattr(plan, "synth_stream", None)
+    if nblk is not None:
+        return int(nblk)
+    return SYNTH_STREAM_BLOCKS.get(min(plan.order, max(SYNTH_STREAM_BLOCKS)),
+                                   1)
+
+
+def rows_phase(plan: SHTPlan, r0: int, r1: int):
+    """(2 - delta_m0) exp(i m phi0_r) [r1 - r0, nm] of the rings [r0, r1):
+    synthesis_phase()'s rows, formed for these rows alone
+    (calclens_tpu/sht/transforms.py::_rows_phase, times the m fold)."""
+    return phase_table(plan.m_int, plan.n_dev[r0:r1], plan.shift_dev[r0:r1],
+                       +1, plan.dtype, mfold=True)
+
+
+def ring_subranges(plan: SHTPlan, r0: int, r1: int):
+    """[r0, r1) split into its maximal cap / belt / cap ring ranges."""
+    belt = np.flatnonzero(plan.n_host[r0:r1] == plan.P)
+    bounds = ([r0, r0 + int(belt[0]), r0 + int(belt[-1]) + 1, r1]
+              if len(belt) else [r0, r1])
+    return [(a, b) for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
+
+
+def cap_czt_shape(plan: SHTPlan, a: int, b: int):
+    """(nmax, M, L) of the cap ring range [a, b)'s chirp-Z: its longest
+    ring, the modes it reads (the turning-point cutoff on its largest
+    sin theta, at granularity 256: the columns beyond are float32 zeros
+    out of the Legendre sweep) and the padded FFT length
+    (calclens_tpu/sht/transforms.py::_cap_czt_shape)."""
+    nmax = int(plan.n_host[a:b].max())
+    M = m_cutoff(plan.nl - 1, float(plan.sth_ring[a:b].max()), plan.nm,
+                 granularity=256)
+    return nmax, M, _next_fft_len(nmax + M)
+
+
+def synth_ring_rows(plan: SHTPlan, S, r0: int, r1: int, out=None,
+                    cache=None):
+    """S [k, r1 - r0, nm] complex q values of the rings [r0, r1) -> their
+    pixels [k, startpix[r1] - startpix[r0]], contiguous in the RING map,
+    written into `out` when given
+    (calclens_tpu/sht/transforms.py::_synth_ring_rows).
+
+    The rows take their phases and m fold (rows_phase).  Belt ranges are
+    an irfft per row whose output is the pixel run; a cap range is a
+    chirp-Z emitting each row's nmax values from its first M modes, in
+    blocks of rows (STREAM_CZT_ROWS, STREAM_CZT_ELEMS) with tables for
+    those rows, packed into the segment through one index.  The tables go
+    to `cache` (a TableCache), by default a new one per call, so none is
+    kept: keeping every block's takes 7.25 GiB at order 13 (PERF.md)."""
+    k = S.shape[0]
+    sp = np.append(plan.startpix[: plan.nrings], plan.npix)
+    p0 = int(sp[r0])
+    if out is None:
+        out = torch.empty((k, int(sp[r1]) - p0), dtype=plan.dtype,
+                          device=S.device)
+    Y = S * rows_phase(plan, r0, r1)
+    if cache is None:
+        cache = TableCache(plan.device)
+    for a, b in ring_subranges(plan, r0, r1):
+        seg = out[:, int(sp[a]) - p0: int(sp[b]) - p0]
+        Yp = Y[:, a - r0: b - r0]
+        if plan.n_host[a] == plan.P:
+            seg.copy_(belt_rows(Yp, plan.P, plan.cdtype))
+            continue
+        nmax, M, L = cap_czt_shape(plan, a, b)
+        rows = max(8, min(STREAM_CZT_ROWS, STREAM_CZT_ELEMS // (k * L)))
+        for c0 in range(a, b, rows):
+            c1 = min(b, c0 + rows)
+            X = czt_blocked(Yp[:, c0 - a: c1 - a, :M], plan.n_host[c0:c1],
+                            nmax, L, +1, plan.cdtype, c1 - c0, cache,
+                            ("stream", c0, c1), real=True)
+            idx = cache.get(("stream_pixels", c0, c1), lambda: pix2ring_index(
+                sp[c0:c1] - sp[c0], np.arange(c1 - c0) * nmax,
+                int(sp[c1] - sp[c0]), plan.device))
+            seg[:, int(sp[c0] - sp[a]): int(sp[c1] - sp[a])] = \
+                X.reshape(k, -1).index_select(1, idx)
+            del X
+    return out
+
+
+def _alm2allmaps_streamed(plan: SHTPlan, alm, nblk: int, out):
+    """alm2allmaps over nblk j-blocks of ring pairs
+    (calclens_tpu/sht/transforms.py::_alm2allmaps_streamed, whose
+    host-streamed form alm2allmaps_host_streamed is what an eager loop
+    does): the synthesis planes are made once; per block, the Legendre
+    synthesis on its window of columns, the covariant streams of its north
+    rows (rings j0..j1-1) and their ring synthesis written in place into
+    `out`, then the same for its south rows (rings nrings-j1s..nrings-j0-1,
+    reversed; the equator's pair j = J-1 has no south ring).  Each block's
+    temporaries are freed before the next block starts."""
+    J, nrings = plan.J, plan.nrings
+    if J % nblk:
+        raise ValueError(f"{nblk} j-blocks do not divide J = {J}")
+    jb = J // nblk
+    sp = np.append(plan.startpix[:nrings], plan.npix)
+    streams = synthesis_streams(plan, alm, True)
+
+    def rows(q, r0, r1):
+        S = _streams_from_q_rows(plan, q[0], q[1], q[2],
+                                 plan.sth_ring[r0:r1], plan.cot_ring[r0:r1])
+        synth_ring_rows(plan, S, r0, r1, out[:, int(sp[r0]): int(sp[r1])])
+
+    for j0 in range(0, J, jb):
+        j1 = j0 + jb
+        qN, qS = legendre_synthesis(plan.window(j0, j1), None, True,
+                                    streams=streams)
+        rows(qN.transpose(1, 2), j0, j1)
+        del qN
+        j1s = min(j1, J - 1)
+        if j1s > j0:
+            rows(qS[:, :, : j1s - j0].flip(2).transpose(1, 2),
+                 nrings - j1s, nrings - j0)
+        del qS
     return out

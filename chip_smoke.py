@@ -88,7 +88,7 @@ of which must pass:
      run; the port's default mode must be the fastest (5 % slack);
  10. the deposit schemes and sky cuts at the headline shape, through
      Raytracer.step: SPH (one warm-up plane, two timed, one Profile'd;
-     K1 launched exactly 8 times and K2 once per plane, nothing else; the
+     K1 launched exactly 8 times and K2 once per j-block, nothing else; the
      per-bucket windows built once and timed), beside one kernel_bl window
      by scipy's eval_legendre and by the port's recurrence at lmax 1023;
      CIC in the octant box (ra 0-90, dec 0-90, bundleOrder 3: ray count,
@@ -107,7 +107,7 @@ of which must pass:
      headline shape over 8 planes with Profile on, each plane's 2^21
      particles through load_particles, GalsFileList naming 10^6 sources
      at 300-1900 Mpc/h (written by the port's write_source_gals) and
-     GalOutputName set: K1 and K2 launched once per plane and nothing
+     GalOutputName set: K1 once and K2 once per j-block per plane and nothing
      else, every source imaged at least once (the catalogs read back), the
      sources with more than one image, each plane's GRIDSEARCH and step
      times and the peak memory; the search alone on the run's rays before
@@ -166,7 +166,33 @@ of which must pass:
      the lightcone readers (io/lightcone.py, lensplane_maker.py) are host
      numpy and h5py with no device path, and the card's machine has no
      h5py: no phase drives them (tests/test_torch_lightcone.py and
-     tests/test_torch_copies.py do, on the CPU).
+     tests/test_torch_copies.py do, on the CPU);
+ 15. the j-block streamed synthesis (sht/transforms.py) and NSIDE 8192:
+     SHTOrder 13 (lmax 24575) / rayOrder 12 (201,326,592 rays), 2^24
+     particles, f32, full sky, NGP, through Raytracer.step: the plan's and
+     the rays' build seconds, one warm-up plane, two timed (s/plane,
+     rays/s), each plane's launches exact (K1 once, K2 once per j-block),
+     the peak memory after a reset under 80 GB, one Profile'd plane; K1
+     and K2 at order 13 against their twins on 9 m rows (K2 on the windows
+     of the first and the last block), K1's ms and K2's summed
+     over the blocks; the analysis ring stage with its 6.4 GB phase table
+     applied in row blocks (the plan's policy) and kept (ms, peaks); one
+     point mass (5e16 at 625 Mpc/h) from fresh rays,
+     alpha of every 64th ray at 0.15-0.6 rad within 2 % (median) of
+     pointmass.alpha_exact, its direction's median cosine above 0.999;
+     Raytracer.run over two planes with 10^6 sources in plane 1's bin,
+     every source imaged, gals/s and the peak (its closing 16.9 GB npz
+     restart left out); then the synthesis at every candidate block count
+     at orders 10-13 on one alm, timed, against the unstreamed synthesis
+     (order 13: the default count) within 1e-5 of each map's max, the
+     default count within 15 % of the fastest, at order 12 K3 through the
+     synthesis at 32 blocks (each window with its own seed pre-pass,
+     launches exact) against K3 unstreamed within the same bound, and at
+     order 13 the default with its per-block tables kept (their bytes and
+     time).
+
+`python3 chip_smoke.py --phase 15` runs the build and phase 15 alone and
+prints no JSON line.
 
 It prints the card's line, a JSON line {"kernels": [...]} with each
 kernel's launches on its path's run, its error against its twin, its
@@ -175,6 +201,7 @@ times, its bound and the library column, and last {"ok": true, "device":
 or there is no GPU.
 """
 
+import functools
 import gc
 import json
 import math
@@ -1087,6 +1114,7 @@ def headline(synth, analysis, planes, snapshot_after, maps_order=None,
     out = dict(setup_s=setup_s, times=times, nrays=nrays, npart=npart,
                counts=counts, peak=peak, shape=tuple(rt.rays_packed.shape),
                snap=snap, mode=rt.plan.synthesis_rings_mode,
+               order=cfg.SHTOrder,
                plane_counts=plane_counts, windows_s=windows_s,
                resident=resident,
                masked=(None if rt.vacmask is None
@@ -1330,6 +1358,16 @@ OCTANT = dict(minRa=0.0, maxRa=90.0, minDec=0.0, maxDec=90.0)
 TRACE_BOX = dict(minRa=20.0, maxRa=60.0, minDec=-10.0, maxDec=30.0)
 # K1 and K2 launches per plane step: one analysis and one synthesis, eight
 # analyses (one per sigma bucket) for SPH
+def stream_blocks(order):
+    """The default j-blocks of the synthesis at SHTOrder `order`."""
+    import types
+
+    from calclens_tpu_torch.sht import transforms as T
+
+    return T.synth_stream_blocks(types.SimpleNamespace(order=order))
+
+
+# launches per plane; legendre_synth's is replaced by the order's j-blocks
 PLANE_LAUNCHES = {"NGP": {"legendre_analysis": 1, "legendre_synth": 1},
                   "CIC": {"legendre_analysis": 1, "legendre_synth": 1},
                   "SPH": {"legendre_analysis": 8, "legendre_synth": 1},
@@ -1338,10 +1376,13 @@ PLANE_LAUNCHES = {"NGP": {"legendre_analysis": 1, "legendre_synth": 1},
                   "MG": {"legendre_analysis": 1, "legendre_synth_phi": 1}}
 
 
-def check_plane_launches(label, plane_counts, scheme):
+def check_plane_launches(label, plane_counts, scheme, order=None):
     """Every plane of the run launched exactly PLANE_LAUNCHES[scheme] and
-    nothing else."""
-    want = PLANE_LAUNCHES[scheme]
+    nothing else, K2 once per j-block of the synthesis at SHTOrder `order`
+    (transforms.synth_stream_blocks: 1 below order 13)."""
+    want = dict(PLANE_LAUNCHES[scheme])
+    if "legendre_synth" in want:
+        want["legendre_synth"] = stream_blocks(order)
     for i, c in enumerate(plane_counts):
         got = {k: v for k, v in c.items() if v}
         check(got == want, f"{label}: plane {i} launched {got}, expected "
@@ -1443,7 +1484,7 @@ def mass_map_plane(snap, plane):
         rt.load_state(snap, plane)
         rt.step(plane, pos=pos, mass=mass)
         refs.append(rt.rays_packed.cpu())
-    check_plane_launches("mass-map plane", [launches], "NGP")
+    check_plane_launches("mass-map plane", [launches], "NGP", 12)
 
     def dist(x, y, a, b):
         return float((x[a:b] - y[a:b]).abs().max() / y[a:b].abs().max())
@@ -1507,7 +1548,7 @@ def trace_path(label, cfg_kw, mass_maps=False):
             errs.append(grouped_row_err(gpu.rays_packed.cpu(),
                                         cpu.rays_packed))
     check_plane_launches(f"trace {label}", plane_counts,
-                         cfg.DepositScheme)
+                         cfg.DepositScheme, cfg.SHTOrder)
     check(max(errs) < TRACE_BOUND, f"trace {label}, CUDA vs CPU: {errs}")
     return errs, gpu.rays_packed.shape[1], vac_diff
 
@@ -1515,7 +1556,7 @@ def trace_path(label, cfg_kw, mass_maps=False):
 def report_headline_path(label, h, scheme):
     """Phase 10's lines for one headline path (SPH, cut-sky CIC): the
     plane launches checked, then report_headline's lines and the rest."""
-    check_plane_launches(label, h["plane_counts"], scheme)
+    check_plane_launches(label, h["plane_counts"], scheme, h["order"])
     report_headline(label, h)
     if h["masked"] is not None:
         say(f"{label}: {h['nrays']} rays in the box, {h['masked']} of "
@@ -1764,7 +1805,7 @@ def gals_cmb_phase():
                                    mass),
             profile=True)
         check_plane_launches("headline run() with galaxies", plane_counts,
-                             "NGP")
+                             "NGP", GALS_HEAD_ORDERS[0])
         cfg = rt.cfg
         imgs = concat.read_all_images(cfg.OutputPath, "gal_", 8)
         per_source = np.bincount(imgs["index"], minlength=GALS_HEADLINE)
@@ -1820,7 +1861,7 @@ def gals_cmb_phase():
                     cfg, cosmo, p, 20000, 100 + p))
             runs[dev] = (rt, plane_images(rt))
         check_plane_launches("order-7/6 run() with galaxies", plane_counts,
-                             "NGP")
+                             "NGP", GALS_TRACE_ORDERS[0])
         diffs = {}
         for p, ref in runs["cpu"][1].items():
             got = runs["cuda"][1].get(p)
@@ -1866,7 +1907,8 @@ def report_gals_cmb(res, card):
         f"planes, Profile on, {GALS_HEADLINE} sources at 300-1900 Mpc/h: "
         f"run {r['seconds']:.2f} s ({r['wall_s']:.2f} s with the catalog "
         f"written and read back), {r['images']} images, {r['multiple']} sources with more than "
-        f"one image, every source imaged; K1 and K2 once per plane "
+        f"one image, every source imaged; K1 once and K2 once per j-block "
+        f"per plane "
         f"({r['launches']['legendre_analysis']} and "
         f"{r['launches']['legendre_synth']} in the run); peak "
         f"{r['peak'] / 2**30:.2f} GiB")
@@ -2618,6 +2660,545 @@ def report_threedpot(r, card):
         f"{TRACE_BOUND:g}); snapshot per plane {t['snaps']}")
 
 
+# phase 15, the j-block streamed synthesis and the order-13 step: block
+# counts timed per order (the first at each order is the unstreamed
+# synthesis where it fits), the order-13 configuration (SHTOrder, rayOrder)
+# with its particles per plane, the m rows of its kernel checks and the
+# ring-pair windows (first, middle, last of the default count) on which K2
+# is held to its twin; the point-mass plane and the galaxy run's sources
+STREAM_COUNTS = {10: (1, 2, 4, 8, 16), 11: (1, 2, 4, 8, 16, 32),
+                 12: (1, 2, 4, 8, 16, 32, 64), 13: (8, 16, 32, 64)}
+# the streamed synthesis against the unstreamed one (at order 13, where the
+# unstreamed one does not fit, against the default count), relative to
+# each map's max: the kernel-vs-twin bound
+STREAM_BOUND = 1e-5
+# the default count may lie this far above the fastest one measured (noise
+# between calls: at order 12 the unstreamed synthesis and 8 blocks swapped
+# places by up to 6 % in three calls on one card)
+STREAM_DEFAULT_SLACK = 0.15
+# K3 (synth_kernel "k3") through the streamed synthesis at this order and
+# count (the JAX package's count from order 12), each window with its own
+# seed pre-pass, against K3's unstreamed synthesis on the same alm
+K3_STREAM = (12, 32)
+O13_ORDERS = (13, 12)
+O13_PARTICLES = 1 << 24
+O13_CHECK_ROWS = (0, 1, 2, 3, 1023, 4096, 12287, 20001, 24575)
+# the point mass (tests/test_torch_raytrace.py's: 5e16 Msun/h at ra 32,
+# dec 14, 625 Mpc/h), its rays sampled every O13_PM_STRIDE-th, held at
+# 0.15-0.6 rad to alpha_exact: median relative error and the median cosine
+# of alpha with the direction to the mass
+O13_PM = dict(partMass=5.0e16, ra=32.0, dec=14.0, rad=625.0)
+O13_PM_STRIDE = 64
+O13_PM_ERR = 0.02
+O13_PM_COS = 0.999
+# run() over two planes of 250 Mpc/h, the sources in plane 1's bin
+O13_GALS = 10**6
+O13_GALS_RADII = (255.0, 495.0)
+
+
+def random_alm(plan, seed):
+    """Band-limited random alm [nl, nm] on the plan's device from a torch
+    generator seeded `seed`, with a red spectrum (1 + l)^-1.5, real at m =
+    0: made on the card (at order 13 a host draw takes ~10 s)."""
+    import torch
+
+    g = torch.Generator(device=plan.device).manual_seed(seed)
+    re = torch.randn((plan.nl, plan.nm), generator=g, device=plan.device)
+    im = torch.randn((plan.nl, plan.nm), generator=g, device=plan.device)
+    l = torch.arange(plan.nl, device=plan.device)[:, None]
+    m = torch.arange(plan.nm, device=plan.device)[None, :]
+    w = torch.where(m <= l, (1.0 + l.float()) ** -1.5, 0.0)
+    im[:, 0] = 0.0
+    return torch.complex(re * w, im * w)
+
+
+def map_rel_errs(got, ref):
+    """Max over the rows of [k, npix] maps of max |got - ref| / max |ref|."""
+    return max(rel_err(got[i], ref[i]) for i in range(ref.shape[0]))
+
+
+def stream_counts(order, dev):
+    """The synthesis at each candidate block count on one alm, into one
+    output buffer: maps against the first count's (the unstreamed synthesis
+    where the order has it, at order 13 the default count's, made first),
+    CUDA-event ms of a second call, peak memory of the first above the
+    alm, the buffer and the reference maps.  With the default count at
+    order 13, also its per-block tables kept in the plan (their bytes,
+    the time of a call that finds them)."""
+    import torch
+    from calclens_tpu_torch import _ext
+    from calclens_tpu_torch.sht import transforms as T
+    from calclens_tpu_torch.sht.plan import SHTPlan
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    plan = SHTPlan(order, dev, dtype=torch.float32)
+    alm = random_alm(plan, 150 + order)
+    default = T.synth_stream_blocks(plan)
+    ring_rows = T.synth_ring_rows
+    counts = STREAM_COUNTS[order]
+    ref_count = counts[0] if counts[0] == 1 else default
+    order_counts = [ref_count] + [c for c in counts if c != ref_count]
+    out = torch.empty((6, plan.npix), dtype=plan.dtype, device=plan.device)
+    ref, rows = None, {}
+    for nblk in order_counts:
+        plan.synth_stream = nblk
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _ext.reset_launches()
+        _, first_ms = timed_once(lambda: T.alm2allmaps(plan, alm, out=out))
+        launches = _ext.launches["legendre_synth"]
+        peak = torch.cuda.max_memory_allocated() - base
+        check(launches == nblk, f"order {order}, {nblk} blocks: K2 launched "
+              f"{launches} times")
+        if ref is None:
+            err = 0.0
+            ref = out.clone()
+        else:
+            err = map_rel_errs(out, ref)
+        _, ms = timed_once(lambda: T.alm2allmaps(plan, alm, out=out))
+        check(bool(torch.isfinite(out).all()) and err < STREAM_BOUND,
+              f"order {order}, {nblk} blocks: maps {err:.3e} off "
+              f"{ref_count} blocks")
+        rows[nblk] = dict(err=err, ms=ms, first_ms=first_ms, peak=peak)
+    res = dict(rows=rows, ref=ref_count, default=default, resident=resident)
+    if order == K3_STREAM[0]:
+        res["k3"] = k3_streamed(plan, alm, out)
+    if order == 13:
+        plan.synth_stream = default
+        # keep every block's tables in the plan's cache
+        T.synth_ring_rows = functools.partial(ring_rows, cache=plan.tables)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _, build_ms = timed_once(lambda: T.alm2allmaps(plan, alm, out=out))
+        _, ms = timed_once(lambda: T.alm2allmaps(plan, alm, out=out))
+        res["cached"] = dict(
+            bytes=plan.tables.nbytes("czt") + plan.tables.nbytes(
+                "stream_pixels"), build_ms=build_ms, ms=ms,
+            peak=torch.cuda.max_memory_allocated() - base,
+            err=map_rel_errs(out, ref))
+        T.synth_ring_rows = ring_rows
+    del plan, alm, out, ref
+    torch.cuda.empty_cache()
+    return res
+
+
+def k3_streamed(plan, alm, out):
+    """K3 through alm2allmaps on one alm, unstreamed and at K3_STREAM's
+    count of j-blocks: per count the launches of K3 and its seed pre-pass
+    (exactly one each per block), the maps against the unstreamed ones
+    within STREAM_BOUND of each map's max, CUDA-event ms of a second call.
+    The plan is left with K2 and its default count."""
+    import torch
+    from calclens_tpu_torch import _ext
+    from calclens_tpu_torch.sht import transforms as T
+
+    plan.synth_kernel = "k3"
+    ref, res = None, {}
+    for nblk in (1, K3_STREAM[1]):
+        plan.synth_stream = nblk
+        _ext.reset_launches()
+        T.alm2allmaps(plan, alm, out=out)
+        launches = {k: v for k, v in _ext.launches.items() if v}
+        want = {"legendre_synth_vpu": nblk, "legendre_chain_seed": nblk}
+        check(launches == want, f"K3 at {nblk} blocks launched {launches}, "
+              f"expected {want}")
+        err = 0.0 if ref is None else map_rel_errs(out, ref)
+        if ref is None:
+            ref = out.clone()
+        check(bool(torch.isfinite(out).all()) and err < STREAM_BOUND,
+              f"K3 at {nblk} blocks: maps {err:.3e} off unstreamed K3")
+        _, ms = timed_once(lambda: T.alm2allmaps(plan, alm, out=out))
+        res[nblk] = dict(err=err, ms=ms, launches=launches)
+    plan.synth_kernel, plan.synth_stream = "k2", None
+    del ref
+    torch.cuda.empty_cache()
+    return res
+
+
+def order13_kernels(rt):
+    """K1 and K2 at order 13 on the plane step's plan: K1 on the folded
+    ring sums of a band-limited potential (all rings), K2 on the ring-pair
+    windows of the first (polar) and the last (equatorial) block of the
+    default count, each against its twin on O13_CHECK_ROWS (~14 s per
+    twin: a loop over 24,576 degrees); K1's ms and K2's ms
+    summed over every block of a synthesis (CUDA events)."""
+    import torch
+    from calclens_tpu_torch.sht import legendre as TL
+    from calclens_tpu_torch.sht import transforms as T
+    from calclens_tpu_torch.tools import cuda_ms
+
+    plan = rt.plan
+    m = torch.tensor(O13_CHECK_ROWS, device=plan.device)
+    alm = random_alm(plan, 13)
+    streams = T.synthesis_streams(plan, alm, True)
+    nblk = T.synth_stream_blocks(plan)
+    jb = plan.J // nblk
+    starts = (0, plan.J - jb)
+    k2 = {}
+    t0 = time.perf_counter()
+    for j0 in starts:
+        win = plan.window(j0, j0 + jb)
+        geo = (win.cth, win.ln_sth, win.logc, win.mcut(TL.SYNTH_TILE_J))
+        got = TL.synth_cuda(streams, *geo)[m]
+        ref = TL.synth_plain(tuple(s[m] for s in streams), win.cth,
+                             win.ln_sth, win.logc[m], geo[3], m=m)
+        k2[j0] = col_errs(got, ref)
+    k2_twin_s = time.perf_counter() - t0
+    wins = [plan.window(j, j + jb) for j in range(0, plan.J, jb)]
+    geos = [(w.cth, w.ln_sth, w.logc, w.mcut(TL.SYNTH_TILE_J)) for w in wins]
+    k2_ms = sum(cuda_ms(lambda g=g: TL.synth_cuda(streams, *g), 1)
+                for g in geos)
+    del streams
+    phi = T.alm2allmaps(plan, alm)[0]
+    del alm
+    tables = analysis_phase_table(plan, phi)
+    E, O = T.fold_pairs(plan, T.analysis_rings(plan, phi))
+    del phi
+    ana = TL.analysis_inputs(plan, E, O)
+    del E, O
+    got = TL.analysis_cuda(*ana, plan.nl)
+    got = (got[0][m], got[1][m])
+    t0 = time.perf_counter()
+    ref = TL.analysis_plain(*(x[m] for x in ana[:4]), plan.cth, plan.ln_sth,
+                            plan.logc[m], ana[7], plan.nl, m=m)
+    k1_twin_s = time.perf_counter() - t0
+    k1 = pair_errs(got, ref)
+    k1_ms = cuda_ms(lambda: TL.analysis_cuda(*ana, plan.nl), 1)
+    del ana, got
+    torch.cuda.empty_cache()
+    return dict(k1=k1, k1_ms=k1_ms, k1_twin_s=k1_twin_s, k2=k2, k2_ms=k2_ms,
+                k2_twin_s=k2_twin_s, nblk=nblk, jb=jb, tables=tables)
+
+
+def analysis_phase_table(plan, phi):
+    """The analysis ring stage at order 13 as the plan runs it (its
+    [nrings_pad, nm] phase table above the TableCache's limit, applied in
+    row blocks) and with that table kept: CUDA-event ms of a call after a
+    warm-up, its peak memory above what was allocated before it, the
+    table's bytes; the kept table is dropped after."""
+    import torch
+    from calclens_tpu_torch.sht import transforms as T
+
+    out = {}
+    limit = plan.tables.max_bytes
+    for kept in (False, True):
+        plan.tables.max_bytes = None if kept else limit
+        T.analysis_rings(plan, phi)  # warm-up; builds the table when kept
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _, ms = timed_once(lambda: T.analysis_rings(plan, phi))
+        out[kept] = dict(ms=ms, peak=torch.cuda.max_memory_allocated() - base)
+    out["bytes"] = plan.tables.nbytes("phase_analysis")
+    plan.tables.max_bytes = limit
+    plan.tables._tables.pop(("phase_analysis",), None)
+    torch.cuda.empty_cache()
+    return out
+
+
+def order13_pointmass(rt, plane):
+    """One point mass (O13_PM, snapped to its SHTOrder pixel centre) on
+    the order-13 Raytracer, from fresh rays, with the point-mass radial
+    convention (PointMassTest): alpha of every O13_PM_STRIDE-th ray at
+    0.15-0.6 rad from the mass against pointmass.alpha_exact (median
+    relative error) and its direction against the direction to the mass
+    at 0.1-0.4 rad (median cosine), as tests/test_torch_raytrace.py holds
+    the order-7 trace."""
+    import torch
+    from calclens_tpu_torch.driver import plane_params
+    from calclens_tpu_torch.healpix import core as hp
+    from calclens_tpu_torch.testing import pointmass as pmt
+
+    cfg = rt.cfg
+    cfg.PointMassTest, cfg.partMass = True, O13_PM["partMass"]
+    pp = plane_params(cfg, rt.cosmo, plane)
+    check(abs(pp.rad - O13_PM["rad"]) < 1e-9, f"plane {plane} at {pp.rad}")
+    theta, phi = hp.radec2ang(O13_PM["ra"], O13_PM["dec"])
+    pix = hp.ang2pix_ring(theta, phi, cfg.SHTOrder)
+    vec = hp.pix2vec_ring(pix, cfg.SHTOrder)
+    rt.init_rays()
+    t0 = time.perf_counter()
+    rt.step(plane, pos=vec[None, :] * pp.rad, mass=[cfg.partMass])
+    step_s = time.perf_counter() - t0
+    cfg.PointMassTest = False
+    sub = rt.rays_packed[:, ::O13_PM_STRIDE].double().cpu().numpy()
+    check(np.all(np.isfinite(sub)), "point-mass plane: non-finite rays")
+    n = sub[0:3].T
+    nhat = n / np.linalg.norm(n, axis=1, keepdims=True)
+    alpha = sub[14:16].T
+    gamma = np.arccos(np.clip(nhat @ vec, -1.0, 1.0))
+    q = pmt.charge(cfg, rt.cosmo, pp.rad)
+    amag = np.linalg.norm(alpha, axis=1)
+    sel = (gamma > 0.15) & (gamma < 0.6)
+    ex = pmt.alpha_exact(gamma[sel], q)
+    err = np.abs(amag[sel] - ex) / ex
+    phihat = np.stack([-nhat[:, 1], nhat[:, 0], np.zeros(len(nhat))], 1)
+    phihat /= np.linalg.norm(phihat, axis=1, keepdims=True)
+    thetahat = np.cross(phihat, nhat)
+    thetahat /= np.linalg.norm(thetahat, axis=1, keepdims=True)
+    avec = alpha[:, :1] * thetahat + alpha[:, 1:2] * phihat
+    tomass = vec[None, :] - nhat * (nhat @ vec)[:, None]
+    tomass /= np.linalg.norm(tomass, axis=1, keepdims=True)
+    sel2 = (gamma > 0.1) & (gamma < 0.4)
+    cosang = np.sum(avec[sel2] * tomass[sel2], axis=1) \
+        / np.linalg.norm(avec[sel2], axis=1)
+    res = dict(median_err=float(np.median(err)),
+               p95_err=float(np.percentile(err, 95)), nsel=int(sel.sum()),
+               cos=float(np.median(cosang)), step_s=step_s)
+    check(res["median_err"] < O13_PM_ERR and res["cos"] > O13_PM_COS,
+          f"order-13 point mass: {res}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def order13_step():
+    """The order-13 configuration through Raytracer.step: the plan's and
+    the rays' build seconds, one warm-up plane, two timed, one Profile'd
+    (with each phase's peak memory),
+    each plane's launches exact (K1 once, K2 once per block), the peak
+    memory after a reset under DEVICE_MEMORY; then K1 and K2 at order 13
+    against their twins (order13_kernels) and the point-mass plane."""
+    import torch
+    from calclens_tpu_torch import _ext
+    from calclens_tpu_torch.config import RayTraceConfig
+    from calclens_tpu_torch.driver import Raytracer
+    from calclens_tpu_torch.sht import transforms as T
+
+    sht, ray = O13_ORDERS
+    cfg = RayTraceConfig(OmegaM=0.3, maxComvDistance=2000.0, NumLensPlanes=8,
+                         SHTOrder=sht, rayOrder=ray, bundleOrder=3,
+                         Precision="f32").finalize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt = Raytracer(cfg, device="cuda")
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rt.init_rays()
+    torch.cuda.synchronize()
+    rays_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    nblk = T.synth_stream_blocks(rt.plan)
+    want = {"legendre_analysis": 1, "legendre_synth": nblk}
+    pos, mass = seeded_particles(O13_PARTICLES, 1.0, 13)
+    staged = {p: rt._pad_particles(pos * (250.0 * p + 125.0), mass)
+              for p in (1, 2, 3, 4)}
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _ext.reset_launches()
+    times, plane_counts = [], []
+    for p in (1, 2, 3):
+        before = dict(_ext.launches)
+        t = time.perf_counter()
+        rt.step(p, *staged[p])
+        times.append(time.perf_counter() - t)
+        counts = {k: v - before[k] for k, v in _ext.launches.items()
+                  if v - before[k]}
+        check(counts == want, f"order-13 plane {p} launched {counts}, "
+              f"expected {want}")
+        plane_counts.append(counts)
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(rt.rays_packed).all()),
+          "order-13 step: non-finite rays")
+    check(peak < DEVICE_MEMORY, f"order-13 step peak {peak / 1e9:.1f} GB")
+    phase_peaks = {}
+    timed_phase = rt._timed_phase
+
+    def peak_phase(plane_num):
+        inner = timed_phase(plane_num)
+
+        def phase(tag, fn, *args):
+            torch.cuda.reset_peak_memory_stats()
+            out_ = inner(tag, fn, *args)
+            phase_peaks[tag] = torch.cuda.max_memory_allocated()
+            return out_
+
+        return phase
+
+    rt._timed_phase = peak_phase
+    rt.cfg.Profile = True
+    rt.step(4, *staged[4])
+    rt.cfg.Profile = False
+    rt._timed_phase = timed_phase
+    row = dict(rt.phase_rows)[4]
+    profile = (rt.timings[-1][1], row, phase_peaks)
+    check(sorted(row) == sorted(PROFILE_TAGS), f"Profile'd plane: {row}")
+    del staged
+    nrays = rt.rays_packed.shape[1]
+    rt.rays_packed = None
+    torch.cuda.empty_cache()
+    kern = order13_kernels(rt)
+    pmass = order13_pointmass(rt, 2)
+    out = dict(plan_s=plan_s, rays_s=rays_s, setup_peak=setup_peak,
+               times=times, warm=times[0], nrays=nrays, peak=peak,
+               resident=resident, counts=plane_counts, nblk=nblk,
+               profile=profile, kernels=kern, pm=pmass,
+               tables=rt.plan.tables.nbytes())
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def order13_gals(tmp):
+    """Raytracer.run at the order-13 shape over two planes of 250 Mpc/h
+    with Profile on, O13_PARTICLES per plane through load_particles,
+    GalsFileList naming O13_GALS sources in plane 1's bin (write_catalog)
+    and GalOutputName set: every source imaged (plane 1's catalog read
+    back), gals/s of the plane's GRIDSEARCH column, each plane's launches,
+    the run's peak memory.  The run's closing restart (the 16.9 GB ray
+    buffer to an npz file) is left out."""
+    import torch
+    from calclens_tpu_torch import _ext
+    from calclens_tpu_torch.config import RayTraceConfig
+    from calclens_tpu_torch.driver import Raytracer
+    from calclens_tpu_torch.gals import io as galsio
+    from calclens_tpu_torch.sht import transforms as T
+
+    glist, _ = write_catalog(f"{tmp}/sources13", O13_GALS, 41,
+                             *O13_GALS_RADII)
+    sht, ray = O13_ORDERS
+    cfg = RayTraceConfig(OmegaM=0.3, maxComvDistance=500.0, NumLensPlanes=2,
+                         SHTOrder=sht, rayOrder=ray, bundleOrder=3,
+                         Precision="f32", Profile=True, GalsFileList=glist,
+                         GalOutputName="gal_",
+                         OutputPath=f"{tmp}/run13").finalize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rt = Raytracer(cfg, device="cuda")
+    pos, mass = seeded_particles(O13_PARTICLES, 1.0, 14)
+    rt.load_particles = lambda p: (pos * (250.0 * p + 125.0), mass)
+    rt.save_restart = lambda path=None: None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _ext.reset_launches()
+    t0 = time.perf_counter()
+    rt.run(progress=False)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for k, v in _ext.launches.items() if v}
+    nblk = T.synth_stream_blocks(rt.plan)
+    want = {"legendre_analysis": 2, "legendre_synth": 2 * nblk}
+    check(launches == want, f"order-13 run() launched {launches}, expected "
+          f"{want}")
+    check(bool(torch.isfinite(rt.rays_packed).all()),
+          "order-13 run(): non-finite rays")
+    idx = galsio.read_image_gals(os.path.join(cfg.OutputPath,
+                                              "gal_0001.0000.fit"))["index"]
+    imaged = int((np.bincount(idx, minlength=O13_GALS) > 0).sum())
+    check(imaged == O13_GALS, f"order-13 run(): {imaged} of {O13_GALS} "
+          f"sources imaged")
+    rows = dict(rt.phase_rows)
+    gs_s = rows[1]["GRIDSEARCH"]
+    out = dict(run_s=run_s, peak=peak, launches=launches, images=len(idx),
+               imaged=imaged, gridsearch_s=gs_s, gals_per_s=O13_GALS / gs_s,
+               steps=[t for _, t in rt.timings], rows=rows, nblk=nblk)
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def stream_phase(dev, card):
+    """Phase 15: block counts per order (stream_counts), the order-13 step
+    (order13_step) and run() with galaxies (order13_gals); prints them."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    s = order13_step()
+    times = s["times"]
+    med = float(np.median(times[1:]))
+    say(f"phase 15 ({card}): SHTOrder {O13_ORDERS[0]} / rayOrder "
+        f"{O13_ORDERS[1]} ({s['nrays']} rays), {O13_PARTICLES} particles, "
+        f"f32, NGP, {s['nblk']} j-blocks: plan {s['plan_s']:.3f} s, rays "
+        f"{s['rays_s']:.3f} s (peak {s['setup_peak'] / 2**30:.2f} GiB); "
+        f"warm-up plane {times[0]:.4f} s, timed "
+        f"{', '.join(f'{t:.4f}' for t in times[1:])} s: {med:.4f} s/plane, "
+        f"{s['nrays'] / med:.0f} rays/s; peak {s['peak'] / 2**30:.2f} GiB "
+        f"({s['resident'] / 2**30:.2f} resident); launches per plane "
+        f"{s['counts'][0]}; plan tables {s['tables'] / 2**30:.3f} GiB")
+    step_s, row, phase_peaks = s["profile"]
+    say(f"phase 15: Profile'd plane {step_s:.4f} s: "
+        + ", ".join(f"{k} {row[k]:.4f}" for k in PROFILE_TAGS)
+        + "; peak GiB per phase: " + ", ".join(
+            f"{k} {phase_peaks[k] / 2**30:.2f}" for k in PROFILE_TAGS))
+    k = s["kernels"]
+    say(f"phase 15: order 13 K1 legendre_analysis {k['k1_ms']:.2f} ms, rows "
+        f"{O13_CHECK_ROWS} rel {k['k1'][0]:.3e} abs {k['k1'][1]:.3e} (bound "
+        f"{K1_BOUND:g}; twin {k['k1_twin_s']:.1f} s); K2 legendre_synth "
+        f"{k['k2_ms']:.2f} ms over {k['nblk']} windows of {k['jb']} ring "
+        f"pairs; windows from "
+        + ", ".join(f"{j0}: rel {e[0]:.3e} abs {e[1]:.3e}"
+                    for j0, e in k["k2"].items())
+        + f" (bound {K2_BOUND:g}; twins {k['k2_twin_s']:.1f} s)")
+    t = k["tables"]
+    say(f"phase 15: order 13 analysis ring stage with its phase table "
+        f"applied in row blocks {t[False]['ms']:.2f} ms (peak "
+        f"{t[False]['peak'] / 2**30:.2f} GiB above the map), with the table "
+        f"kept ({t['bytes'] / 2**30:.2f} GiB) {t[True]['ms']:.2f} ms (peak "
+        f"{t[True]['peak'] / 2**30:.2f} GiB)")
+    check(k["k1"][0] < K1_BOUND and all(e[0] < K2_BOUND
+                                        for e in k["k2"].values()),
+          f"order-13 kernels off their twins: {k}")
+    p = s["pm"]
+    say(f"phase 15: order-13 point mass: alpha at 0.15-0.6 rad ({p['nsel']} "
+        f"rays) median error {p['median_err']:.4f} (bound {O13_PM_ERR:g}), "
+        f"95th percentile {p['p95_err']:.4f}; direction cosine median "
+        f"{p['cos']:.6f} (bound {O13_PM_COS:g}); step {p['step_s']:.3f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        g = order13_gals(tmp)
+    say(f"phase 15: run() at order 13 / {O13_ORDERS[1]}, 2 planes, "
+        f"{O13_GALS} sources in plane 1's bin: every source imaged "
+        f"({g['images']} images), GRIDSEARCH {g['gridsearch_s']:.3f} s "
+        f"({g['gals_per_s']:.0f} gals/s), steps "
+        f"{', '.join(f'{t:.3f}' for t in g['steps'])} s, run "
+        f"{g['run_s']:.2f} s, peak {g['peak'] / 2**30:.2f} GiB, launches "
+        f"{g['launches']}")
+    check(g["peak"] < DEVICE_MEMORY, f"order-13 run() peak {g['peak']}")
+    counts = {}
+    for order in sorted(STREAM_COUNTS):
+        r = stream_counts(order, dev)
+        counts[order] = r
+        best = min(r["rows"], key=lambda c: r["rows"][c]["ms"])
+        say(f"phase 15 ({card}): order {order} synthesis by j-blocks, ms "
+            f"(first call ms, peak GiB above the inputs, maps vs "
+            f"{r['ref']} block(s)): " + "; ".join(
+                f"{c}: {v['ms']:.2f} ({v['first_ms']:.1f}, "
+                f"{v['peak'] / 2**30:.2f}, {v['err']:.3e})"
+                for c, v in sorted(r["rows"].items()))
+            + f" (bound {STREAM_BOUND:g}); fastest {best}, default "
+            f"{r['default']}; {r['resident'] / 2**30:.2f} GiB allocated "
+            f"before")
+        if "k3" in r:
+            say(f"phase 15: order {order} K3 legendre_synth_vpu through the "
+                f"synthesis, ms (launches, maps vs 1 block): " + "; ".join(
+                    f"{c} block(s): {v['ms']:.2f} ({v['launches']}, "
+                    f"{v['err']:.3e})" for c, v in r["k3"].items())
+                + f" (bound {STREAM_BOUND:g})")
+        if "cached" in r:
+            c = r["cached"]
+            say(f"phase 15: order {order}, {r['default']} blocks with the "
+                f"per-block tables kept: {c['bytes'] / 2**30:.2f} GiB of "
+                f"tables, first call {c['build_ms']:.1f} ms, then "
+                f"{c['ms']:.2f} ms (not kept: "
+                f"{r['rows'][r['default']]['ms']:.2f}), peak "
+                f"{c['peak'] / 2**30:.2f} GiB, maps {c['err']:.3e}")
+        dms = r["rows"][r["default"]]["ms"]
+        check(dms <= (1.0 + STREAM_DEFAULT_SLACK) * r["rows"][best]["ms"],
+              f"order {order}: default {r['default']} blocks {dms:.2f} ms, "
+              f"fastest {best} {r['rows'][best]['ms']:.2f} ms")
+    say(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return dict(counts=counts, step=s, gals=g)
+
+
 def main():
     import torch
 
@@ -2649,6 +3230,11 @@ def main():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "wgmma")):
                 say(f"  {src}: {line.strip()}")
+
+    if sys.argv[1:] == ["--phase", "15"]:
+        stream_phase(dev, card)
+        say(f"chip_smoke --phase 15: {time.perf_counter() - t_start:.1f} s")
+        return
 
     # 3. kernels vs twins at orders 8 and 10; times at order 10
     variants10 = None
@@ -2890,6 +3476,15 @@ def main():
     say(f"phase 14: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
+    # 15. the j-block streamed synthesis: block counts at orders 10-13, the
+    # order-13 step (K1 and K2 at order 13 against their twins, a point
+    # mass) and run() with galaxies at order 13
+    p15 = stream_phase(dev, card)
+    o13 = p15["step"]
+    k13 = o13["kernels"]
+    k3s = p15["counts"][K3_STREAM[0]]["k3"]
+    torch.cuda.empty_cache()
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, **extra):
         b = bounds[name]
         return dict(name=name, route="cuda",
@@ -2908,12 +3503,20 @@ def main():
               h["counts"]["legendre_analysis"], k1[1], k1[2], k1[3],
               sph_launches=hs["counts"]["legendre_analysis"],
               gals_run_launches=gals_launches["legendre_analysis"],
-              mg_launches=mg_launches["legendre_analysis"]),
+              mg_launches=mg_launches["legendre_analysis"],
+              order13=dict(ms=k13["k1_ms"], rows_max_abs_err=k13["k1"][1],
+                           launches_per_plane=o13["counts"][0][
+                               "legendre_analysis"])),
         entry("legendre_synth", "legendre_synth.cu",
               "calclens_tpu/sht/pallas_legendre_mx.py:124",
               h["counts"]["legendre_synth"], k2[1], k2[2], k2[3],
               sph_launches=hs["counts"]["legendre_synth"],
-              gals_run_launches=gals_launches["legendre_synth"]),
+              gals_run_launches=gals_launches["legendre_synth"],
+              order13=dict(ms_per_plane=k13["k2_ms"], windows=k13["nblk"],
+                           rows_max_abs_err=max(e[1] for e in
+                                                k13["k2"].values()),
+                           launches_per_plane=o13["counts"][0][
+                               "legendre_synth"])),
         entry("legendre_synth_phi", "legendre_synth.cu",
               "calclens_tpu/sht/pallas_legendre_mx.py:124",
               mg_launches["legendre_synth_phi"], v12["legendre_synth_phi"][1],
@@ -2923,7 +3526,11 @@ def main():
               "calclens_tpu/sht/pallas_legendre.py:49",
               hv["counts"]["legendre_synth_vpu"],
               v12["legendre_synth_vpu"][1], v12["legendre_synth_vpu"][2],
-              v10["legendre_synth_vpu"][3], plain_order=10),
+              v10["legendre_synth_vpu"][3], plain_order=10,
+              streamed=dict(order=K3_STREAM[0], blocks=K3_STREAM[1],
+                            launches=k3s[K3_STREAM[1]]["launches"][
+                                "legendre_synth_vpu"],
+                            maps_rel_err=k3s[K3_STREAM[1]]["err"])),
         entry("legendre_synth_vpu_phi", "legendre_synth_vpu.cu",
               "calclens_tpu/sht/pallas_legendre.py:49",
               phi3_launches, v12["legendre_synth_vpu_phi"][1],

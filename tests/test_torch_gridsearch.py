@@ -115,6 +115,50 @@ def test_paratrans_matches_jax():
                                    atol=1e-12)
 
 
+def test_float32_candidates_are_the_nearest_pixels_at_ray_order_12():
+    """float32 at rayOrder 12 (pixels of 2.5e-4 rad): the device search's
+    topk candidates, ranked by the squared chord to the pixel centres, are
+    the topk nearest centres that float64 finds (but for a tie at the
+    cut), and hold the pixel each galaxy lies in.  The JAX package's rank,
+    the dot product c . g, rounds to 1 within ~3.5e-4 rad in float32 (3-4
+    distinct values among the top 16), so the window order picks its
+    candidates: they are float64's nearest for few galaxies (shown on the
+    same windows).  A source whose triangle was left out went unimaged:
+    386 of 10^6 sources on an H100 at SHTOrder 13 / rayOrder 12."""
+    order, topk = 12, 16
+    tab = torchhp.InterpTables(order)
+    rng = np.random.default_rng(12)
+    v = rng.normal(size=(400, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    g = torch.tensor(v, dtype=torch.float32)
+    own = torch.tensor(hp.ang2pix_ring(*hp.vec2ang(v), order))[:, None]
+    cand = tgs._candidates(tab, g, topk, torch.float32)
+    assert bool((cand == own).any(dim=1).all())
+    theta, phi = torchhp.vec2ang(g)
+    pixw, valid = torchhp.ring_window(tab, theta, phi,
+                                      *tgs.search_windows(order))
+    pixf = pixw.reshape(len(g), -1)
+    valid = valid.reshape(len(g), -1)
+    c64 = torch.stack(torchhp.pix2vec_ring_soa(pixf, order, torch.float64),
+                      dim=-1)
+    d64 = torch.where(valid, ((c64 - torch.tensor(v)[:, None]) ** 2).sum(-1),
+                      8.0)
+    near = torch.gather(pixf, 1, torch.sort(d64, dim=1, stable=True)
+                        .indices[:, :topk])
+    cx, cy, cz = torchhp.pix2vec_ring_soa(pixf, order, torch.float32)
+    dot = torch.where(valid, cx * g[:, 0:1] + cy * g[:, 1:2]
+                      + cz * g[:, 2:3], -2.0)
+    jax_cand = torch.gather(pixf, 1, torch.sort(
+        dot, dim=1, descending=True, stable=True).indices[:, :topk])
+
+    def same(a):
+        return float((torch.sort(a, 1).values == torch.sort(near, 1).values)
+                     .all(dim=1).float().mean())
+
+    assert same(cand) >= 0.99
+    assert same(jax_cand) < 0.5
+
+
 @pytest.mark.parametrize("order", [2, 3, 5])
 def test_triangles_ring_matches_jax_and_host(order):
     npix = int(hp.order2npix(order))

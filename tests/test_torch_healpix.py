@@ -197,7 +197,8 @@ def _port_sources():
 def test_import_port_leaves_jax_unloaded():
     """Importing every module of the port, and every module that
     chip_smoke.py and bench_torch.py import (at any depth), then stepping
-    a plane with each deposit (NGP, CIC in a box, SPH) and a precomputed
+    a plane with each deposit (NGP, CIC in a box, SPH), one with the
+    streamed synthesis, and a precomputed
     mass-map plane, searching a galaxy's images (device and Born), a
     legacy restart carried to the CMB, a multigrid and an SHT-only plane
     with DebugIO and their ray files, and a THREEDPOT plane from an LGadget
@@ -232,6 +233,8 @@ def test_import_port_leaves_jax_unloaded():
         "rt = Raytracer(cfg.finalize(), device='cpu')\n"
         "rt.init_rays()\n"
         "rt.step(0, pos=[[1.0, 0.0, 0.0]], mass=[1e12])\n"
+        "rt.plan.synth_stream = 2\n"
+        "rt.step(1, pos=[[1.0, 0.0, 0.0]], mass=[1e12])\n"
         "import tempfile\n"
         "from calclens_tpu_torch.io import healpix_maps\n"
         "tmp = tempfile.mkdtemp()\n"

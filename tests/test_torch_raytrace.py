@@ -87,7 +87,8 @@ def test_interp_and_prop_chunk_matches_jax(dtype, tol):
             jaxhp.InterpTables(order_map, jdt), jnp.asarray(maps),
             jnp.asarray(r), wp, wpm1, wpm2, born)
         got = tsoa.interp_and_prop_chunk(
-            torchhp.InterpTables(order_map), torch.tensor(maps),
+            torchhp.InterpTables(order_map),
+            tsoa.with_pixel_ids(torch.tensor(maps)),
             torch.tensor(r), *(torch.tensor(x) for x in (wp, wpm1, wpm2)),
             born)
         assert got.dtype == tdt
