@@ -46,16 +46,17 @@ launches = {"legendre_analysis": 0, "legendre_analysis_dot": 0,
 # "s" = cudaStream_t
 _SIGNATURES = {
     # ere, eim, ore, oim, cth, ln_sth, logc, mcut, alm_re, alm_im,
-    # nl, nm, J, stream
-    "legendre_analysis_launch": "pppppppppp" + "iii" + "s",
-    "legendre_analysis_dot_launch": "pppppppppp" + "iii" + "s",
-    # a_re, a_im, h_re, h_im, cth, ln_sth, logc, mcut, out, nl, nm, J, stream
-    "legendre_synth_launch": "ppppppppp" + "iii" + "s",
-    # a_re, a_im, cth, ln_sth, logc, mcut, out, nl, nm, J, stream
-    "legendre_synth_phi_launch": "ppppppp" + "iii" + "s",
+    # nl, nm, J, m0 (the m of row 0), stream
+    "legendre_analysis_launch": "pppppppppp" + "iiii" + "s",
+    "legendre_analysis_dot_launch": "pppppppppp" + "iiii" + "s",
+    # a_re, a_im, h_re, h_im, cth, ln_sth, logc, mcut, out, nl, nm, J, m0,
+    # stream
+    "legendre_synth_launch": "ppppppppp" + "iiii" + "s",
+    # a_re, a_im, cth, ln_sth, logc, mcut, out, nl, nm, J, m0, stream
+    "legendre_synth_phi_launch": "ppppppp" + "iiii" + "s",
     # a_re, a_im, cth, cot, inv_sth, seed, seed_k, mcut, out, nl, nm, J,
-    # derivs, stream
-    "legendre_synth_vpu_launch": "ppppppppp" + "iiii" + "s",
+    # derivs, m0, stream
+    "legendre_synth_vpu_launch": "ppppppppp" + "iiiii" + "s",
     # sth, seed, seed_k, scratch, scratch_ints, nm, J, stream
     "legendre_chain_seed_launch": "pppp" + "l" + "ii" + "s",
     # geo, out, rows, TJ, LB, LBLK, mode, stream

@@ -91,6 +91,11 @@ struct Analysis : Rings<kRings> {
   }
 };
 
+// kRowOffset: the rows start at m0 > 0 (a rank's block of m rows); without
+// it m is blockIdx.y, the one-device code, which ptxas schedules 5 % faster
+// than the same sweep with a runtime offset (chip_smoke.py phase 6 and
+// tools/legendre_variants.py on an H100)
+template <bool kRowOffset>
 __global__ void __launch_bounds__(kThreads)
 legendre_analysis_kernel(const float* __restrict__ ere,
                          const float* __restrict__ eim,
@@ -102,9 +107,10 @@ legendre_analysis_kernel(const float* __restrict__ ere,
                          const int* __restrict__ mcut,
                          float* __restrict__ alm_re,  // [nm, nl], zeroed
                          float* __restrict__ alm_im,
-                         int nl, int J) {
+                         int nl, int J, int m0) {
   const int jt = blockIdx.x;
-  const int m = blockIdx.y;
+  const int mr = blockIdx.y;  // input and output row; m = m0 + mr
+  const int m = kRowOffset ? m0 + mr : mr;
   if (m >= mcut[jt]) return;  // whole (m, tile) below f32 significance
 
   __shared__ __align__(16) float2 coef[kChunkL];  // (a, b) per degree
@@ -113,7 +119,7 @@ legendre_analysis_kernel(const float* __restrict__ ere,
   const int t = threadIdx.x;
   const int lane = t & 31;
   const float mf = static_cast<float>(m);
-  const float logc_m = logc[m];
+  const float logc_m = logc[mr];
 
   Analysis s;
   float sv[kRings];
@@ -127,7 +133,7 @@ legendre_analysis_kernel(const float* __restrict__ ere,
     sv[q] = 0.0f;
     sk[q] = 0;
     if (j < J) {
-      const size_t o = static_cast<size_t>(m) * J + j;
+      const size_t o = static_cast<size_t>(mr) * J + j;
       s.er[q] = ere[o];
       s.ei[q] = eim[o];
       s.orr[q] = ore[o];
@@ -162,7 +168,7 @@ legendre_analysis_kernel(const float* __restrict__ ere,
           si += __shfl_xor_sync(0xffffffffu, si, off);
         }
         if (sum_col == 0 && lb + sum_row < nl) {
-          const size_t o = static_cast<size_t>(m) * nl + lb + sum_row;
+          const size_t o = static_cast<size_t>(mr) * nl + lb + sum_row;
           atomicAdd(alm_re + o, sr);
           atomicAdd(alm_im + o, si);
         }
@@ -172,16 +178,25 @@ legendre_analysis_kernel(const float* __restrict__ ere,
 
 }  // namespace
 
-// E/O real and imaginary planes [nm, J]; cth, ln_sth [J]; logc [nm];
+// E/O real and imaginary planes [nm, J] of the m rows m0 .. m0 + nm - 1;
+// cth, ln_sth [J]; logc [nm] (of those rows);
 // mcut [ceil(J / 512)] int32; alm_re/alm_im [nm, nl] (TRANSPOSED, zeroed by
 // the caller).  Returns cudaGetLastError() after the launch.
 extern "C" int legendre_analysis_launch(
     const float* ere, const float* eim, const float* ore, const float* oim,
     const float* cth, const float* ln_sth, const float* logc, const int* mcut,
-    float* alm_re, float* alm_im, int nl, int nm, int J, void* stream) {
+    float* alm_re, float* alm_im, int nl, int nm, int J, int m0,
+    void* stream) {
   const dim3 grid((J + kTileJ - 1) / kTileJ, nm);
-  legendre_analysis_kernel<<<grid, kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      ere, eim, ore, oim, cth, ln_sth, logc, mcut, alm_re, alm_im, nl, J);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m0 != 0) {
+    legendre_analysis_kernel<true><<<grid, kThreads, 0, s>>>(
+        ere, eim, ore, oim, cth, ln_sth, logc, mcut, alm_re, alm_im, nl, J,
+        m0);
+  } else {
+    legendre_analysis_kernel<false><<<grid, kThreads, 0, s>>>(
+        ere, eim, ore, oim, cth, ln_sth, logc, mcut, alm_re, alm_im, nl, J,
+        0);
+  }
   return static_cast<int>(cudaGetLastError());
 }

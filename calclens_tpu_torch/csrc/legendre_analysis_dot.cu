@@ -123,9 +123,10 @@ legendre_analysis_dot_kernel(const float* __restrict__ ere,
                              const int* __restrict__ mcut,
                              float* __restrict__ alm_re,  // [nm, nl], zeroed
                              float* __restrict__ alm_im,
-                             int nl, int J) {
+                             int nl, int J, int m0) {
   const int jt = blockIdx.x;
-  const int m = blockIdx.y;
+  const int mr = blockIdx.y;  // input and output row; m = m0 + mr
+  const int m = m0 + mr;
   if (m >= mcut[jt]) return;  // whole (m, tile) below f32 significance
 
   __shared__ __align__(16) float2 coef[kChunkL];  // (a, b) per degree
@@ -137,7 +138,7 @@ legendre_analysis_dot_kernel(const float* __restrict__ ere,
   const int lane = t & 31;
   const float mf = static_cast<float>(m);
   const bool m_even = (m & 1) == 0;
-  const size_t mrow = static_cast<size_t>(m) * J;
+  const size_t mrow = static_cast<size_t>(mr) * J;
   const int jw = jt * kTileJ + w * kWarpJ;  // the warp's first ring
 
   // ring q of a thread: jw + 32 q + lane, stored at column 4 lane + q
@@ -152,7 +153,7 @@ legendre_analysis_dot_kernel(const float* __restrict__ ere,
     sk[q] = 0;
     if (j < J) {
       s.c[q] = cth[j];
-      diag_seed(logc[m], mf, ln_sth[j], sv[q], sk[q]);
+      diag_seed(logc[mr], mf, ln_sth[j], sv[q], sk[q]);
     }
   }
 
@@ -241,7 +242,7 @@ legendre_analysis_dot_kernel(const float* __restrict__ ere,
               const float2 x = part[buf][u][dg];
               v += (t & 1) ? x.y : x.x;
             }
-            const size_t o = static_cast<size_t>(m) * nl + lb + dg;
+            const size_t o = static_cast<size_t>(mr) * nl + lb + dg;
             atomicAdd(((t & 1) ? alm_im : alm_re) + o, v);
           }
         }
@@ -251,16 +252,19 @@ legendre_analysis_dot_kernel(const float* __restrict__ ere,
 
 }  // namespace
 
-// E/O real and imaginary planes [nm, J]; cth, ln_sth [J]; logc [nm];
+// E/O real and imaginary planes [nm, J] of the m rows m0 .. m0 + nm - 1;
+// cth, ln_sth [J]; logc [nm] (of those rows);
 // mcut [ceil(J / 512)] int32; alm_re/alm_im [nm, nl] (TRANSPOSED, zeroed by
 // the caller).  Returns cudaGetLastError() after the launch.
 extern "C" int legendre_analysis_dot_launch(
     const float* ere, const float* eim, const float* ore, const float* oim,
     const float* cth, const float* ln_sth, const float* logc, const int* mcut,
-    float* alm_re, float* alm_im, int nl, int nm, int J, void* stream) {
+    float* alm_re, float* alm_im, int nl, int nm, int J, int m0,
+    void* stream) {
   const dim3 grid((J + kTileJ - 1) / kTileJ, nm);
   legendre_analysis_dot_kernel<<<grid, kThreads, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
-      ere, eim, ore, oim, cth, ln_sth, logc, mcut, alm_re, alm_im, nl, J);
+      ere, eim, ore, oim, cth, ln_sth, logc, mcut, alm_re, alm_im, nl, J,
+      m0);
   return static_cast<int>(cudaGetLastError());
 }

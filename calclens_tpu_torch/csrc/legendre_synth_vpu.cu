@@ -359,15 +359,16 @@ legendre_synth_vpu_kernel(const float* __restrict__ a_re,  // [nm, nl]
                           const int* __restrict__ seed_k,
                           const int* __restrict__ mcut,  // [ceil(J / kTileJ)]
                           float* __restrict__ out,       // [nm, 2 kAcc, J]
-                          int nl, int J) {
+                          int nl, int J, int m0) {
   using S = Vpu<kAcc>;
   constexpr int kVec = S::kVec;
   __shared__ float4 sh[kChunkL][kVec];
 
-  const int m = blockIdx.y;
+  const int mr = blockIdx.y;  // input and output row; m = m0 + mr
+  const int m = m0 + mr;
   const SynthTile w = calclens::synth_tile<kWarps, kTileJ>(mcut, m, nl, J);
   const float mf = static_cast<float>(m);
-  const size_t row = static_cast<size_t>(m) * nl;
+  const size_t arow = static_cast<size_t>(mr) * nl;
   S s;
   float sv[kRings];
   int sk[kRings];
@@ -379,7 +380,7 @@ legendre_synth_vpu_kernel(const float* __restrict__ a_re,  // [nm, nl]
     sk[q] = 0;
     if (w.active && j < J) {
       s.c[q] = cth[j];
-      const size_t o = static_cast<size_t>(m) * J + j;
+      const size_t o = static_cast<size_t>(mr) * J + j;
       sv[q] = seed[o];
       sk[q] = seed_k[o];
       if constexpr (S::kDerivs) {
@@ -399,7 +400,7 @@ legendre_synth_vpu_kernel(const float* __restrict__ a_re,  // [nm, nl]
           const float lf = static_cast<float>(l);
           float ca, cb;
           coeffs(lf, mf, ca, cb);
-          v0 = make_float4(ca, cb, a_re[row + l], a_im[row + l]);
+          v0 = make_float4(ca, cb, a_re[arow + l], a_im[arow + l]);
           if constexpr (S::kDerivs) {
             const float num = __fmul_rn(
                 fmaxf(__fmul_rn(lf - mf, lf + mf), 0.0f), 2.0f * lf + 1.0f);
@@ -415,7 +416,7 @@ legendre_synth_vpu_kernel(const float* __restrict__ a_re,  // [nm, nl]
   // bucket A (even l) holds the (l - m)-even sums for even m, the odd ones
   // for odd m; a warp beyond its cutoff writes its zeros
   const int pa = m & 1;
-  float* o = out + static_cast<size_t>(m) * (2 * kAcc) * J;
+  float* o = out + static_cast<size_t>(mr) * (2 * kAcc) * J;
 #pragma unroll
   for (int q = 0; q < kRings; ++q) {
     const int j = w.j0 + 32 * q;
@@ -458,23 +459,24 @@ extern "C" int legendre_chain_seed_launch(const float* sth, float* seed,
   return static_cast<int>(cudaGetLastError());
 }
 
-// a_re, a_im [nm, nl] (TRANSPOSED alm); cth, cot, inv_sth [J]; seed, seed_k
-// [nm, J] from legendre_chain_seed_launch; mcut [ceil(J / 128)] int32; out
+// a_re, a_im [nm, nl] (TRANSPOSED alm) of the m rows m0 .. m0 + nm - 1;
+// cth, cot, inv_sth [J]; seed, seed_k [nm, J] of those rows (rows m0 ..
+// of legendre_chain_seed_launch's output); mcut [ceil(J / 128)] int32; out
 // [nm, 12, J] with derivatives, [nm, 4, J] without (column 2 s + p for
 // slot s, l parity p).  Returns cudaGetLastError() after the launch.
 extern "C" int legendre_synth_vpu_launch(
     const float* a_re, const float* a_im, const float* cth, const float* cot,
     const float* inv_sth, const float* seed, const int* seed_k,
-    const int* mcut, float* out, int nl, int nm, int J, int derivs,
+    const int* mcut, float* out, int nl, int nm, int J, int derivs, int m0,
     void* stream) {
   const dim3 grid((J + kBlockJ - 1) / kBlockJ, nm);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (derivs) {
     legendre_synth_vpu_kernel<6><<<grid, kThreads, 0, s>>>(
-        a_re, a_im, cth, cot, inv_sth, seed, seed_k, mcut, out, nl, J);
+        a_re, a_im, cth, cot, inv_sth, seed, seed_k, mcut, out, nl, J, m0);
   } else {
     legendre_synth_vpu_kernel<2><<<grid, kThreads, 0, s>>>(
-        a_re, a_im, cth, cot, inv_sth, seed, seed_k, mcut, out, nl, J);
+        a_re, a_im, cth, cot, inv_sth, seed, seed_k, mcut, out, nl, J, m0);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,6 +14,14 @@ maps.  SHTOnly = 0 takes the multigrid-refined step (poisson.plane_step_mg,
 mgdriver.py); ThreeDPot the 3D FFT potential of the nearest N-body
 snapshot (fftpot.py).  propagate_to_cmb carries the rays on to the
 last-scattering surface (the CMB mode).
+
+On a mesh (Raytracer(..., mesh=Mesh), parallel/sharding.py) each rank
+holds a contiguous block of the ray columns and of each plane's particle
+rows, and runs the sharded SHT-only step (poisson.py); the lens maps,
+the ray files, the npz restarts and the galaxy images are reduced or
+gathered to rank 0, which writes the same files a one-device run writes.
+The multigrid step (SHTOnly 0) and THREEDPOT on a mesh are slice 14b of
+the port (ROADMAP.md) and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -117,15 +125,23 @@ def sph_params(cfg: RayTraceConfig):
 
 
 class Raytracer:
-    """End-to-end multiple-plane ray tracer on one device.
+    """End-to-end multiple-plane ray tracer on one device, or on a mesh of
+    ranks (mesh: a parallel.sharding.Mesh; device is then this rank's).
 
     Rays live on the HEALPix grid at rayOrder (full sky, or its pixels in
     the configured ra/dec box), in RING order of their pixels, as a packed
-    [21, N] tensor on `device` (rays/soa.py).
+    [21, N] tensor on `device` (rays/soa.py); on a mesh each rank holds the
+    columns ray_bounds[rank] .. ray_bounds[rank + 1] of it.
     """
 
-    def __init__(self, cfg: RayTraceConfig, device="cuda", dtype=None):
+    def __init__(self, cfg: RayTraceConfig, device="cuda", dtype=None,
+                 mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None and (not cfg.SHTOnly or cfg.ThreeDPot):
+            raise NotImplementedError(
+                "the multigrid step (SHTOnly 0) and THREEDPOT on a mesh are "
+                "slice 14b of the port (ROADMAP.md), not ported yet")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Raytracer on CUDA, but torch sees no GPU")
@@ -152,13 +168,15 @@ class Raytracer:
         self.plan = SHTPlan(cfg.poissonOrder, self.device,
                             lmax=cfg.LMax if cfg.LMax > 0 else None,
                             dtype=self.dtype, window=window,
-                            ring_weights=ring_weights)
+                            ring_weights=ring_weights, mesh=mesh)
         self.tab = torchhp.InterpTables(cfg.poissonOrder)
         self.sph = sph_params(cfg) if cfg.DepositScheme == "SPH" else None
         # [npix] bool on the device, True outside the buffered box; None for
         # the full sky
         self.vacmask = self.vacuum_mask()
         self.rays_packed = None  # [21, N] tensor on self.device
+        self.ray_bounds = None   # [n + 1] column bounds of the ranks
+        self._halo_px = None     # the ray side's halo on a mesh (_halo)
         self._ray_nest = None    # host int64 nest index per ray (lazy)
         self.current_plane = 0
         self.map_num = 0
@@ -245,8 +263,10 @@ class Raytracer:
         if _full_sky(cfg):
             npix = int(hp.order2npix(cfg.rayOrder))
             self._ray_nest = None
+            c0, c1 = self._columns(npix)
             self.rays_packed = soa.init_packed_fullsky(
-                cfg.rayOrder, binL / 2.0, npix, self.device, self.dtype)
+                cfg.rayOrder, binL / 2.0, c1 - c0, self.device, self.dtype,
+                pix0=c0)
             return
         self._ray_nest = self.active_ray_pixels()
         vec = hp.pix2vec_nest(self._ray_nest, cfg.rayOrder)
@@ -254,7 +274,60 @@ class Raytracer:
         packed[0:3] = (vec * (binL / 2.0)).T
         packed[3:6] = vec.T
         packed[6] = packed[9] = packed[10] = packed[13] = 1.0  # A = Aprev = I
-        self.rays_packed = torch.from_numpy(packed).to(self.device)
+        self.rays_packed = self._my_columns(packed)
+
+    # ------------------------------------------------------------------
+    # the ray columns on a mesh
+    # ------------------------------------------------------------------
+    def _columns(self, N):
+        """(c0, c1): the ray columns this rank holds ((0, N) on one
+        device); sets ray_bounds."""
+        if self.mesh is None:
+            self.ray_bounds = np.array([0, N], np.int64)
+            return 0, N
+        self.ray_bounds = self.mesh.blocks(N)
+        return self.mesh.block(N)
+
+    def _my_columns(self, packed):
+        """Host [21, N] -> a copy of this rank's columns on the device."""
+        c0, c1 = self._columns(packed.shape[1])
+        return torch.tensor(np.ascontiguousarray(packed[:, c0:c1]),
+                            device=self.device)
+
+    def packed_global(self):
+        """The whole [21, N] ray buffer on every rank (the packed buffer
+        itself on one device): the ranks' columns gathered."""
+        if self.mesh is None:
+            return self.rays_packed
+        return self.mesh.all_gather_cols(self.rays_packed, self.ray_bounds)
+
+    def _rank0(self):
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _agree(self, flag):
+        """Rank 0's value of a host decision, on every rank (so every rank
+        makes the same collective calls)."""
+        if self.mesh is None:
+            return flag
+        return self.mesh.broadcast_object(flag, 0)
+
+    def _halo(self):
+        """The ray side's halo on a mesh (parallel/halo.required_halo),
+        when the rays are the full sky's in RING order and both the rays
+        and the map divide into the ranks' equal blocks; else None: the
+        ray side then reads the maps gathered whole."""
+        mesh = self.mesh
+        if mesh is None or self._ray_nest is not None:
+            return None
+        N = int(self.ray_bounds[-1])
+        if N % mesh.size or self.plan.npix % mesh.size:
+            return None
+        if self._halo_px is None:
+            from .parallel.halo import required_halo
+
+            self._halo_px = required_halo(self.cfg.rayOrder,
+                                          self.cfg.poissonOrder, mesh.size)
+        return self._halo_px
 
     def load_state(self, packed, current_plane: int, map_num: int = 0):
         """Start from a given packed [21, N] ray state (for example
@@ -268,8 +341,8 @@ class Raytracer:
         if packed.shape != (soa.NROWS, n):
             raise ValueError(f"packed state has shape {packed.shape}, "
                              f"expected {(soa.NROWS, n)}")
-        self.rays_packed = torch.tensor(packed, dtype=self.dtype,
-                                        device=self.device)
+        self.rays_packed = self._my_columns(
+            np.asarray(packed, dtype=self._np_dtype))
         self._ray_nest = nest
         self.current_plane = int(current_plane)
         self.map_num = int(map_num)
@@ -278,12 +351,18 @@ class Raytracer:
     def _np_dtype(self):
         return np.float64 if self.dtype == torch.float64 else np.float32
 
-    def _pad_particles(self, pos, mass):
-        """Pad to the bucket size with zero-mass particles at a valid unit
-        vector (they deposit nothing) and move them to the device."""
-        if isinstance(pos, torch.Tensor) and len(pos) % self.part_bucket == 0:
-            return (pos.to(self.device, self.dtype),
-                    mass.to(self.device, self.dtype))
+    def stage_particles(self, pos, mass):
+        """The whole plane's particles padded to the bucket size with
+        zero-mass particles at a valid unit vector (they deposit nothing),
+        on the device: what step takes as it is.  Tensors whose length is
+        already a bucket multiple are only moved."""
+        if not (isinstance(pos, torch.Tensor)
+                and len(pos) % self.part_bucket == 0):
+            pos, mass = self._pad_host(pos, mass)
+        return (torch.as_tensor(pos).to(self.device, self.dtype),
+                torch.as_tensor(mass).to(self.device, self.dtype))
+
+    def _pad_host(self, pos, mass):
         n = len(pos)
         b = self.part_bucket
         npad = max(b, ((n + b - 1) // b) * b)
@@ -293,15 +372,44 @@ class Raytracer:
         if n:
             pos_p[:n] = np.asarray(pos)
             mass_p[:n] = np.asarray(mass)
-        return (torch.tensor(pos_p, dtype=self.dtype, device=self.device),
-                torch.tensor(mass_p, dtype=self.dtype, device=self.device))
+        return pos_p, mass_p
+
+    def _pad_particles(self, pos, mass):
+        """pos, mass: the whole plane's particles (host arrays or tensors,
+        on a mesh as on one device) -> this rank's block of the rows that
+        stage_particles gives, on the device (all of them on one
+        device)."""
+        if self.mesh is None:
+            return self.stage_particles(pos, mass)
+        if not (isinstance(pos, torch.Tensor)
+                and len(pos) % self.part_bucket == 0):
+            pos, mass = self._pad_host(pos, mass)
+        a, b = self.mesh.block(len(pos))
+        return (torch.as_tensor(pos[a:b]).to(self.device, self.dtype),
+                torch.as_tensor(mass[a:b]).to(self.device, self.dtype))
+
+    def _plane_count(self, pos):
+        """The plane's particle count, the same on every rank: on a mesh
+        the ranks' counts are compared, and differing ones raise on every
+        rank at once (so no rank takes the empty plane's step while the
+        others wait in the deposit's collectives)."""
+        n = 0 if pos is None else len(pos)
+        if self.mesh is None:
+            return n
+        counts = self.mesh.all_gather_object(n)
+        if len(set(counts)) > 1:
+            raise ValueError(f"the ranks were given different planes: "
+                             f"particle counts {counts} (every rank takes "
+                             f"the whole plane)")
+        return n
 
     @property
     def rays(self):
-        """Host numpy Rays view of the packed ray buffer."""
+        """Host numpy Rays view of the packed ray buffer (on a mesh, of the
+        whole buffer: a collective)."""
         if self.rays_packed is None:
             return None
-        return soa.unpack(self.rays_packed.cpu().numpy())
+        return soa.unpack(self.packed_global().cpu().numpy())
 
     @property
     def ray_nest(self):
@@ -348,6 +456,9 @@ class Raytracer:
         counts = healpix_maps.read_plane_map(
             cfg.HEALPixLensPlaneMapPath, cfg.HEALPixLensPlaneMapName,
             plane_num, self.plan.npix)
+        if self.mesh is not None:
+            a, b = self.mesh.block(self.plan.npix)
+            counts = counts[a:b]
         return torch.tensor(counts * (cfg.partMass / MASS_SCALE),
                             dtype=self.dtype, device=self.device)
 
@@ -381,7 +492,8 @@ class Raytracer:
                                  time.perf_counter() - t0)
             packed, maps = plane_step_density_packed(
                 self.plan, self.tab, self.rays_packed, density,
-                cfg.BornApprx, with_maps, scal, self.vacmask, **kw)
+                cfg.BornApprx, with_maps, scal, self.vacmask, halo=self._halo(),
+                **kw)
         else:
             if pos is None:
                 pos, mass = self.load_particles(plane_num)
@@ -389,7 +501,8 @@ class Raytracer:
                     self._note_phase(plane_num, "PARTIO",
                                      time.perf_counter() - t0)
             maps = None
-            if not cfg.SHTOnly and len(pos):
+            npart = self._plane_count(pos)
+            if not cfg.SHTOnly and npart:
                 # multigrid-refined short-range force (non-SHTONLY mode)
                 pos_d, mass_d = self._pad_particles(pos, mass)
                 packed, cycles = plane_step_mg(
@@ -398,12 +511,12 @@ class Raytracer:
                     self.vacmask, float(cfg.MGConvFact), self.sph,
                     self._ray_nest_dev(), **kw)
                 self.mg_cycles[plane_num] = cycles
-            elif len(pos):
+            elif npart:
                 pos_d, mass_d = self._pad_particles(pos, mass)
                 packed, maps = plane_step_packed(
                     self.plan, self.tab, self.rays_packed, pos_d, mass_d,
                     cfg.BornApprx, with_maps, scal, cfg.DepositScheme,
-                    self.vacmask, self.sph, **kw)
+                    self.vacmask, self.sph, halo=self._halo(), **kw)
             else:
                 # empty planes keep the beta chord (see
                 # calclens_tpu/driver.py)
@@ -415,8 +528,13 @@ class Raytracer:
         self.current_plane = plane_num + 1
         self.timings.append((plane_num, time.perf_counter() - t0))
         if maps is not None and cfg.DebugIO and cfg.OutputPath:
-            lm.write_debug_field_maps(maps, cfg.poissonOrder, cfg.OutputPath,
-                                      plane_num)
+            if self.mesh is not None:
+                whole = self.mesh.all_gather_cols(torch.stack(list(maps)),
+                                                  self.plan.pix_bounds)
+                maps = type(maps)(*whole.unbind(0))
+            if self._rank0():
+                lm.write_debug_field_maps(maps, cfg.poissonOrder,
+                                          cfg.OutputPath, plane_num)
         return maps
 
     def _threedpot(self):
@@ -495,19 +613,37 @@ class Raytracer:
         return f"{self.cfg.OutputPath or '.'}/restart.npz"
 
     def save_restart(self, path=None):
+        """The npz restart.  On a mesh the ranks' columns are gathered to
+        rank 0, which writes the file a one-device run writes (so a run on
+        n ranks resumes on any other number, or in the JAX package)."""
         from . import restart as rst
 
-        rst.write_restart(path or self.restart_path(), self.cfg, self.rays,
-                          self.ray_nest, self.current_plane, self.map_num)
+        if self.mesh is None:
+            rst.write_restart(path or self.restart_path(), self.cfg,
+                              self.rays, self.ray_nest, self.current_plane,
+                              self.map_num)
+            return
+        full = self.mesh.gather_to(self.rays_packed,
+                                   np.diff(self.ray_bounds), 0)
+        if self._rank0():
+            rst.write_restart(path or self.restart_path(), self.cfg,
+                              soa.unpack(full.cpu().numpy()), self.ray_nest,
+                              self.current_plane, self.map_num)
+        self.mesh.barrier()
 
     def load_restart(self, path=None):
+        """Resume from an npz restart (any writer's); on a mesh each rank
+        reads the file and keeps its columns."""
         from . import restart as rst
 
         rays, nest, self.current_plane, self.map_num = rst.read_restart(
             path or self.restart_path(), self.cfg, self._np_dtype)
-        self.rays_packed = soa.pack(
-            type(rays)(*(torch.as_tensor(x, device=self.device)
-                         for x in rays)))
+        dev = self.device if self.mesh is None else "cpu"
+        packed = soa.pack(type(rays)(*(torch.as_tensor(x, device=dev)
+                                       for x in rays)))
+        self.rays_packed = (packed if self.mesh is None
+                            else self._my_columns(packed.numpy()))
+        self._columns(packed.shape[1])
         self._ray_nest = nest
 
     def load_legacy_restart(self, restart_dir=None):
@@ -533,8 +669,7 @@ class Raytracer:
         packed, nest = lr.legacy_rays_to_packed(meta, rays,
                                                 dtype=self._np_dtype)
         order = np.argsort(hp.nest2ring(nest, cfg.rayOrder), kind="stable")
-        self.rays_packed = torch.from_numpy(
-            np.ascontiguousarray(packed[:, order])).to(self.device)
+        self.rays_packed = self._my_columns(packed[:, order])
         self._ray_nest = nest[order]
         self.current_plane = int(meta["CurrentPlaneNum"])
         self.map_num = int(meta["CurrentMapNum"])
@@ -553,12 +688,25 @@ class Raytracer:
         return (lm.DRIVER_MAP_ORDER if self.cfg.LensMapOrder < 0
                 else self.cfg.LensMapOrder)
 
+    def _lens_map_sums(self, order):
+        """The [7, npix_map] lens-map sums of the rays at map order `order`
+        (on a mesh: reduced over the ranks onto rank 0, None on the
+        others)."""
+        if self.mesh is None:
+            return lm.accum_lens_map_packed(self.rays_packed, self._ray_nest,
+                                            self.cfg.rayOrder, order)
+        return lm.accum_lens_map_sharded(self.mesh, self.rays_packed,
+                                         self._ray_nest, self.ray_bounds,
+                                         self.cfg.rayOrder, order)
+
     def _write_map_outputs(self):
         """Accumulate the lens maps on the rays' device (only the [7,
-        npix_map] sums reach the host) and write Convergence_ and Rays_."""
+        npix_map] sums reach the host) and write Convergence_ and Rays_
+        (rank 0 on a mesh)."""
         order = self._map_order()
-        stacked = lm.accum_lens_map_packed(self.rays_packed, self._ray_nest,
-                                           self.cfg.rayOrder, order)
+        stacked = self._lens_map_sums(order)
+        if stacked is None:
+            return None
         accum = lm.LensMapAccum.from_stacked(stacked)
         return lm.write_map_outputs(accum, order, self.cfg.OutputPath or ".",
                                     self.map_num)
@@ -591,6 +739,7 @@ class Raytracer:
                 if cfg.Profile:
                     self._note_phase(p, "GRIDSEARCH",
                                      time.perf_counter() - tgs)
+            progress = progress and self._rank0()
             if progress:
                 pp = plane_params(cfg, self.cosmo, p)
                 print(f"plane {p:4d}/{cfg.NumLensPlanes} "
@@ -606,13 +755,13 @@ class Raytracer:
                     self._note_phase(p, "RAYIO", time.perf_counter() - tio)
             now = time.perf_counter()
             step_t = self.timings[-1][1]
-            if cfg.OutputPath and (
+            if cfg.OutputPath and self._agree(
                     now - t_last_restart > cfg.WallTimeBetweenRestart):
                 self.save_restart()
                 if cfg.Profile:
                     self._note_phase(p, "RESTART", time.perf_counter() - now)
                 t_last_restart = now
-            if now - t_start > cfg.WallTimeLimit - 5.0 * step_t:
+            if self._agree(now - t_start > cfg.WallTimeLimit - 5.0 * step_t):
                 # graceful preemption (raytrace.c:143-149)
                 if cfg.OutputPath:
                     self.save_restart()
@@ -621,7 +770,8 @@ class Raytracer:
             self.write_rays()
         if cfg.OutputPath:
             self.save_restart()
-            self.write_timing()
+            if self._rank0():
+                self.write_timing()
 
     def write_rays(self):
         """The rays' files <RayOutputName><map_num>.<file> in OutputPath
@@ -629,7 +779,10 @@ class Raytracer:
         from .io import rayio
 
         return rayio.write_rays_sharded(self.cfg, self.rays_packed,
-                                        self._ray_nest, self.map_num)
+                                        self._ray_nest, self.map_num,
+                                        mesh=self.mesh,
+                                        bounds=(None if self.mesh is None
+                                                else self.ray_bounds))
 
     def _galaxy_search(self):
         """The source catalog's search, dispatched as calclens_tpu/
@@ -642,7 +795,13 @@ class Raytracer:
         sources (find_images_born).  Returns search(p): the images of plane
         p's sources are found (or, for the device search, queued, unless
         CALCLENS_GALS_ASYNC=0) before its step; it returns the collect()
-        to call after the step, or None when the images are written."""
+        to call after the step, or None when the images are written.
+
+        On a mesh, full-sky rays take the sharded search (gridsearch.
+        find_images_sharded, find_images_born_sharded: each rank images the
+        sources whose central RING pixel it holds, over its columns and a
+        halo of its neighbours'); other rays are gathered whole and rank 0
+        runs the one-device dispatch.  Rank 0 writes the images."""
         from .gals import gridsearch as gs
         from .gals import io as galsio
 
@@ -682,22 +841,34 @@ class Raytracer:
             pp = plane_params(cfg, self.cosmo, p)
             args = (ppos, pidx, pp.rad, pp.rad_minus1)
             collect = images = None
-            if cfg.BornApprx and tab is not None:
-                images = gs.find_images_born(cfg, tab, self.rays_packed,
-                                             *args)
+            packed = self.rays_packed
+            if self.mesh is not None and self._ray_nest is None:
+                fn = (gs.find_images_born_sharded if cfg.BornApprx
+                      else gs.find_images_sharded)
+                images = fn(cfg, tab, packed, *args, self.mesh)
+                packed = None
+            elif self.mesh is not None:
+                packed = self.packed_global()
+                if not self._rank0():
+                    packed = None
+            if packed is None:
+                pass
+            elif cfg.BornApprx and tab is not None:
+                images = gs.find_images_born(cfg, tab, packed, *args)
             elif tab is not None:
                 # the search reads the pre-step buffer; the step writes a
                 # new one, so collect() can still fall back to this one
                 collect = gs.find_images_device_async(
-                    cfg, tab, self.rays_packed, *args, ring_rows=ring_rows)
-                if os.environ.get("CALCLENS_GALS_ASYNC", "1") == "0":
+                    cfg, tab, packed, *args, ring_rows=ring_rows)
+                if (os.environ.get("CALCLENS_GALS_ASYNC", "1") == "0"
+                        or self.mesh is not None):
                     images, collect = collect(), None
                 elif cfg.Profile:
                     # Profile: the column holds the search's device time
                     sync(self.rays_packed)
             else:
-                images = gs.find_images(cfg, tables, self.rays_packed,
-                                        *args, nest2index=n2i)
+                images = gs.find_images(cfg, tables, packed, *args,
+                                        nest2index=n2i)
             if images is not None:
                 self._write_images(images, p)
             if cfg.Profile:
@@ -707,7 +878,7 @@ class Raytracer:
         return search
 
     def _write_images(self, images, plane_num):
-        if self.cfg.GalOutputName:
+        if self.cfg.GalOutputName and self._rank0():
             from .gals import io as galsio
 
             galsio.write_image_gals(self.cfg, images, plane_num)
@@ -739,9 +910,9 @@ class Raytracer:
         sync(self.rays_packed)
         # only the [7, npix_map] sums reach the host (the reference
         # likewise reduces the order-12 map only, :440-492)
-        stacked = lm.accum_lens_map_packed(self.rays_packed, self._ray_nest,
-                                           cfg.rayOrder, map_order)
-        return lm.LensMapAccum.from_stacked(stacked)
+        stacked = self._lens_map_sums(map_order)
+        return None if stacked is None else lm.LensMapAccum.from_stacked(
+            stacked)
 
     def write_timing(self):
         """Per-plane step times (the reference's timing.0 rows,

@@ -25,9 +25,12 @@ contains g:
 The device search (find_images_device_async) queues every step for every
 chunk on the ray buffer's device without a host sync; only its collect()
 reads the hit counts.  A chunk whose hits overflow the fixed hit buffer
-is searched again by the host-prep find_images on the same buffer.  The
-mesh-sharded search of the JAX package is not ported here (ROADMAP Queue 1,
-slice 14).  Eager torch computes each value once, so the floor() knife
+is searched again by the host-prep find_images on the same buffer.  On a
+mesh (find_images_sharded, find_images_born_sharded) each rank images the
+sources whose central RING pixel lies in its ray columns, over a window of
+the ray buffer around them (parallel/sharding.Mesh.window, multi-hop when
+ray_halo exceeds a block); the window's first column is the `base` the
+device search shifts its global pixels by.  Eager torch computes each value once, so the floor() knife
 edges that the JAX package pins with optimization barriers are decided
 once; the search is not compiled, which would bring that hazard back.
 The device search takes an image's theta as atan2(rho, z), not JAX's
@@ -356,7 +359,7 @@ def _candidates(tab, gvec, topk, dtype):
 
 
 def _bary_search(tab, topk, packed, gvec, grad, tvec, pvec, wpm1,
-                 ring_rows=None):
+                 ring_rows=None, base=0):
     """Device candidate prep and barycentric test for one galaxy chunk.
 
     Candidates come from a ring/phi window around each galaxy
@@ -364,8 +367,9 @@ def _bary_search(tab, topk, packed, gvec, grad, tvec, pvec, wpm1,
     whose CENTRES lie nearest the galaxy (ray i of the grid sits within its
     accumulated deflection of pixel centre i), by a stable descending sort:
     ties keep the lower window index first, as jax.lax.top_k does.  Only
-    those pixels' triangles gather their rays' (n, beta).  Returns (hit
-    [G, T], ix, iy) with T = 4 topk."""
+    those pixels' triangles gather their rays' (n, beta).  base: the
+    global pixel of packed's column 0 (a window of the full-sky buffer).
+    Returns (hit [G, T], ix, iy) with T = 4 topk."""
     dtype = packed.dtype
     G = gvec.shape[0]
     cand = _candidates(tab, gvec, topk, dtype)
@@ -373,7 +377,7 @@ def _bary_search(tab, topk, packed, gvec, grad, tvec, pvec, wpm1,
     vmask = tri[:, :, 0] >= 0
     verts = torch.clamp(tri, min=0).long()            # global ray pixels
     if ring_rows is None:
-        rows = torch.clamp(verts, max=packed.shape[1] - 1)
+        rows = torch.clamp(verts - base, 0, packed.shape[1] - 1)
     else:
         rows, present = _rows_of_pix(ring_rows, verts)
         vmask = vmask & present.all(dim=-1)
@@ -412,7 +416,7 @@ def _compact(flat, size):
 
 
 def _search_images_chunk(tab, packed, topk, maxh, gvec, grad, tvec, pvec,
-                         wpm1, wpm2, tol, ring_rows=None):
+                         wpm1, wpm2, tol, ring_rows=None, base=0):
     """Search and post-processing of one galaxy chunk on the device:
     barycentric search, per-galaxy dedup, compaction into maxh slots, A
     interpolated and transported to the images, ra-dec output.
@@ -422,7 +426,7 @@ def _search_images_chunk(tab, packed, topk, maxh, gvec, grad, tvec, pvec,
     fall back."""
     dtype = packed.dtype
     hit, ix, iy = _bary_search(tab, topk, packed, gvec, grad, tvec, pvec,
-                               wpm1, ring_rows=ring_rows)
+                               wpm1, ring_rows=ring_rows, base=base)
     keep = _dedup_rows_device(hit, ix, iy, tol)
     T = keep.shape[1]
     flat = keep.reshape(-1)
@@ -444,6 +448,8 @@ def _search_images_chunk(tab, packed, topk, maxh, gvec, grad, tvec, pvec,
         wgt4 = torch.where(present, wgt4, 0.0)
         wsum = wgt4.sum(dim=-1, keepdim=True)
         wgt4 = wgt4 / torch.where(wsum > 0, wsum, 1.0)
+    elif base:
+        pix4 = torch.clamp(pix4 - base, 0, packed.shape[1] - 1)
     Aimg = _interp_A_at(ivec, grad[gi], wpm1, wpm2, pix4, wgt4, cvec4, packed)
     # theta-phi -> ra-dec basis (gridsearch.c:800-806)
     A_rd = torch.stack([Aimg[:, 1, 1], -Aimg[:, 1, 0],
@@ -462,7 +468,8 @@ def _image_angles(ivec):
 
 
 def find_images_device_async(cfg, tab, packed, gal_pos, gal_index, wpm1,
-                             wpm2, chunk=16384, topk=16, ring_rows=None):
+                             wpm2, chunk=16384, topk=16, ring_rows=None,
+                             base=0):
     """Queue the device search of every chunk; returns a zero-argument
     collect() that reads the hits.
 
@@ -471,8 +478,9 @@ def find_images_device_async(cfg, tab, packed, gal_pos, gal_index, wpm1,
     until collect().  The driver queues the search, then the plane step,
     then collects (the reference serialises the search before the Poisson
     solve, raytrace.c:205-241).  packed is the RING-ordered [21, N] ray
-    tensor: the full sky (ray i at RING pixel i, tab.npix rays) or, with
-    ring_rows, the sorted RING pixel of each row of a box."""
+    tensor: the full sky (ray i at RING pixel i, tab.npix rays), a window
+    of it from RING pixel `base`, or, with ring_rows, the sorted RING pixel
+    of each row of a box."""
     G = len(gal_pos)
     if G == 0:
         return _no_images
@@ -496,9 +504,12 @@ def find_images_device_async(cfg, tab, packed, gal_pos, gal_index, wpm1,
         sl = slice(i0, i0 + chunk)
         pend.append((i0, _search_images_chunk(
             tab, packed, topk, maxh, gvec[sl], grad[sl], tvec[sl], pvec[sl],
-            wpm1j, wpm2j, tol, rr)))
+            wpm1j, wpm2j, tol, rr, base)))
 
     gal_index = np.asarray(gal_index)
+    if ring_rows is None and (base or packed.shape[1] != tab.npix):
+        # the host fallback reads a window by its rows' RING pixels
+        ring_rows = np.arange(base, base + packed.shape[1], dtype=np.int64)
     return lambda: _collect_device_hits(cfg, tab, packed, pend, gal_pos,
                                         gal_index, wpm1, wpm2, chunk, maxh,
                                         ring_rows=ring_rows)
@@ -547,7 +558,7 @@ def _collect_device_hits(cfg, tab, packed, pend, gal_pos, gal_index, wpm1,
 
 
 def find_images_device(cfg, tab, packed, gal_pos, gal_index, wpm1, wpm2,
-                       chunk=16384, topk=16, ring_rows=None):
+                       chunk=16384, topk=16, ring_rows=None, base=0):
     """The device search for RING-ordered rays, queued and collected.
     Full sky: ray index == RING pixel (the driver's full-sky storage).
     Cut sky: ring_rows, the sorted RING pixel of each ray row; the
@@ -556,14 +567,14 @@ def find_images_device(cfg, tab, packed, gal_pos, gal_index, wpm1, wpm2,
     any sky selection)."""
     return find_images_device_async(cfg, tab, packed, gal_pos, gal_index,
                                     wpm1, wpm2, chunk=chunk, topk=topk,
-                                    ring_rows=ring_rows)()
+                                    ring_rows=ring_rows, base=base)()
 
 
 def find_images_born(cfg, tab, packed, gal_pos, gal_index, wpm1, wpm2,
-                     chunk=1 << 20):
+                     chunk=1 << 20, base=0):
     """BORNAPPRX grid search (gridsearch.c:316-414): no triangle search;
     A interpolated at each galaxy's undeflected position (full-sky
-    RING-ordered rays)."""
+    RING-ordered rays, or a window of them from RING pixel `base`)."""
     dev, nd = packed.device, _np_dtype(packed.dtype)
     G = len(gal_pos)
     if G == 0:
@@ -583,12 +594,86 @@ def find_images_born(cfg, tab, packed, gal_pos, gal_index, wpm1, wpm2,
                                 ).reshape(-1, 4, 3)
         Aimg = _interp_A_at(
             _upload(gvec, nd, dev), _upload(grad, nd, dev), wpm1j, wpm2j,
-            _upload(pix4, np.int64, dev), _upload(wgt4, nd, dev),
+            _upload(pix4 - base, np.int64, dev), _upload(wgt4, nd, dev),
             _upload(cvec4, nd, dev), packed)
         out.append(Aimg.cpu().double().numpy())
     ra, dec = hp.vec2radec(gvec_all)
     return ImageGals(np.asarray(gal_index, np.int64).copy(), ra, dec,
                      _to_radec_basis(np.concatenate(out)))
+
+
+# ----------------------------------------------------------------------------
+# the search on a mesh (calclens_tpu/gals/gridsearch.py:614-984)
+# ----------------------------------------------------------------------------
+
+def ray_halo(ray_order: int, n_shards: int) -> int:
+    """Ray-pixel halo of the sharded search (calclens_tpu/gals/
+    gridsearch.py::ray_halo, host numpy): a source owned by the rank of its
+    central pixel has candidate triangles spanning nring_w rings above and
+    below (search_windows) plus one triangle ring, each ring at most
+    4 nside pixels; never more than the whole sphere needs."""
+    nside = 1 << ray_order
+    nring_w, _ = search_windows(ray_order)
+    H = (nring_w + 3) * 4 * nside
+    npix = int(hp.order2npix(ray_order))
+    return min(H, (npix - npix // n_shards) // 2 + 1)
+
+
+def _owned(cfg, mesh, gal_pos):
+    """Sources this rank images: those whose central RING pixel lies in its
+    ray columns.  Returns (bool mask, the column bounds)."""
+    npix = int(hp.order2npix(cfg.rayOrder))
+    bounds = mesh.blocks(npix)
+    theta, phi = hp.vec2ang(np.asarray(gal_pos, np.float64))
+    cpix = hp.ang2pix_ring(theta, phi, cfg.rayOrder)
+    a, b = int(bounds[mesh.rank]), int(bounds[mesh.rank + 1])
+    return (cpix >= a) & (cpix < b), bounds
+
+
+def _gather_images(mesh, images):
+    """Every rank's ImageGals, concatenated in rank order, on every rank."""
+    return _concat([tuple(x) for x in mesh.all_gather_object(images)
+                    if len(x.index)])
+
+
+def find_images_sharded(cfg, tab, packed, gal_pos, gal_index, wpm1, wpm2,
+                        mesh, chunk=16384, topk=16):
+    """The device search on a mesh (calclens_tpu/gals/gridsearch.py::
+    find_images_sharded): packed [21, c] is this rank's columns of the
+    full-sky RING-ordered buffer; the rank takes the window of ray_halo
+    columns around them from its neighbours (one collective), searches
+    the sources it owns there, and the images of every rank are gathered
+    to every rank (rank order).  Each rank's search is
+    find_images_device's on its window, so the images are the one-device
+    search's."""
+    mine, bounds = _owned(cfg, mesh, gal_pos)
+    H = ray_halo(cfg.rayOrder, mesh.size)
+    win, lo = mesh.window(packed, bounds, H)
+    images = _no_images()
+    if mine.any():
+        images = find_images_device(cfg, tab, win, np.asarray(gal_pos)[mine],
+                                    np.asarray(gal_index)[mine], wpm1, wpm2,
+                                    chunk=chunk, topk=topk, base=lo)
+    del win
+    return _gather_images(mesh, images)
+
+
+def find_images_born_sharded(cfg, tab, packed, gal_pos, gal_index, wpm1,
+                             wpm2, mesh, chunk=1 << 18):
+    """BORNAPPRX on a mesh (calclens_tpu/gals/gridsearch.py::
+    find_images_born_sharded): A interpolated at each owned source's
+    undeflected position from the rank's window of the ray buffer (the
+    halo covers the four taps), the images gathered to every rank."""
+    mine, bounds = _owned(cfg, mesh, gal_pos)
+    H = ray_halo(cfg.rayOrder, mesh.size)
+    win, lo = mesh.window(packed, bounds, H)
+    images = _no_images()
+    if mine.any():
+        images = find_images_born(cfg, tab, win, np.asarray(gal_pos)[mine],
+                                  np.asarray(gal_index)[mine], wpm1, wpm2,
+                                  chunk=chunk, base=lo)
+    del win
+    return _gather_images(mesh, images)
 
 
 def _dedup_hits(gi, ixh, iyh, tol):

@@ -21,8 +21,10 @@ Two writers share the layout helpers:
   sort of an int64 key on the device; the observer-frame transform
   (rays/soa.output_rows_obs_radec) and each file's row gather run on the
   device in column chunks, and only [10, chunk] blocks reach the host,
-  through a pinned buffer on a GPU.  The JAX package's mesh branch (each
-  file gathered across shards) is not ported: this is its one-device form.
+  through a pinned buffer on a GPU.  On a mesh (parallel/sharding.py) the
+  rows of each chunk of a file are gathered from the ranks that hold them
+  to the file's writing rank, which then runs the one-device chunk, so the
+  files are byte-equal to a one-device run's.
 """
 
 from __future__ import annotations
@@ -274,15 +276,38 @@ def _host_block(x):
     return x.numpy().astype(np.float64)
 
 
-def write_rays_sharded(cfg, rays_packed, ray_nest=None, map_num=0):
-    """Write all rays from the packed [21, N] buffer on its device (one
-    device: the single-device form of the JAX package's sharded writer).
+def _gather_chunk(mesh, rays_packed, bounds, idx, writer):
+    """The columns idx (global storage slots, [c]) of the ray buffer, in
+    that order, on rank `writer` (None on the others): each rank sends the
+    ones it holds (calclens_tpu/io/rayio.py's per-file row gathers)."""
+    r = mesh.rank
+    b = torch.as_tensor(np.asarray(bounds[1:-1]), device=idx.device)
+    owner = torch.bucketize(idx, b, right=True)
+    counts = torch.bincount(owner, minlength=mesh.size).cpu().numpy()
+    mine = owner == r
+    piece = rays_packed.index_select(1, idx[mine] - int(bounds[r]))
+    got = mesh.gather_to(piece, counts, writer)
+    if got is None:
+        return None
+    out = torch.empty((rays_packed.shape[0], idx.shape[0]),
+                      dtype=rays_packed.dtype, device=rays_packed.device)
+    out[:, torch.sort(owner, stable=True).indices] = got
+    return out
+
+
+def write_rays_sharded(cfg, rays_packed, ray_nest=None, map_num=0,
+                       mesh=None, bounds=None):
+    """Write all rays from the packed [21, N] buffer on its device, or on a
+    mesh from this rank's columns bounds[rank] .. bounds[rank + 1] of it
+    (the JAX package's sharded writer).
 
     ray_nest None means the full-sky grid in RING storage order; otherwise
     it is the host nest index per storage slot (ra-dec boxes, legacy
     restarts).  The layout is write_rays'; the values are the device
-    transform's, in the buffer's dtype.  Returns the paths."""
-    N = int(rays_packed.shape[1])
+    transform's, in the buffer's dtype.  On a mesh, file f is written by
+    rank f mod n, from its chunks' columns gathered to it.  Returns the
+    paths (on a mesh, of the files this rank wrote)."""
+    N = int(rays_packed.shape[1] if mesh is None else bounds[-1])
     device = rays_packed.device
     order = cfg.rayOrder
     k2 = 2 * (order - cfg.bundleOrder)
@@ -299,24 +324,35 @@ def write_rays_sharded(cfg, rays_packed, ray_nest=None, map_num=0):
     for fileNum, cells in enumerate(_file_cell_groups(counts, nfiles)):
         fc, start = _layout_arrays(counts, cells, nbc)
         nrows = int(fc.sum())
-        rec = np.zeros(nrows, dtype=_ray_fields(cfg.OutputRayDeflections,
-                                                cfg.OutputPhi))
+        me = mesh is None or fileNum % mesh.size == mesh.rank
+        rec = np.zeros(nrows if me else 0, dtype=_ray_fields(
+            cfg.OutputRayDeflections, cfg.OutputPhi))
         for a in range(0, nrows, WRITE_CHUNK):
             b = min(nrows, a + WRITE_CHUNK)
             idx = rows[row0 + a: row0 + b]
+            if mesh is None:
+                chunk = rays_packed.index_select(1, idx)
+            else:
+                chunk = _gather_chunk(mesh, rays_packed, bounds, idx,
+                                      fileNum % mesh.size)
+            if not me:
+                continue
             kk = key[row0 + a: row0 + b]
             nest = (nest_of_peano[kk >> k2] << k2) | (kk & ((1 << k2) - 1))
             ring = (idx if ray_nest is None
                     else torchhp.nest2ring_dev(nest, order).long())
-            cols = soa.output_rows_obs_radec(
-                rays_packed.index_select(1, idx), ring, order)
+            cols = soa.output_rows_obs_radec(chunk, ring, order)
+            del chunk
             blk = _host_block(cols)
             rec[a:b] = _make_rec(cfg, nest.cpu().numpy(), blk[0:3].T,
                                  *blk[3:10])
-        path = _ray_path(cfg, map_num, fileNum)
-        _emit_ray_file(cfg, path, nfiles, fc, start, rec)
-        paths.append(path)
+        if me:
+            path = _ray_path(cfg, map_num, fileNum)
+            _emit_ray_file(cfg, path, nfiles, fc, start, rec)
+            paths.append(path)
         row0 += nrows
+    if mesh is not None:
+        mesh.barrier()
     return paths
 
 

@@ -150,6 +150,35 @@ def accum_lens_map_packed(packed, ray_nest, ray_order: int, map_order: int):
     return update_lens_map_stacked(accum7, packed, lpix)
 
 
+def accum_lens_map_sharded(mesh, packed, ray_nest, bounds, ray_order: int,
+                           map_order: int):
+    """Lens-map sums on a mesh (calclens_tpu/maps.py::
+    accum_lens_map_sharded): packed [21, c] is this rank's columns
+    bounds[rank] .. bounds[rank + 1] of the ray buffer (ray_nest None: the
+    full sky in RING order, else the host nest index of every ray).  Each
+    rank scatter-adds its rays into a whole [7, npix_map] map, the ranks
+    reduce-scatter the maps onto pixel blocks, and rank 0 gathers the
+    blocks: the [7, npix_map] sums on rank 0, None on the others."""
+    check_map_order(ray_order, map_order)
+    npix_map = int(hp.order2npix(map_order))
+    c0, c1 = int(bounds[mesh.rank]), int(bounds[mesh.rank + 1])
+    k2 = 2 * (ray_order - map_order)
+    if ray_nest is None:
+        nest = torchhp.ring2nest_dev(torch.arange(
+            c0, c1, dtype=torch.int32, device=packed.device), ray_order)
+        lpix = nest.long() >> k2
+    else:
+        lpix = torch.as_tensor(np.asarray(ray_nest[c0:c1], np.int64) >> k2,
+                               device=packed.device)
+    accum7 = torch.zeros((7, npix_map), dtype=packed.dtype,
+                         device=packed.device)
+    accum7 = update_lens_map_stacked(accum7, packed, lpix)
+    blk = mesh.reduce_scatter_blocks(accum7)
+    del accum7
+    pb = mesh.blocks(npix_map)
+    return mesh.gather_to(blk, np.diff(pb), 0)
+
+
 def _healpix_header(nside):
     return {
         "PIXTYPE": ("HEALPIX", "HEALPIX Pixelisation"),

@@ -12,6 +12,13 @@ the next plane, as four phase_* calls.  Eager torch: each stage runs as it
 is called; temporaries are dropped as soon as the next stage has its input.
 plane_step_mg is the non-SHTONLY step: the SHT gives the potential map
 alone and the multigrid patches (mgdriver.py) give the rays their fields.
+
+On a mesh (plan.mesh, parallel/sharding.py) the SHT-only steps run
+sharded: each rank deposits its particle rows into a whole map, the maps
+are summed onto the ranks' pixel blocks by one reduce-scatter and scaled
+there, the transforms run sharded (sht/transforms.py), and each rank's rays
+read the field maps through a halo exchange (parallel/halo.py) when the
+rays are the full sky's in RING order, else from the maps gathered whole.
 """
 
 from __future__ import annotations
@@ -83,13 +90,22 @@ def phase_deposit(plan: SHTPlan, tab, pos, mass, scheme: str,
     scheme "SPH" returns the sigma-bucketed [B, npix] maps for
     phase_analysis_sph (sph: the driver's tuple (sigmas..., csl, min_sl,
     max_sl)); NGP and CIC return the flat [npix] map.  vacmask [npix] bool
-    marks the cut-sky vacuum pixels, which are zeroed."""
+    marks the cut-sky vacuum pixels, which are zeroed.  On a mesh pos and
+    mass are this rank's particle rows, and the result is this rank's block
+    of pixels: the unscaled deposits are summed over the ranks by one
+    reduce-scatter (the JAX psum_scatter), then scaled on the block."""
     pixarea = 4.0 * math.pi / plan.npix
+    mesh = plan.mesh
+    if mesh is not None and vacmask is not None:
+        a, b = mesh.block(plan.npix)
+        vacmask = vacmask[a:b]
     if scheme == "SPH":
         *sigmas, csl, min_sl, max_sl = sph
         sl = dep.smoothing_lengths(pos, csl, min_sl, max_sl)
         dens_b = dep.deposit_sph_bucketed(plan.order, pos, mass, sl, sigmas,
                                           plan.npix, tab=tab)
+        if mesh is not None:
+            dens_b = mesh.reduce_scatter_blocks(dens_b)
         # in place: the buckets are 8 maps (6.4 GB at order 12); backdens is
         # a monopole shift (zeroed by the filter) except in cut-sky mode,
         # where bucket 0 carries it on the live pixels
@@ -104,6 +120,8 @@ def phase_deposit(plan: SHTPlan, tab, pos, mass, scheme: str,
         density = dep.deposit_ngp(plan.order, pos, mass, plan.npix)
     else:
         raise ValueError(f"deposit scheme {scheme!r}")
+    if mesh is not None:
+        density = mesh.reduce_scatter_blocks(density)
     return dep.scale_density(density, scal.densfact, scal.backdens, pixarea,
                              vacmask)
 
@@ -144,7 +162,10 @@ def phase_synthesis(plan: SHTPlan, alm):
     """alm -> [7, npix]: the six field maps (SHT: alm2allmaps, streamed
     over j-blocks where transforms.synth_stream_blocks says so) written
     into rows 0-5, and row 6 the pixel ids the ray side's gathers return
-    (soa.pixel_id_row), made once per plane."""
+    (soa.pixel_id_row), made once per plane.  On a mesh: this rank's block
+    [6, b - a] of the six maps (the ray side adds the ids of its window)."""
+    if plan.mesh is not None:
+        return T.alm2allmaps(plan, alm)
     out = torch.empty((7, plan.npix), dtype=plan.dtype, device=alm.device)
     out[6] = soa.pixel_id_row(plan.npix, plan.dtype, alm.device)
     T.alm2allmaps(plan, alm, out=out[:6])
@@ -164,18 +185,47 @@ def phase_rayside(tab, packed, maps7, scal: PlaneScalars, born: bool):
     return soa.chunked_into(block, packed, RAYSIDE_CHUNK)
 
 
+def phase_rayside_mesh(plan: SHTPlan, tab, packed, maps, scal: PlaneScalars,
+                       born: bool, halo=None):
+    """phase_rayside on a mesh: packed [21, c] this rank's ray columns,
+    maps [6, b - a] its pixel block.  With halo (full-sky rays in RING
+    order, parallel/halo.required_halo) the rays read the window of the
+    maps around the block (halo.interp_and_prop_sharded); otherwise the
+    maps are gathered whole on every rank first (what GSPMD does in the
+    JAX package's other branch)."""
+    from .parallel import halo as halo_mod
+
+    if halo is not None:
+        return halo_mod.interp_and_prop_sharded(
+            tab, maps[:6], packed, scal.wp, scal.wpm1, scal.wpm2, born,
+            plan.mesh, halo, RAYSIDE_CHUNK)
+    full = plan.mesh.all_gather_cols(maps[:6], plan.pix_bounds)
+    maps7 = soa.with_pixel_ids(full)
+    del full
+    return phase_rayside(tab, packed, maps7, scal, born)
+
+
+def _rayside(plan, tab, packed, maps, scal, born, halo, phase):
+    if plan.mesh is not None:
+        return phase("RAYPROP", phase_rayside_mesh, plan, tab, packed, maps,
+                     scal, born, halo)
+    return phase("RAYPROP", phase_rayside, tab, packed, maps, scal, born)
+
+
 def _call(tag, fn, *args):
     return fn(*args)
 
 
 def plane_step_packed(plan: SHTPlan, tab, packed, pos, mass, born: bool,
                       with_maps: bool, scal: PlaneScalars, scheme="NGP",
-                      vacmask=None, sph=None, phase=_call):
+                      vacmask=None, sph=None, phase=_call, halo=None):
     """One lens-plane step on the packed ray buffer: deposit, SHT Poisson
     solve, interpolation to the rays, propagation to the next plane (the
     four phase_* calls, each made as phase(tag, fn, *args): a plain call by
     default, a timed one in the driver's Profile mode).  Returns (packed',
-    FieldMaps or None)."""
+    FieldMaps or None).  On a mesh (plan.mesh): packed, pos and mass are
+    this rank's columns and rows, the FieldMaps its pixel blocks, and halo
+    the ray side's halo (phase_rayside_mesh)."""
     density = phase("DEPOSIT", phase_deposit, plan, tab, pos, mass, scheme,
                     scal, vacmask, sph)
     if scheme == "SPH":
@@ -185,23 +235,28 @@ def plane_step_packed(plan: SHTPlan, tab, packed, pos, mass, born: bool,
     del density
     maps = phase("SHT", phase_synthesis, plan, alm)
     del alm
-    packed = phase("RAYPROP", phase_rayside, tab, packed, maps, scal, born)
+    packed = _rayside(plan, tab, packed, maps, scal, born, halo, phase)
     return packed, (FieldMaps(*maps[:6].unbind(0)) if with_maps else None)
 
 
 def plane_step_density_packed(plan: SHTPlan, tab, packed, density,
                               born: bool, with_maps: bool,
-                              scal: PlaneScalars, vacmask=None, phase=_call):
+                              scal: PlaneScalars, vacmask=None, phase=_call,
+                              halo=None):
     """plane_step_packed from a precomputed map (the UseHEALPixLensPlaneMaps
     path, shtpoissonsolve.c:336-436): density [npix] is mass per pixel /
-    MASS_SCALE in RING order; its scaling is the DEPOSIT phase."""
+    MASS_SCALE in RING order; its scaling is the DEPOSIT phase.  On a mesh
+    density is this rank's pixel block (and vacmask the whole mask)."""
+    if plan.mesh is not None and vacmask is not None:
+        a, b = plan.mesh.block(plan.npix)
+        vacmask = vacmask[a:b]
     density = phase("DEPOSIT", dep.scale_density, density, scal.densfact,
                     scal.backdens, 4.0 * math.pi / plan.npix, vacmask)
     alm = phase("SHTSOLVE", phase_analysis, plan, density)
     del density
     maps = phase("SHT", phase_synthesis, plan, alm)
     del alm
-    packed = phase("RAYPROP", phase_rayside, tab, packed, maps, scal, born)
+    packed = _rayside(plan, tab, packed, maps, scal, born, halo, phase)
     return packed, (FieldMaps(*maps[:6].unbind(0)) if with_maps else None)
 
 

@@ -112,21 +112,23 @@ def _tangent_basis(nx, ny, nz):
 # field interpolation + propagation
 # ----------------------------------------------------------------------------
 
-def pixel_id_row(W: int, dtype, device):
-    """[W] bit-exact pixel ids 0..W-1 as a map row: float32 holds the int32
-    id with bit 0x40000000 set (a normal float, so no denormal flush can
-    touch it; npix < 2^30 through order 13), float64 the exact id."""
-    glob = torch.arange(W, dtype=torch.int32, device=device)
+def pixel_id_row(W: int, dtype, device, base: int = 0):
+    """[W] bit-exact pixel ids base..base+W-1 as a map row: float32 holds
+    the int32 id with bit 0x40000000 set (a normal float, so no denormal
+    flush can touch it; npix < 2^30 through order 13), float64 the exact
+    id."""
+    glob = torch.arange(base, base + W, dtype=torch.int32, device=device)
     if dtype == torch.float32:
         return (glob | 0x40000000).view(torch.float32)
     return glob.to(dtype)
 
 
-def with_pixel_ids(maps):
+def with_pixel_ids(maps, base: int = 0):
     """FieldMaps or stacked [6, W] maps -> [7, W] with the pixel-id row
-    (pixel_id_row), the maps interp_and_prop_chunk reads."""
+    (pixel_id_row; base: the global id of column 0, for a window of the
+    maps), the maps interp_and_prop_chunk reads."""
     maps6 = maps if isinstance(maps, torch.Tensor) else torch.stack(list(maps))
-    ids = pixel_id_row(maps6.shape[1], maps6.dtype, maps6.device)
+    ids = pixel_id_row(maps6.shape[1], maps6.dtype, maps6.device, base)
     return torch.cat([maps6, ids[None, :]], dim=0)
 
 
@@ -136,7 +138,8 @@ def _decode_pixel_ids(row):
     return row.to(torch.int64)
 
 
-def interp_and_prop_chunk(tab, maps7, chunk, wp, wpm1, wpm2, born: bool):
+def interp_and_prop_chunk(tab, maps7, chunk, wp, wpm1, wpm2, born: bool,
+                          pix_base: int = 0):
     """Packed chunk [21, c]: interpolate (pot, alpha, U) from the six field
     maps with 4-pixel bilinear taps and parallel transport, then propagate
     to radius wp.  Returns the updated packed chunk.
@@ -147,7 +150,10 @@ def interp_and_prop_chunk(tab, maps7, chunk, wp, wpm1, wpm2, born: bool):
     returns the tap's six fields AND its pixel id (the 7th row); the tap's
     ring geometry, weight and transport are rebuilt from that id, so each
     weight is paired with the field it was computed for (rays/soa.py of
-    the JAX package, "mispairing-proof tap structure")."""
+    the JAX package, "mispairing-proof tap structure").  pix_base: the
+    global pixel of maps7's column 0 when maps7 is a window of the maps
+    (parallel/halo.py); taps are read at pixel - pix_base, clamped to the
+    window."""
     r = chunk
     nx, ny, nz = r[0], r[1], r[2]
     rad = torch.sqrt(nx * nx + ny * ny + nz * nz)
@@ -158,6 +164,9 @@ def interp_and_prop_chunk(tab, maps7, chunk, wp, wpm1, wpm2, born: bool):
     phi = torch.where(phi < 0.0, phi + 2.0 * math.pi, phi)
     pix4, _ = torchhp.get_interpol_soa(tab, theta, phi)
 
+    if pix_base or maps7.shape[1] != tab.npix:
+        W = maps7.shape[1]
+        pix4 = [torch.clamp(pk - pix_base, 0, W - 1) for pk in pix4]
     fld4 = [torch.index_select(maps7, 1, pk) for pk in pix4]
     return _finish_from_fields(tab, fld4, r, theta, phi, hx, hy, hz,
                                wp, wpm1, wpm2, born)
@@ -399,17 +408,18 @@ def output_rows_obs_radec(packed, ring_pix, order: int):
 
 
 def init_packed_fullsky(order: int, wp, npix: int, device,
-                        dtype=torch.float32, chunk=1 << 24):
+                        dtype=torch.float32, chunk=1 << 24, pix0: int = 0):
     """Packed ray init for the full sky in RING pixel order (init_rays,
     raytrace_utils.c:302-349): n = wp * pixel center, beta = n_hat,
-    A = Aprev = I; the pixel vectors are formed `chunk` pixels at a time
-    (at rayOrder 12 one pass over every pixel would hold ~10 int64 and
-    float temporaries of 1.6 GB each)."""
+    A = Aprev = I, for the npix RING pixels from pix0 (a rank's columns on
+    a mesh; every pixel by default); the pixel vectors are formed `chunk`
+    pixels at a time (at rayOrder 12 one pass over every pixel would hold
+    ~10 int64 and float temporaries of 1.6 GB each)."""
     out = torch.zeros((NROWS, npix), dtype=dtype, device=device)
     wp = torch.as_tensor(wp, dtype=dtype, device=device)
     for a in range(0, npix, chunk):
-        pix = torch.arange(a, min(npix, a + chunk), dtype=torch.int64,
-                           device=device)
+        pix = torch.arange(pix0 + a, pix0 + min(npix, a + chunk),
+                           dtype=torch.int64, device=device)
         vx, vy, vz = torchhp.pix2vec_ring_soa(pix, order, dtype=dtype)
         b = a + len(pix)
         out[0, a:b], out[1, a:b], out[2, a:b] = vx * wp, vy * wp, vz * wp

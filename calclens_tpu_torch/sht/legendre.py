@@ -185,9 +185,13 @@ def _coeffs(l: int, mf):
 
 class _Recurrence:
     """State of the scaled lambda recurrence over all (row, j): step(l)
-    returns lambda_lm(theta_j) [rows, J] (exactly 0 for m > l and below
-    2^-64 of the stored scale); lambda_{l-1,m} is then pp * corfac.
-    The diagonal seed is (values, counters) [rows, J]."""
+    returns lambda_lm(theta_j) (exactly 0 for m > l and below 2^-64 of the
+    stored scale) of the rows n = active(l): [n, J], lambda_{l-1,m} is then
+    pp[:n] * corfac.  When the rows' m ascend, the rows whose recurrence
+    has not started (m > l) are the last ones, and a step touches only the
+    others: they hold zeros until then, as the full step would leave them
+    (the same values, op for op, in half the work over l < nm).  The
+    diagonal seed is (values, counters) [rows, J]."""
 
     def __init__(self, cth, m, seed):
         self.cth = cth[None, :]
@@ -198,21 +202,34 @@ class _Recurrence:
         self.pp = torch.zeros(shape, dtype=cth.dtype, device=cth.device)
         self.pc = torch.zeros_like(self.pp)
         self.k = torch.zeros(shape, dtype=torch.int32, device=cth.device)
+        self._m_host = m.cpu().numpy()
+        self._ascending = bool(np.all(np.diff(self._m_host) >= 0))
+
+    def active(self, l: int) -> int:
+        """Rows that step(l) computes: those with m <= l when the m ascend
+        (a prefix), else all."""
+        if self._ascending:
+            return int(np.searchsorted(self._m_host, l, side="right"))
+        return len(self._m_host)
 
     def step(self, l: int):
-        a, b = _coeffs(l, self.mf)
-        new = a[:, None] * (self.cth * self.pc - b[:, None] * self.pp)
-        seed_row = self.m == l
-        inactive = self.m > l
-        new = torch.where(seed_row, self.seedval,
+        n = self.n = self.active(l)
+        m, pp, pc = self.m[:n], self.pp[:n], self.pc[:n]
+        a, b = _coeffs(l, self.mf[:n])
+        new = a[:, None] * (self.cth * pc - b[:, None] * pp)
+        seed_row = m == l
+        inactive = m > l
+        new = torch.where(seed_row, self.seedval[:n],
                           torch.where(inactive, 0.0, new))
-        prev = torch.where(seed_row | inactive, 0.0, self.pc)
-        k = torch.where(seed_row, self.seedk, self.k)
+        prev = torch.where(seed_row | inactive, 0.0, pc)
+        k = torch.where(seed_row, self.seedk[:n], self.k[:n])
         big = new.abs() > _TH_BIG
         new = torch.where(big, new * _RESC, new)
         prev = torch.where(big, prev * _RESC, prev)
         k = k + big.to(torch.int32)
-        self.pp, self.pc, self.k = prev, new, k
+        pp.copy_(prev)
+        pc.copy_(new)
+        self.k[:n] = k
         self.corfac = torch.where(k == 0, 1.0,
                                   torch.where(k == -1, _RESC, 0.0)
                                   ).to(new.dtype)
@@ -318,14 +335,15 @@ def analysis_plain(ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl: int,
     out_im = torch.zeros_like(out_re)
     for l in range(nl):
         lam = rec.step(l)
+        n = rec.n
         sr, si = (s1r, s1i) if l % 2 else (s0r, s0i)
-        out_re[l] = (lam * sr).sum(dim=1)
-        out_im[l] = (lam * si).sum(dim=1)
+        out_re[l, :n] = (lam * sr[:n]).sum(dim=1)
+        out_im[l, :n] = (lam * si[:n]).sum(dim=1)
     return out_re.T.contiguous(), out_im.T.contiguous()
 
 
 def _analysis_launch(name, symbol, ere, eim, ore, oim, cth, ln_sth, logc, mcut,
-                     nl):
+                     nl, m0=0):
     nm, J = ere.shape
     _check_problem(name, nm, J, nl)
     nt = -(-J // ANALYSIS_TILE_J)
@@ -340,22 +358,34 @@ def _analysis_launch(name, symbol, ere, eim, ore, oim, cth, ln_sth, logc, mcut,
     _launch(name, symbol, ere.device, ere.data_ptr(), eim.data_ptr(),
             ore.data_ptr(), oim.data_ptr(), cth.data_ptr(), ln_sth.data_ptr(),
             logc.data_ptr(), mcut.data_ptr(), alm_re.data_ptr(),
-            alm_im.data_ptr(), nl, nm, J)
+            alm_im.data_ptr(), nl, nm, J, int(m0))
     return alm_re, alm_im
 
 
-def analysis_cuda(ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl: int):
+def analysis_cuda(ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl: int,
+                  m0: int = 0):
     """Launch K1 on the tensors' CUDA device and PyTorch's current stream.
-    Same contract as analysis_plain; float32 only."""
+    Same contract as analysis_plain, for the rows m = m0, m0 + 1, ...
+    (the planes and logc of those rows); float32 only."""
     return _analysis_launch("legendre_analysis", "legendre_analysis_launch",
-                            ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl)
+                            ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl,
+                            m0)
 
 
-def analysis_columns(ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl: int):
-    """K1 wrapper: the kernel for CUDA tensors, the twin for CPU tensors."""
+def _rows(m0, x):
+    """The m values of x's rows when they start at m0 (None: from 0)."""
+    return None if not m0 else torch.arange(m0, m0 + x.shape[0],
+                                            device=x.device)
+
+
+def analysis_columns(ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl: int,
+                     m0: int = 0):
+    """K1 wrapper: the kernel for CUDA tensors, the twin for CPU tensors;
+    the input rows are m = m0, m0 + 1, ... (a rank's m block)."""
     if ere.device.type == "cpu":
-        return analysis_plain(ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl)
-    return analysis_cuda(ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl)
+        return analysis_plain(ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl,
+                              m=_rows(m0, ere))
+    return analysis_cuda(ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl, m0)
 
 
 def analysis_dot_plain(ere, eim, ore, oim, cth, ln_sth, logc, mcut,
@@ -374,40 +404,52 @@ def analysis_dot_plain(ere, eim, ore, oim, cth, ln_sth, logc, mcut,
     out_im = torch.zeros_like(out_re)
     for l0 in range(0, nl, DOT_BLOCK_L):
         ls = range(l0, min(l0 + DOT_BLOCK_L, nl))
-        lam = torch.stack([rec.step(l) for l in ls], dim=1)
-        R = torch.einsum("rlj,rcj->rlc", lam, S)  # [rows, block, 4]
+        n = rec.active(ls[-1])  # the rows any degree of the block computes
+        lam = torch.zeros((n, len(ls), cth.shape[0]), dtype=dt, device=dev)
+        for i, l in enumerate(ls):
+            lam[: rec.active(l), i] = rec.step(l)
+        R = torch.einsum("rlj,rcj->rlc", lam, S[:n])  # [rows, block, 4]
         odd = torch.tensor([l % 2 == 1 for l in ls], device=dev)[None, :]
-        out_re[:, l0: l0 + len(ls)] = torch.where(odd, R[:, :, 2], R[:, :, 0])
-        out_im[:, l0: l0 + len(ls)] = torch.where(odd, R[:, :, 3], R[:, :, 1])
+        out_re[:n, l0: l0 + len(ls)] = torch.where(odd, R[:, :, 2],
+                                                   R[:, :, 0])
+        out_im[:n, l0: l0 + len(ls)] = torch.where(odd, R[:, :, 3],
+                                                   R[:, :, 1])
     return out_re, out_im
 
 
-def analysis_dot_cuda(ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl: int):
+def analysis_dot_cuda(ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl: int,
+                      m0: int = 0):
     """Launch K4 on the tensors' CUDA device and PyTorch's current stream.
-    Same contract as analysis_dot_plain; float32 only."""
+    Same contract as analysis_dot_plain, for the rows m = m0, m0 + 1, ...;
+    float32 only."""
     return _analysis_launch("legendre_analysis_dot",
                             "legendre_analysis_dot_launch",
-                            ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl)
+                            ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl,
+                            m0)
 
 
 def analysis_dot_columns(ere, eim, ore, oim, cth, ln_sth, logc, mcut,
-                         nl: int):
-    """K4 wrapper: the kernel for CUDA tensors, the twin for CPU tensors."""
+                         nl: int, m0: int = 0):
+    """K4 wrapper: the kernel for CUDA tensors, the twin for CPU tensors;
+    the input rows are m = m0, m0 + 1, ...."""
     if ere.device.type == "cpu":
         return analysis_dot_plain(ere, eim, ore, oim, cth, ln_sth, logc,
-                                  mcut, nl)
-    return analysis_dot_cuda(ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl)
+                                  mcut, nl, m=_rows(m0, ere))
+    return analysis_dot_cuda(ere, eim, ore, oim, cth, ln_sth, logc, mcut, nl,
+                             m0)
 
 
-def analysis_inputs(plan, E, O):
+def analysis_inputs(plan, E, O, m0: int = 0):
     """Kernel-ready K1 / K4 inputs from the folded ring-pair sums E, O
-    [nm, J] (complex): contiguous real/imaginary planes, geometry rows, the
-    seed table and the per-tile cutoff (cached on the plan).  No padding:
-    the kernels mask the ragged j edge themselves."""
+    [rows, J] (complex) of the m rows m0, m0 + 1, ...: contiguous
+    real/imaginary planes, geometry rows, those rows' seed table and the
+    per-tile cutoff (cached on the plan).  No padding: the kernels mask
+    the ragged j edge themselves."""
     rdt = plan.dtype
     planes = [x.contiguous() for x in (E.real.to(rdt), E.imag.to(rdt),
                                        O.real.to(rdt), O.imag.to(rdt))]
-    return (*planes, plan.cth, plan.ln_sth, plan.logc,
+    logc = plan.logc[m0: m0 + E.shape[0]]
+    return (*planes, plan.cth, plan.ln_sth, logc,
             plan.mcut(ANALYSIS_TILE_J))
 
 
@@ -415,25 +457,26 @@ def analysis_inputs(plan, E, O):
 # K2: synthesis columns, with derivatives (16) or the potential alone (4)
 # ----------------------------------------------------------------------------
 
-def _dfac_rows(nl: int, nm: int, dtype, device):
+def _dfac_rows(nl: int, nm: int, dtype, device, m0: int = 0):
     """d_lm = sqrt((l^2 - m^2)(2l+1)/(2l-1)) for l = 1..nl (the d_theta
-    lowering factor) [nl, nm]."""
+    lowering factor) [nl, nm], for m = m0 .. m0 + nm - 1."""
     l = torch.arange(1, nl + 1, dtype=dtype, device=device)[:, None]
-    m = torch.arange(nm, dtype=dtype, device=device)[None, :]
+    m = torch.arange(m0, m0 + nm, dtype=dtype, device=device)[None, :]
     num = torch.clamp(l * l - m * m, min=0.0) * (2.0 * l + 1.0)
     den = torch.clamp(2.0 * l - 1.0, min=1.0)
     return torch.sqrt(num / den)
 
 
-def mx_prep(nl: int, nm: int, alm, dtype, derivs: bool = True):
-    """alm [nl, nm] complex -> the TRANSPOSED stream planes [nm, nl]:
-    (a_re, a_im, h_re, h_im) with h_l = d_{l+1} a_{l+1} (summation by parts
-    of the d_theta lowering recurrence) when derivs, else (a_re, a_im)."""
+def mx_prep(nl: int, nm: int, alm, dtype, derivs: bool = True, m0: int = 0):
+    """alm [nl, nm] complex (the columns m = m0 .. m0 + nm - 1) -> the
+    TRANSPOSED stream planes [nm, nl]: (a_re, a_im, h_re, h_im) with
+    h_l = d_{l+1} a_{l+1} (summation by parts of the d_theta lowering
+    recurrence) when derivs, else (a_re, a_im)."""
     ar = alm.real.to(dtype)
     ai = alm.imag.to(dtype)
     if not derivs:
         return tuple(x.T.contiguous() for x in (ar, ai))
-    d = _dfac_rows(nl - 1, nm, dtype, alm.device)  # rows l = 1..nl-1
+    d = _dfac_rows(nl - 1, nm, dtype, alm.device, m0)  # rows l = 1..nl-1
     zero = torch.zeros((1, nm), dtype=dtype, device=alm.device)
     hr = torch.cat([ar[1:] * d, zero])
     hi = torch.cat([ai[1:] * d, zero])
@@ -460,26 +503,29 @@ def synth_plain(streams, cth, ln_sth, logc, mcut=None, m=None,
     acc = torch.zeros((2, ns, rows, J), dtype=dt, device=dev)
     for l in range(nl):
         lam = rec.step(l)
-        ar, ai = a_re[:, l], a_im[:, l]
+        n = rec.n
+        ar, ai = a_re[:n, l], a_im[:n, l]
         if ns == 2:
             s = torch.stack([ar, ai])
         else:
             lf = float(l)
-            s = torch.stack([ar, ai, ar * lf, ai * lf, streams[2][:, l],
-                             streams[3][:, l], ar * (lf * (lf + 1.0)),
+            s = torch.stack([ar, ai, ar * lf, ai * lf, streams[2][:n, l],
+                             streams[3][:n, l], ar * (lf * (lf + 1.0)),
                              ai * (lf * (lf + 1.0))])
-        acc[l % 2].addcmul_(s[:, :, None], lam[None])  # in place: no temp
+        # in place: no temporary
+        acc[l % 2, :, :n].addcmul_(s[:, :, None], lam[None])
     out = torch.cat([acc[0] + acc[1], acc[0] - acc[1]])  # [ncol, rows, J]
     if mcut is not None:
         out = torch.where(_below_cut(mcut, m, J, tile_j)[None], out, 0.0)
     return out.permute(1, 0, 2).contiguous()
 
 
-def synth_cuda(streams, cth, ln_sth, logc, mcut):
+def synth_cuda(streams, cth, ln_sth, logc, mcut, m0: int = 0):
     """Launch K2 (16 columns, `legendre_synth`) or its 4-column form
     (`legendre_synth_phi`) on the tensors' CUDA device and PyTorch's
     current stream.  Same contract as synth_plain with its SYNTH_TILE_J
-    tiles; float32 only."""
+    tiles, for the rows m = m0, m0 + 1, ... (streams and logc of those
+    rows); float32 only."""
     if len(streams) not in (2, 4):
         raise ValueError(f"K2 takes 4 derivative streams or 2 a-streams, "
                          f"not {len(streams)}")
@@ -499,15 +545,17 @@ def synth_cuda(streams, cth, ln_sth, logc, mcut):
     _launch(name, f"{name}_launch", cth.device,
             *(s.data_ptr() for s in streams), cth.data_ptr(),
             ln_sth.data_ptr(), logc.data_ptr(), mcut.data_ptr(),
-            out.data_ptr(), nl, nm, J)
+            out.data_ptr(), nl, nm, J, int(m0))
     return out
 
 
-def synth_columns(streams, cth, ln_sth, logc, mcut):
-    """K2 wrapper: the kernel for CUDA tensors, the twin for CPU tensors."""
+def synth_columns(streams, cth, ln_sth, logc, mcut, m0: int = 0):
+    """K2 wrapper: the kernel for CUDA tensors, the twin for CPU tensors;
+    the stream rows are m = m0, m0 + 1, ...."""
     if streams[0].device.type == "cpu":
-        return synth_plain(streams, cth, ln_sth, logc, mcut)
-    return synth_cuda(streams, cth, ln_sth, logc, mcut)
+        return synth_plain(streams, cth, ln_sth, logc, mcut,
+                           m=_rows(m0, streams[0]))
+    return synth_cuda(streams, cth, ln_sth, logc, mcut, m0)
 
 
 def _south_sign(plan, device, m=None):
@@ -604,19 +652,21 @@ def synth_vpu_plain(a_re, a_im, cth, sth, cot, inv_sth, derivs: bool,
     m2i2 = (mf * mf)[:, None] * inv_r * inv_r
     for l in range(nl):
         lam = rec.step(l)
-        ar, ai = a_re[:, l, None], a_im[:, l, None]
-        b = acc[l % 2]
+        n = rec.n
+        ar, ai = a_re[:n, l, None], a_im[:n, l, None]
+        b = acc[l % 2, :, :n]
         b[0].addcmul_(ar, lam)
         b[1].addcmul_(ai, lam)
         if derivs:
             lf = float(l)
-            cnum = (torch.clamp((lf - mf) * (lf + mf), min=0.0)
+            mfn = mf[:n]
+            cnum = (torch.clamp((lf - mfn) * (lf + mfn), min=0.0)
                     * (2.0 * lf + 1.0))
             c = torch.sqrt(cnum / torch.full_like(cnum,
                                                   max(2.0 * lf - 1.0, 1.0)))
-            lam_prev = rec.pp * rec.corfac
+            lam_prev = rec.pp[:n] * rec.corfac
             lamp = (lf * cot_r) * lam - (c[:, None] * lam_prev) * inv_r
-            lampp = (m2i2 - lf * (lf + 1.0)) * lam - cot_r * lamp
+            lampp = (m2i2[:n] - lf * (lf + 1.0)) * lam - cot_r * lamp
             b[2].addcmul_(ar, lamp)
             b[3].addcmul_(ai, lamp)
             b[4].addcmul_(ar, lampp)
@@ -628,13 +678,14 @@ def synth_vpu_plain(a_re, a_im, cth, sth, cot, inv_sth, derivs: bool,
 
 
 def synth_vpu_cuda(a_re, a_im, cth, sth, cot, inv_sth, derivs: bool, mcut,
-                   seed=None):
+                   seed=None, m0: int = 0):
     """Launch K3 (`legendre_synth_vpu` with derivatives,
     `legendre_synth_vpu_phi` without) on the tensors' CUDA device and
     PyTorch's current stream, after its seed pre-pass (chain_seed_cuda)
-    unless `seed` holds that pre-pass's (values, counters) for these rings.
-    Same contract as synth_vpu_plain with its SYNTH_TILE_J tiles; float32
-    only."""
+    unless `seed` holds that pre-pass's (values, counters) for these rings
+    and rows.  Same contract as synth_vpu_plain with its SYNTH_TILE_J
+    tiles, for the rows m = m0, m0 + 1, ... (the pre-pass runs for every
+    m below m0 + rows, and K3 reads the rows from m0); float32 only."""
     name = "legendre_synth_vpu" if derivs else "legendre_synth_vpu_phi"
     nm, nl = a_re.shape
     J = cth.shape[0]
@@ -644,7 +695,11 @@ def synth_vpu_cuda(a_re, a_im, cth, sth, cot, inv_sth, derivs: bool, mcut,
                    inv_sth=inv_sth, mcut=mcut),
         dict(a_re=(nm, nl), a_im=(nm, nl), cth=(J,), sth=(J,), cot=(J,),
              inv_sth=(J,), mcut=(-(-J // SYNTH_TILE_J),)))
-    seed, seed_k = chain_seed_cuda(sth, nm) if seed is None else seed
+    if seed is None:
+        seed, seed_k = chain_seed_cuda(sth, m0 + nm)
+        seed, seed_k = seed[m0:], seed_k[m0:]
+    else:
+        seed, seed_k = seed
     _check_cuda_f32(name, dict(a_re=a_re, seed=seed, seed_k=seed_k),
                     dict(a_re=(nm, nl), seed=(nm, J), seed_k=(nm, J)))
     out = torch.empty((nm, 12 if derivs else 4, J), dtype=torch.float32,
@@ -652,17 +707,19 @@ def synth_vpu_cuda(a_re, a_im, cth, sth, cot, inv_sth, derivs: bool, mcut,
     _launch(name, "legendre_synth_vpu_launch", a_re.device,
             a_re.data_ptr(), a_im.data_ptr(), cth.data_ptr(), cot.data_ptr(),
             inv_sth.data_ptr(), seed.data_ptr(), seed_k.data_ptr(),
-            mcut.data_ptr(), out.data_ptr(), nl, nm, J, int(derivs))
+            mcut.data_ptr(), out.data_ptr(), nl, nm, J, int(derivs), int(m0))
     return out
 
 
 def synth_vpu_columns(a_re, a_im, cth, sth, cot, inv_sth, derivs: bool,
-                      mcut):
-    """K3 wrapper: the kernel for CUDA tensors, the twin for CPU tensors."""
+                      mcut, m0: int = 0):
+    """K3 wrapper: the kernel for CUDA tensors, the twin for CPU tensors;
+    the rows are m = m0, m0 + 1, ...."""
     if a_re.device.type == "cpu":
         return synth_vpu_plain(a_re, a_im, cth, sth, cot, inv_sth, derivs,
-                               mcut=mcut)
-    return synth_vpu_cuda(a_re, a_im, cth, sth, cot, inv_sth, derivs, mcut)
+                               m=_rows(m0, a_re), mcut=mcut)
+    return synth_vpu_cuda(a_re, a_im, cth, sth, cot, inv_sth, derivs, mcut,
+                          m0=m0)
 
 
 def q_from_buckets(plan, c, m=None):

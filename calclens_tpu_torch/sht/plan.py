@@ -71,10 +71,17 @@ class SHTPlan:
         synth_stream_blocks), or None for the per-order default; the
         environment variable CALCLENS_SYNTH_STREAM sets it when the plan is
         built.
+
+    mesh : a parallel.sharding.Mesh, or None for one device.  On a mesh the
+        plan knows this rank's m rows [m0, m1) (m_bounds), its ring rows
+        [r0, r1) (ring_bounds) and their pixels (ring_pix_bounds), and its
+        block of RING pixels (pix_bounds); the transforms take and return
+        those blocks (transforms.py), and the ring stage builds its tables
+        for this rank's rows only.
     """
 
     def __init__(self, order, device, lmax=None, dtype=torch.float32,
-                 ring_weights=None, window=None):
+                 ring_weights=None, window=None, mesh=None):
         self.order = int(order)
         self.nside = nside = 1 << self.order
         if nside > 8192:
@@ -174,6 +181,17 @@ class SHTPlan:
                                                        "0") == "1" else "k1")
         env = os.environ.get("CALCLENS_SYNTH_STREAM")
         self.synth_stream = int(env) if env else None
+        self.mesh = mesh
+        self.m0, self.m1 = 0, self.nm
+        if mesh is not None:
+            self.m_bounds = mesh.blocks(self.nm)
+            self.m0, self.m1 = mesh.block(self.nm)
+            self.ring_bounds = mesh.rings(self)
+            sp = np.append(self.startpix[: self.nrings], self.npix)
+            self.ring_pix_bounds = sp[self.ring_bounds]
+            self.r0 = int(self.ring_bounds[mesh.rank])
+            self.r1 = int(self.ring_bounds[mesh.rank + 1])
+            self.pix_bounds = mesh.blocks(self.npix)
 
     def ring_stage(self):
         """The bucketed ring-DFT stage (sht/rings.py), built on first use;
@@ -271,7 +289,7 @@ class RingPairWindow:
         self._plan = weakref.ref(plan)
         self.j0, self.j1, self.J = j0, j1, j1 - j0
         for name in ("order", "nl", "nm", "dtype", "cdtype", "device",
-                     "m_f", "m_int", "logc"):
+                     "m_f", "m_int", "logc", "mesh", "m0", "m1"):
             setattr(self, name, getattr(plan, name))
         for name in ("cth", "sth", "cot", "inv_sth", "ln_sth"):
             setattr(self, name, getattr(plan, name)[j0:j1].contiguous())

@@ -19,6 +19,18 @@ map2alm_transpose_mpi.c and alm2allmaps_transpose_mpi.c):
     the RING maps, so one block's working set is alive at a time (the
     reference bounds the same memory by 20-ring chunks,
     alm2allmaps_transpose_mpi.c:76,256-261).
+
+On a mesh (plan.mesh) the transforms run sharded, with the collectives of
+parallel/sharding.py between the stages (the reference's MPI transposes,
+map2alm_transpose_mpi.c:317-381): a map is this rank's block of RING
+pixels (plan.pix_bounds), alm this rank's m columns (plan.m0 .. plan.m1).
+The analysis redistributes the block to the pixels of the rank's ring rows,
+runs their ring DFTs (analysis_ring_rows: rows in, rows out), transposes
+ring rows -> m columns, folds the pairs and runs K1 (or K4) on the rank's m
+rows; the synthesis runs K2 (or K3) on the rank's m rows, transposes m ->
+ring rows (per j-block when streamed), runs the ring DFTs of the rank's
+rows and redistributes their pixels to the rank's block.  The kernels are
+the one-device kernels on a block of m rows (their m0 argument).
 """
 
 from __future__ import annotations
@@ -139,20 +151,23 @@ def legendre_analysis(plan: SHTPlan, E, O):
     if kernel is None:
         raise ValueError(f"analysis_kernel {plan.analysis_kernel!r}: "
                          "expected 'k1' or 'k4'")
-    re, im = kernel(*legendre.analysis_inputs(plan, E, O), plan.nl)
+    re, im = kernel(*legendre.analysis_inputs(plan, E, O, plan.m0), plan.nl,
+                    m0=plan.m0)
     return torch.complex(re, im).T.contiguous().to(plan.cdtype)
 
 
 def synthesis_streams(plan: SHTPlan, alm, derivs: bool = True):
     """The planes the synthesis kernel reads, from alm [nl, nm]: K2's
     stream planes (legendre.mx_prep), or K3's two a-planes."""
+    rows = plan.m1 - plan.m0
     if plan.synth_kernel == "k3":
-        return legendre.mx_prep(plan.nl, plan.nm, alm, plan.dtype,
-                                derivs=False)
+        return legendre.mx_prep(plan.nl, rows, alm, plan.dtype,
+                                derivs=False, m0=plan.m0)
     if plan.synth_kernel != "k2":
         raise ValueError(f"synth_kernel {plan.synth_kernel!r}: expected "
                          "'k2' or 'k3'")
-    return legendre.mx_prep(plan.nl, plan.nm, alm, plan.dtype, derivs)
+    return legendre.mx_prep(plan.nl, rows, alm, plan.dtype, derivs,
+                            m0=plan.m0)
 
 
 def legendre_synthesis(plan: SHTPlan, alm, derivs: bool = True,
@@ -170,22 +185,29 @@ def legendre_synthesis(plan: SHTPlan, alm, derivs: bool = True,
     if streams is None:
         streams = synthesis_streams(plan, alm, derivs)
     mcut = plan.mcut(legendre.SYNTH_TILE_J)
+    m0, m1 = plan.m0, plan.m1
+    rows = None if plan.mesh is None else torch.arange(m0, m1,
+                                                       device=plan.device)
     if plan.synth_kernel == "k3":
         c = legendre.synth_vpu_columns(*streams, plan.cth, plan.sth,
-                                       plan.cot, plan.inv_sth, derivs, mcut)
+                                       plan.cot, plan.inv_sth, derivs, mcut,
+                                       m0=m0)
         del streams
-        return legendre.q_from_buckets(plan, c)
-    c = legendre.synth_columns(streams, plan.cth, plan.ln_sth, plan.logc,
-                               mcut)
+        return legendre.q_from_buckets(plan, c, m=rows)
+    c = legendre.synth_columns(streams, plan.cth, plan.ln_sth,
+                               plan.logc[m0:m1], mcut, m0=m0)
     del streams
-    return legendre.q_from_columns(plan, c)
+    return legendre.q_from_columns(plan, c, m=rows)
 
 
 def map2alm(plan: SHTPlan, m):
     """RING map [npix] -> alm [nl, nm] complex (l-major; entries m > l are 0),
 
     alm = sum_rings w_r lambda_lm(theta_r) G_m(r) with the reference's
-    quadrature weights (map2alm_transpose_mpi.c:110-124)."""
+    quadrature weights (map2alm_transpose_mpi.c:110-124).  On a mesh: this
+    rank's pixel block [b - a] -> its alm columns [nl, m1 - m0]."""
+    if plan.mesh is not None:
+        return _map2alm_mesh(plan, m)
     G = analysis_rings(plan, m)
     E, O = fold_pairs(plan, G)
     del G
@@ -194,7 +216,13 @@ def map2alm(plan: SHTPlan, m):
 
 def alm2map(plan: SHTPlan, alm):
     """alm [nl, nm] -> RING map [npix]: the potential alone (the
-    multigrid path's synthesis, calclens_tpu/sht/transforms.py::alm2map)."""
+    multigrid path's synthesis, calclens_tpu/sht/transforms.py::alm2map).
+    On a mesh: this rank's alm columns -> its pixel block."""
+    if plan.mesh is not None:
+        qN, qS = legendre_synthesis(plan, alm, False)
+        seg = _synth_mesh_rows(plan, qN, qS, 0, plan.J, None, 1)
+        return plan.mesh.repartition(seg, plan.ring_pix_bounds,
+                                     plan.pix_bounds)[0]
     qN, qS = legendre_synthesis(plan, alm, False)
     Q = unfold_pairs(plan, qN[0], qS[0])
     del qN, qS
@@ -230,7 +258,10 @@ def alm2allmaps(plan: SHTPlan, alm, out=None):
     d_phi_phi, the covariant components on the orthonormal (e_theta,
     e_phi) basis (alm2allmaps_transpose_mpi.c:121-131, 1080-1147), written
     into `out` ([6, npix], rows contiguous) when given.  Streamed over
-    synth_stream_blocks(plan) j-blocks when that is above 1."""
+    synth_stream_blocks(plan) j-blocks when that is above 1.  On a mesh:
+    this rank's alm columns -> its pixel block [6, b - a]."""
+    if plan.mesh is not None:
+        return _alm2allmaps_mesh(plan, alm, out)
     if out is None:
         out = torch.empty((6, plan.npix), dtype=plan.dtype,
                           device=alm.device)
@@ -376,4 +407,159 @@ def _alm2allmaps_streamed(plan: SHTPlan, alm, nblk: int, out):
             rows(qS[:, :, : j1s - j0].flip(2).transpose(1, 2),
                  nrings - j1s, nrings - j0)
         del qS
+    return out
+
+
+# ----------------------------------------------------------------------------
+# the transforms on a mesh (calclens_tpu/sht/transforms.py with plan.spec)
+# ----------------------------------------------------------------------------
+
+def analysis_ring_rows(plan: SHTPlan, seg, r0: int, r1: int, cache=None):
+    """seg [..., startpix[r1] - startpix[r0]] the pixels of the rings [r0,
+    r1) -> G [..., r1 - r0, nm] = e^{-i m phi0_r} DFT_{n_r}(x_r)[m mod n_r]:
+    the analysis ring stage on those rows alone (calclens_tpu/sht/
+    transforms.py::_czt_rows_sharded: rows in, rows out).  Belt ranges take
+    an rfft per row, cap ranges a chirp-Z emitting their first K modes (the
+    turning-point cutoff on the range's largest sin theta, as the v2
+    stage's cap groups; 0 beyond), in blocks of rows as synth_ring_rows.
+    Tables go to `cache` (a new TableCache by default)."""
+    lead = seg.shape[:-1]
+    k = int(np.prod(lead)) if lead else 1
+    nm, P = plan.nm, plan.P
+    sp = np.append(plan.startpix[: plan.nrings], plan.npix)
+    p0 = int(sp[r0])
+    if cache is None:
+        cache = TableCache(plan.device)
+    G = torch.zeros(lead + (r1 - r0, nm), dtype=plan.cdtype,
+                    device=seg.device)
+    for a, b in ring_subranges(plan, r0, r1):
+        x = seg[..., int(sp[a]) - p0: int(sp[b]) - p0]
+        if plan.n_host[a] == P:
+            Fh = torch.fft.rfft(x.reshape(lead + (b - a, P)), dim=-1)
+            H = P // 2 + 1
+            if nm <= H:
+                G[..., a - r0: b - r0, :] = Fh[..., :nm]
+            else:
+                G[..., a - r0: b - r0, :H] = Fh
+                G[..., a - r0: b - r0, H:] = torch.conj(
+                    Fh[..., P - nm + 1: P - H + 1].flip(-1))
+            continue
+        nmax = int(plan.n_host[a:b].max())
+        K = m_cutoff(plan.nl - 1, float(plan.sth_ring[a:b].max()), nm,
+                     granularity=256)
+        L = _next_fft_len(nmax + K - 1)
+        rows = max(8, min(STREAM_CZT_ROWS, STREAM_CZT_ELEMS // (k * L)))
+        for c0 in range(a, b, rows):
+            c1 = min(b, c0 + rows)
+
+            def build(c0=c0, c1=c1):
+                j = torch.arange(nmax, device=plan.device)[None, :]
+                n = torch.as_tensor(plan.n_host[c0:c1],
+                                    device=plan.device)[:, None]
+                st = torch.as_tensor(sp[c0:c1] - sp[c0],
+                                     device=plan.device)[:, None]
+                mask = j < n
+                return torch.where(mask, st + j, 0).reshape(-1), mask
+
+            idx, mask = cache.get(("analysis_rows", c0, c1), build)
+            xs = x[..., int(sp[c0] - sp[a]): int(sp[c1] - sp[a])]
+            X = torch.where(mask, xs.index_select(-1, idx).reshape(
+                lead + mask.shape), 0.0)
+            G[..., c0 - r0: c1 - r0, :K] = czt_blocked(
+                X, plan.n_host[c0:c1], K, L, -1, plan.cdtype, c1 - c0, cache,
+                ("analysis_rows", c0, c1))
+            del X
+    return G.mul_(phase_table(plan.m_int, plan.n_dev[r0:r1],
+                              plan.shift_dev[r0:r1], -1, plan.dtype))
+
+
+def _map2alm_mesh(plan: SHTPlan, m):
+    """map2alm on a mesh: pixel block -> the pixels of the rank's ring rows
+    (repartition), their ring DFTs, the ring -> m transpose, the pair fold
+    and the Legendre analysis of the rank's m rows."""
+    mesh = plan.mesh
+    seg = mesh.repartition(m, plan.pix_bounds, plan.ring_pix_bounds)
+    G = analysis_ring_rows(plan, seg, plan.r0, plan.r1, plan.tables)
+    del seg
+    Gm = mesh.rings_to_m(G, plan.ring_bounds, plan.m_bounds)
+    del G
+    E, O = fold_pairs(plan, Gm)
+    del Gm
+    return legendre_analysis(plan, E, O)
+
+
+def mesh_stream_blocks(nblk: int, J: int, n: int) -> int:
+    """j-blocks of the streamed synthesis on n ranks: halved until
+    J % nblk == 0 and (J / nblk) % n == 0, as the JAX package's mesh
+    branch of _synth_stream_blocks does."""
+    while nblk > 1 and (J % nblk or (J // nblk) % n):
+        nblk //= 2
+    return max(1, nblk)
+
+
+def _synth_mesh_rows(plan: SHTPlan, qN, qS, j0: int, j1: int, seg, k: int,
+                     cache=None):
+    """The ring side of the synthesis on a mesh for the ring pairs [j0, j1):
+    qN, qS [k', m1 - m0, j1 - j0] (this rank's m rows; k' = 3 with
+    derivatives, 1 without) -> the north rows j0..j1-1 and the south rows
+    nrings-j1s..nrings-j0-1 (j1s = min(j1, J - 1)) transposed m -> ring rows
+    (Mesh.m_to_rings), and of those that are this rank's, the k streams
+    (the six covariant ones for k = 6, the potential for k = 1) synthesised
+    into `seg`, the pixels of the rank's ring rows ([k, ...], made when
+    None).  Returns seg."""
+    mesh = plan.mesh
+    sp = np.append(plan.startpix[: plan.nrings], plan.npix)
+    q0 = int(sp[plan.r0])
+    if seg is None:
+        seg = torch.zeros((k, int(sp[plan.r1]) - q0), dtype=plan.dtype,
+                          device=plan.device)
+    j1s = min(j1, plan.J - 1)
+    parts = [(qN.transpose(1, 2), j0)]
+    if j1s > j0:
+        parts.append((qS[:, :, : j1s - j0].flip(2).transpose(1, 2),
+                      plan.nrings - j1s))
+    for Q, row0 in parts:
+        Qr, (lo, hi) = mesh.m_to_rings(Q, row0, plan.ring_bounds,
+                                       plan.m_bounds)
+        if hi <= lo:
+            continue
+        if k == 6:
+            S = _streams_from_q_rows(plan, Qr[0], Qr[1], Qr[2],
+                                     plan.sth_ring[lo:hi],
+                                     plan.cot_ring[lo:hi])
+        else:
+            S = Qr
+        del Qr
+        synth_ring_rows(plan, S, lo, hi,
+                        seg[:, int(sp[lo]) - q0: int(sp[hi]) - q0], cache)
+        del S
+    return seg
+
+
+def _alm2allmaps_mesh(plan: SHTPlan, alm, out=None):
+    """alm2allmaps on a mesh: K2 (or K3) on the rank's m rows, per j-block
+    when synth_stream_blocks(plan) is above 1 (mesh_stream_blocks), the m
+    -> ring transpose and ring stage of the rank's rows (_synth_mesh_rows),
+    then the rank's ring pixels redistributed to its pixel block."""
+    mesh = plan.mesh
+    nblk = mesh_stream_blocks(synth_stream_blocks(plan), plan.J, mesh.size)
+    jb = plan.J // nblk
+    if nblk == 1:
+        qN, qS = legendre_synthesis(plan, alm, True)
+        seg = _synth_mesh_rows(plan, qN, qS, 0, plan.J, None, 6,
+                               plan.tables)
+        del qN, qS
+    else:
+        streams = synthesis_streams(plan, alm, True)
+        seg = None
+        for j0 in range(0, plan.J, jb):
+            qN, qS = legendre_synthesis(plan.window(j0, j0 + jb), None, True,
+                                        streams=streams)
+            seg = _synth_mesh_rows(plan, qN, qS, j0, j0 + jb, seg, 6)
+            del qN, qS
+        del streams
+    blk = mesh.repartition(seg, plan.ring_pix_bounds, plan.pix_bounds)
+    if out is None:
+        return blk
+    out.copy_(blk)
     return out

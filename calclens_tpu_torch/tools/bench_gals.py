@@ -53,7 +53,10 @@ def main(argv=None):
     topk = int(os.environ.get("BENCH_GALS_TOPK", 16))
     if mode == "sharded":
         raise NotImplementedError(
-            "the sharded search arrives with ROADMAP Queue 1, slice 14")
+            "the sharded search (gals.gridsearch.find_images_sharded) runs "
+            "on a mesh of ranks, one process each (parallel.sharding."
+            "make_mesh); this tool times one process: chip_smoke.py "
+            "--phase 16 runs the sharded search")
     if mode not in ("device", "born", "host"):
         raise ValueError(f"BENCH_GALS_MODE={mode}")
 

@@ -190,7 +190,7 @@ def time_variant(lib, plan, streams, ana, geo):
 
         def call(ss=ss, fn=fn, res=res):
             _ext.check(fn(*(x.data_ptr() for x in ss), *g, mcut2.data_ptr(),
-                          res.data_ptr(), nl, nm, J, stream), name)
+                          res.data_ptr(), nl, nm, J, 0, stream), name)
         out[name] = (cuda_ms(call, 3), res)
     seed = torch.empty((nm, J), device=dev)
     seed_k = torch.empty((nm, J), dtype=torch.int32, device=dev)
@@ -212,7 +212,7 @@ def time_variant(lib, plan, streams, ana, geo):
                 *(x.data_ptr() for x in streams[:2]), cth.data_ptr(),
                 cot.data_ptr(), inv.data_ptr(), seed.data_ptr(),
                 seed_k.data_ptr(), mcut3.data_ptr(), res.data_ptr(), nl, nm,
-                J, derivs, stream), name)
+                J, derivs, 0, stream), name)
         out[name] = (cuda_ms(k3, 3), res)
     for name, fn in (("legendre_analysis", lib.legendre_analysis_launch),
                      ("legendre_analysis_dot",
@@ -223,7 +223,7 @@ def time_variant(lib, plan, streams, ana, geo):
             alm.zero_()
             _ext.check(fn(*(x.data_ptr() for x in ana[:4]), *g,
                           mcut1.data_ptr(), alm[0].data_ptr(),
-                          alm[1].data_ptr(), nl, nm, J, stream), name)
+                          alm[1].data_ptr(), nl, nm, J, 0, stream), name)
         out[name] = (cuda_ms(ka, 3), alm)
     return out
 

@@ -149,7 +149,8 @@ of which must pass:
      numpy seed (uniform, a quarter in 4096 Gaussian clumps of 2 Mpc/h)
      in a 1050 Mpc/h box, written by the port's io/lgadget as two files
      in a temporary directory the phase deletes; ThreeDPot with NFFT 1024,
-     rayOrder 10, float32, 40 planes of 25 Mpc/h (nint 48) through
+     rayOrder 10, float32, 24 planes of 25 Mpc/h to 600 Mpc/h (nint 48;
+     not the cell's 40 planes to 1000 Mpc/h, for the smoke's time) through
      Raytracer.step: one grid build, s/plane (first, median, last, with
      their radii), rays/s, the peak device memory under 80 GB, plane 0
      (with the build) by parts with CUDA events (snapshot read, upload,
@@ -183,16 +184,39 @@ of which must pass:
      Raytracer.run over two planes with 10^6 sources in plane 1's bin,
      every source imaged, gals/s and the peak (its closing 16.9 GB npz
      restart left out); then the synthesis at every candidate block count
-     at orders 10-13 on one alm, timed, against the unstreamed synthesis
-     (order 13: the default count) within 1e-5 of each map's max, the
-     default count within 15 % of the fastest, at order 12 K3 through the
-     synthesis at 32 blocks (each window with its own seed pre-pass,
-     launches exact) against K3 unstreamed within the same bound, and at
-     order 13 the default with its per-block tables kept (their bytes and
-     time).
+     at orders 12-13 on one alm (at order 12 1, 8, 16, 32 and 64; orders
+     10-11 and 2 or 4 blocks at 12, which never beat the whole synthesis,
+     and the order-13 per-block tables kept, which the port does not keep,
+     are left out for the smoke's time), timed, against the
+     unstreamed synthesis (order 13: the default count) within 1e-5 of
+     each map's max, the default count within 15 % of the fastest, and at
+     order 12 K3 through the synthesis at 32 blocks (each window with its
+     own seed pre-pass, launches exact) against K3 unstreamed within the
+     same bound;
+ 16. the multi-device path (calclens_tpu_torch/parallel/) on ranks that
+     share the card (the machine has one; each rank a process spawned by
+     parallel/launch.run_ranks, with its own timeout): K1-K4 on a block
+     of m rows (their m0 argument) against the whole launch's rows at
+     order 10 (K2, K3 exact; K1, K4 1e-5); that gloo takes each collective
+     primitive on CUDA tensors (2 ranks; a refused one fails the phase);
+     NCCL at world size 1 (every
+     Mesh collective an identity, the sharded 3-plane trace at order 7/6
+     vs the one-device trace within 5e-4); the headline (SHTOrder 12,
+     rayOrder 10, 2^21 particles, f32, NGP, 1 warm-up and 2 timed planes)
+     on 2 ranks sharing the card over gloo against one rank: each rank's
+     step seconds, K1 and K2 ms and launches per plane (exactly one each),
+     each rank's peak and their sum under 80 GB, alpha and A within 1e-2
+     of each quantity's max, the order-8 lens map counts equal; the
+     order-7/6 traces (3 planes: NGP, SPH, 4 forced j-blocks, K3 + K4;
+     launches per rank per plane exact) and a 4-plane Raytracer.run with
+     lens maps, two ray files and 2000 galaxy sources, on 2 and 4 ranks
+     against one rank on the card: rays within 5e-4, ray files' layout and
+     NEST columns equal, lens map ray counts equal, the imaged sources
+     equal but for 1e-3 of them.  The ranks share one card: their times are
+     not a scaling result.
 
-`python3 chip_smoke.py --phase 15` runs the build and phase 15 alone and
-prints no JSON line.
+`python3 chip_smoke.py --phase 15` (or `--phase 16`) runs the build and
+that phase alone and prints no JSON line.
 
 It prints the card's line, a JSON line {"kernels": [...]} with each
 kernel's launches on its path's run, its error against its twin, its
@@ -208,6 +232,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -354,8 +379,8 @@ TDP_PARTICLES = 1 << 27
 TDP_BOX = 1050.0
 TDP_NFFT = 1024
 TDP_RAY_ORDER = 10
-TDP_MAX_DIST = 1000.0
-TDP_PLANES = 40
+TDP_MAX_DIST = 600.0
+TDP_PLANES = 24
 TDP_CLUMPS = 4096
 TDP_CLUMP_SHARE = 0.25
 TDP_CLUMP_SIGMA = 2.0
@@ -1079,7 +1104,7 @@ def headline(synth, analysis, planes, snapshot_after, maps_order=None,
     npart = 1 << 21
     pos, mass = seeded_particles(npart, 1.0, 12)
     extra = planes[-1] + 1
-    staged = {p: rt._pad_particles(pos * (250.0 * p + 125.0), mass)
+    staged = {p: rt.stage_particles(pos * (250.0 * p + 125.0), mass)
               for p in (1, *planes, extra)}
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
@@ -1451,7 +1476,7 @@ def mass_map_plane(snap, plane):
         rt = Raytracer(cfg, device="cuda")
         # the particle path's own float32 positions, so that no particle
         # lands in another pixel than it does there
-        pos_d, mass_d = rt._pad_particles(pos, mass)
+        pos_d, mass_d = rt.stage_particles(pos, mass)
         pix = torchhp.vec2pix_ring(pos_d[:len(pos)], rt.plan.order)
         counts = torch.zeros(rt.plan.npix, dtype=torch.float32,
                              device=rt.device).index_add_(
@@ -2005,7 +2030,7 @@ def mg_design_point():
     setup_s = time.perf_counter() - t0
     nrays = rt.rays_packed.shape[1]
     pos, mass = seeded_particles(MG_PARTICLES, 1.0, 12)
-    staged = {p: rt._pad_particles(pos * (250.0 * p + 125.0), mass)
+    staged = {p: rt.stage_particles(pos * (250.0 * p + 125.0), mass)
               for p in range(1, 6)}
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
@@ -2052,7 +2077,7 @@ def mg_design_point():
     cfg_s = mg_config(MG_ORDERS, MGConvFact=0.1, DepositScheme="SPH")
     rs = Raytracer(cfg_s, device="cuda")
     rs.init_rays()
-    pos_d, mass_d = rs._pad_particles(pos * 625.0, mass)
+    pos_d, mass_d = rs.stage_particles(pos * 625.0, mass)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = dict(_ext.launches)
@@ -2120,7 +2145,7 @@ def ray_outputs(snap):
     driver's writer (Raytracer.write_rays) from the card in RAY_FILES files,
     as FITS and as binary: seconds and bytes of each; both read back
     (layouts and rows equal between the formats) and held to a float64
-    transform of the same buffer on the CPU, each float column within
+    transform of the same buffer (on the card), each float column within
     RAY_F64_FACTOR times the float32 CPU transform's own distance from it
     (NEST, counts and starts equal)."""
     import tempfile
@@ -2166,10 +2191,11 @@ def ray_outputs(snap):
         check(all(np.array_equal(rows[f], rows_b[f])
                   for f in rows.dtype.names), "FITS and binary rows differ")
         ref = {}
-        for dt in (torch.float64, torch.float32):
-            paths, s_, _ = writer("cpu", dt, "fits")
+        for device, dt in (("cuda", torch.float64), ("cpu", torch.float32)):
+            paths, s_, _ = writer(device, dt, "fits")
             ref[dt] = ray_file_columns(paths, "fits")
-            out[f"cpu_{str(dt)[6:]}_s"] = s_
+            out[f"{device}_{str(dt)[6:]}_s"] = s_
+        torch.cuda.empty_cache()
         (r64, lay64), (r32, _) = ref[torch.float64], ref[torch.float32]
         check(all(np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2])
                   for a, b in zip(lay, lay64)), "ray file layouts differ "
@@ -2318,8 +2344,9 @@ def report_ray_outputs(r, card):
         say(f"phase 13 ({card}): headline rays written as {fmt} ({nf} "
             f"files, {nbytes} bytes) in {s_:.3f} s, {nbytes / s_ / 1e9:.3f} "
             f"GB/s")
-    say(f"phase 13: the same rays written on the CPU in float64 "
-        f"{r['cpu_float64_s']:.3f} s, float32 {r['cpu_float32_s']:.3f} s; "
+    say(f"phase 13: the same rays written in float64 on the card "
+        f"{r['cuda_float64_s']:.3f} s, in float32 on the CPU "
+        f"{r['cpu_float32_s']:.3f} s; "
         f"card vs float64 (float32 CPU vs float64) per column: "
         + ", ".join(f"{k} {a:.3e} ({b:.3e})" for k, (a, b) in
                     r["dist"].items())
@@ -2666,8 +2693,7 @@ def report_threedpot(r, card):
 # with its particles per plane, the m rows of its kernel checks and the
 # ring-pair windows (first, middle, last of the default count) on which K2
 # is held to its twin; the point-mass plane and the galaxy run's sources
-STREAM_COUNTS = {10: (1, 2, 4, 8, 16), 11: (1, 2, 4, 8, 16, 32),
-                 12: (1, 2, 4, 8, 16, 32, 64), 13: (8, 16, 32, 64)}
+STREAM_COUNTS = {12: (1, 8, 16, 32, 64), 13: (8, 16, 32, 64)}
 # the streamed synthesis against the unstreamed one (at order 13, where the
 # unstreamed one does not fit, against the default count), relative to
 # each map's max: the kernel-vs-twin bound
@@ -2722,9 +2748,7 @@ def stream_counts(order, dev):
     output buffer: maps against the first count's (the unstreamed synthesis
     where the order has it, at order 13 the default count's, made first),
     CUDA-event ms of a second call, peak memory of the first above the
-    alm, the buffer and the reference maps.  With the default count at
-    order 13, also its per-block tables kept in the plan (their bytes,
-    the time of a call that finds them)."""
+    alm, the buffer and the reference maps."""
     import torch
     from calclens_tpu_torch import _ext
     from calclens_tpu_torch.sht import transforms as T
@@ -2736,7 +2760,6 @@ def stream_counts(order, dev):
     plan = SHTPlan(order, dev, dtype=torch.float32)
     alm = random_alm(plan, 150 + order)
     default = T.synth_stream_blocks(plan)
-    ring_rows = T.synth_ring_rows
     counts = STREAM_COUNTS[order]
     ref_count = counts[0] if counts[0] == 1 else default
     order_counts = [ref_count] + [c for c in counts if c != ref_count]
@@ -2767,21 +2790,6 @@ def stream_counts(order, dev):
     res = dict(rows=rows, ref=ref_count, default=default, resident=resident)
     if order == K3_STREAM[0]:
         res["k3"] = k3_streamed(plan, alm, out)
-    if order == 13:
-        plan.synth_stream = default
-        # keep every block's tables in the plan's cache
-        T.synth_ring_rows = functools.partial(ring_rows, cache=plan.tables)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        _, build_ms = timed_once(lambda: T.alm2allmaps(plan, alm, out=out))
-        _, ms = timed_once(lambda: T.alm2allmaps(plan, alm, out=out))
-        res["cached"] = dict(
-            bytes=plan.tables.nbytes("czt") + plan.tables.nbytes(
-                "stream_pixels"), build_ms=build_ms, ms=ms,
-            peak=torch.cuda.max_memory_allocated() - base,
-            err=map_rel_errs(out, ref))
-        T.synth_ring_rows = ring_rows
     del plan, alm, out, ref
     torch.cuda.empty_cache()
     return res
@@ -2988,7 +2996,7 @@ def order13_step():
     nblk = T.synth_stream_blocks(rt.plan)
     want = {"legendre_analysis": 1, "legendre_synth": nblk}
     pos, mass = seeded_particles(O13_PARTICLES, 1.0, 13)
-    staged = {p: rt._pad_particles(pos * (250.0 * p + 125.0), mass)
+    staged = {p: rt.stage_particles(pos * (250.0 * p + 125.0), mass)
               for p in (1, 2, 3, 4)}
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
@@ -3183,20 +3191,519 @@ def stream_phase(dev, card):
                     f"{c} block(s): {v['ms']:.2f} ({v['launches']}, "
                     f"{v['err']:.3e})" for c, v in r["k3"].items())
                 + f" (bound {STREAM_BOUND:g})")
-        if "cached" in r:
-            c = r["cached"]
-            say(f"phase 15: order {order}, {r['default']} blocks with the "
-                f"per-block tables kept: {c['bytes'] / 2**30:.2f} GiB of "
-                f"tables, first call {c['build_ms']:.1f} ms, then "
-                f"{c['ms']:.2f} ms (not kept: "
-                f"{r['rows'][r['default']]['ms']:.2f}), peak "
-                f"{c['peak'] / 2**30:.2f} GiB, maps {c['err']:.3e}")
         dms = r["rows"][r["default"]]["ms"]
         check(dms <= (1.0 + STREAM_DEFAULT_SLACK) * r["rows"][best]["ms"],
               f"order {order}: default {r['default']} blocks {dms:.2f} ms, "
               f"fastest {best} {r['rows'][best]['ms']:.2f} ms")
     say(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
     return dict(counts=counts, step=s, gals=g)
+
+
+# ----------------------------------------------------------------------------
+# phase 16: the multi-device path (calclens_tpu_torch/parallel/) on ranks
+# that share the card
+# ----------------------------------------------------------------------------
+
+# the headline over ranks sharing the card: SHTOrder 12 / rayOrder 10, 2^21
+# particles, f32, NGP, one warm-up plane and two timed planes; its rays'
+# alpha and A against the one-rank step's within MASS_MAP_RAY_BOUND (two
+# runs of one order-12 plane lie that far apart through K1's atomic adds),
+# its order-8 lens map counts exact
+P16_HEAD_RANKS = 2
+P16_HEAD_PLANES = (2, 3, 4)
+# the small-order traces: ranks, planes, particles and sources per case
+P16_TRACE_RANKS = (2, 4)
+P16_TRACE_PLANES = 3
+P16_TRACE_PARTICLES = 20000
+P16_TRACE_GALS = 2000
+# K1-K4 launched on a block of m rows (the m0 argument) against the whole
+# launch's rows at this order
+P16_ROWS_ORDER = 10
+# seconds a set of ranks may take before all are killed
+P16_TIMEOUT = 600.0
+# the collectives every Mesh method goes through
+MESH_PRIMITIVES = ("all_to_all", "reduce_scatter", "all_gather")
+
+
+def p16_probe(mesh):
+    """Which primitive gloo takes on CUDA tensors: name -> "ok" or the
+    error (values checked; uneven all-to-all splits)."""
+    import torch
+    import torch.distributed as dist
+
+    r, n, dev = mesh.rank, mesh.size, mesh.device
+    out = {}
+
+    def a2a():
+        ins = [r + d + 1 for d in range(n)]
+        outs = [s + r + 1 for s in range(n)]
+        x = torch.cat([torch.full((k,), float(100 * r + d), device=dev)
+                       for d, k in enumerate(ins)])
+        y = torch.empty(sum(outs), device=dev)
+        dist.all_to_all_single(y, x, outs, ins)
+        want = torch.cat([torch.full((k,), float(100 * s + r), device=dev)
+                          for s, k in enumerate(outs)])
+        return torch.equal(y, want)
+
+    def rs():
+        x = torch.arange(4 * n, dtype=torch.float32, device=dev) + r
+        y = torch.empty(4, device=dev)
+        dist.reduce_scatter_tensor(y, x)
+        want = (torch.arange(4 * r, 4 * r + 4, dtype=torch.float32,
+                             device=dev) * n + n * (n - 1) / 2)
+        return torch.equal(y, want)
+
+    def ag():
+        x = torch.full((3,), float(r), device=dev)
+        y = torch.empty(3 * n, device=dev)
+        dist.all_gather_into_tensor(y, x)
+        return torch.equal(y.cpu(), torch.arange(n, dtype=torch.float32
+                                                 ).repeat_interleave(3))
+
+    for name, fn in zip(MESH_PRIMITIVES, (a2a, rs, ag)):
+        try:
+            ok = fn()
+            torch.cuda.synchronize()
+            out[name] = "ok" if ok else "wrong values"
+        except Exception as e:  # the probe's answer, not a failure
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+        dist.barrier()
+    return out
+
+
+def p16_nccl(mesh):
+    """NCCL at world size 1: every Mesh collective returns its input, and
+    the sharded 3-plane trace at order 7/6 equals the one-device trace on
+    the same card within TRACE_BOUND (grouped_row_err per plane)."""
+    import torch
+    from calclens_tpu_torch.config import RayTraceConfig
+    from calclens_tpu_torch.driver import Raytracer
+
+    check(mesh.backend == "nccl" and mesh.size == 1, f"{mesh}")
+    x = torch.randn(3, 1000, device=mesh.device)
+    c = torch.randn(2, 64, 32, dtype=torch.complex64, device=mesh.device)
+    b = mesh.blocks(1000)
+    ident = {
+        "reduce_scatter_blocks": torch.equal(mesh.reduce_scatter_blocks(x),
+                                             x),
+        "all_gather_cols": torch.equal(mesh.all_gather_cols(x, b), x),
+        "repartition": torch.equal(mesh.repartition(x, b, b), x),
+        "window": torch.equal(mesh.window(x, b, 10)[0], x),
+        "rings_to_m": torch.equal(mesh.rings_to_m(
+            c, np.array([0, 64]), np.array([0, 32])), c),
+        "gather_to": torch.equal(mesh.gather_to(x, [1000], 0), x)}
+    cfg = RayTraceConfig(OmegaM=0.3, maxComvDistance=2000.0, NumLensPlanes=8,
+                         SHTOrder=7, rayOrder=6, bundleOrder=3,
+                         Precision="f32").finalize()
+    one = Raytracer(cfg, device=mesh.device)
+    sh = Raytracer(cfg, device=mesh.device, mesh=mesh)
+    errs = []
+    for rt in (one, sh):
+        rt.init_rays()
+    for p in range(P16_TRACE_PLANES):
+        pos, mass = pixel_centre_particles(cfg, one.cosmo, p,
+                                           P16_TRACE_PARTICLES, 100 + p)
+        one.step(p, pos=pos, mass=mass)
+        sh.step(p, pos=pos, mass=mass)
+        errs.append(grouped_row_err(sh.rays_packed, one.rays_packed))
+    return dict(identities=ident, errs=errs, calls=dict(mesh.calls))
+
+
+def p16_trace_cases(mesh, device, tmp):
+    """The small-order cases on `mesh` (None: one device): per case the
+    whole rays after P16_TRACE_PLANES planes (host numpy) and each plane's
+    launches on this rank; and Raytracer.run with lens maps, two ray files
+    and galaxy images into <tmp>/<n ranks>/."""
+    import torch
+    from calclens_tpu_torch import _ext
+    from calclens_tpu_torch.config import RayTraceConfig
+    from calclens_tpu_torch.driver import Raytracer
+
+    base = dict(OmegaM=0.3, maxComvDistance=2000.0, NumLensPlanes=8,
+                SHTOrder=7, rayOrder=6, bundleOrder=3, Precision="f32")
+    cases = {"NGP": ({}, {}), "SPH": (dict(DepositScheme="SPH"), {}),
+             "4 blocks": ({}, dict(synth_stream=4)),
+             "(k3, k4)": ({}, dict(synth_kernel="k3",
+                                   analysis_kernel="k4"))}
+    out = {}
+    for label, (kw, plan_kw) in cases.items():
+        cfg = RayTraceConfig(**base, **kw).finalize()
+        rt = Raytracer(cfg, device=device, mesh=mesh)
+        for k, v in plan_kw.items():
+            setattr(rt.plan, k, v)
+        rt.init_rays()
+        counts = []
+        for p in range(P16_TRACE_PLANES):
+            pos, mass = pixel_centre_particles(cfg, rt.cosmo, p,
+                                               P16_TRACE_PARTICLES, 100 + p)
+            _ext.reset_launches()
+            rt.step(p, pos=pos, mass=mass)
+            counts.append({k: v for k, v in _ext.launches.items() if v})
+        out[label] = (rt.packed_global().cpu().numpy(), counts)
+        del rt
+    n = 1 if mesh is None else mesh.size
+    cfg = RayTraceConfig(**dict(base, NumLensPlanes=4,
+                                maxComvDistance=1000.0),
+                         MapRedshiftList=f"{tmp}/zs.txt", LensMapOrder=4,
+                         RayOutputName="rays_", NumRayOutputFiles=2,
+                         GalsFileList=f"{tmp}/gals.txt",
+                         GalOutputName="gal_",
+                         OutputPath=f"{tmp}/{n}").finalize()
+    rt = Raytracer(cfg, device=device, mesh=mesh)
+    rt.load_particles = lambda p: pixel_centre_particles(
+        cfg, rt.cosmo, p, P16_TRACE_PARTICLES, 100 + p)
+    _ext.reset_launches()
+    rt.run(progress=False)
+    out["run"] = (rt.packed_global().cpu().numpy(),
+                  [{k: v for k, v in _ext.launches.items() if v}])
+    torch.cuda.synchronize()
+    return out
+
+
+def p16_trace_rank(mesh, tmp):
+    res = p16_trace_cases(mesh, mesh.device, tmp)
+    res = {k: (v[0] if mesh.rank == 0 else None, v[1])
+           for k, v in res.items()}
+    return dict(cases=res, calls=dict(mesh.calls))
+
+
+def p16_headline_run(mesh, device, planes, out_path):
+    """The headline planes on `mesh` (None: one device): per plane the step
+    seconds, this rank's launches and its K1 and K2 milliseconds (CUDA
+    events around each call of the two wrappers); the peak memory; the
+    order-8 lens map counts and the whole rays (written to out_path) on
+    rank 0 or the one device."""
+    import torch
+    from calclens_tpu_torch import _ext
+    from calclens_tpu_torch.config import RayTraceConfig
+    from calclens_tpu_torch.driver import Raytracer
+    from calclens_tpu_torch.sht import legendre as TL
+
+    cfg = RayTraceConfig(OmegaM=0.3, maxComvDistance=2000.0, NumLensPlanes=8,
+                         SHTOrder=12, rayOrder=10, bundleOrder=3,
+                         Precision="f32").finalize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rt = Raytracer(cfg, device=device, mesh=mesh)
+    rt.init_rays()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    pos, mass = seeded_particles(1 << 21, 1.0, 12)
+    parts = {p: rt.stage_particles(pos * (250.0 * p + 125.0), mass)
+             for p in planes}
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    events = {"K1": [], "K2": []}
+    kept = (TL.analysis_columns, TL.synth_columns)
+
+    def timed(name, fn):
+        def call(*a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            res = fn(*a, **k)
+            e1.record()
+            events[name].append((e0, e1))
+            return res
+        return call
+
+    TL.analysis_columns = timed("K1", kept[0])
+    TL.synth_columns = timed("K2", kept[1])
+    rows = []
+    try:
+        for p in planes:
+            for v in events.values():
+                v.clear()
+            _ext.reset_launches()
+            t = time.perf_counter()
+            rt.step(p, *parts[p])  # ends in torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            rows.append(dict(
+                plane=p, s=dt,
+                launches={k: v for k, v in _ext.launches.items() if v},
+                **{f"{k}_ms": sum(a.elapsed_time(b) for a, b in v)
+                   for k, v in events.items()}))
+    finally:
+        TL.analysis_columns, TL.synth_columns = kept
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(rt.rays_packed).all()), "non-finite rays")
+    sums = rt._lens_map_sums(MAP_ORDER)
+    rank = 0 if mesh is None else mesh.rank
+    full = (rt.rays_packed if mesh is None else mesh.gather_to(
+        rt.rays_packed, np.diff(rt.ray_bounds), 0))
+    if rank == 0:
+        np.save(out_path, full.cpu().numpy())
+        sums = sums.cpu().numpy()[0]
+    del full
+    # one more plane with Profile set; on a mesh the collectives' host
+    # seconds, each between two device syncs, summed apart
+    spent = [0.0]
+    if mesh is not None:
+        for name in ("exchange", "reduce_scatter_blocks", "all_gather_cols"):
+            def synced(*a, _fn=getattr(mesh, name), **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = _fn(*a, **k)
+                torch.cuda.synchronize()
+                spent[0] += time.perf_counter() - t
+                return res
+            setattr(mesh, name, synced)
+    profile = None
+    if mesh is not None:
+        p = planes[-1] + 1
+        rt.cfg.Profile = True
+        rt.step(p, *rt.stage_particles(pos * (250.0 * p + 125.0), mass))
+        profile = (rt.timings[-1][1], dict(rt.phase_rows)[p], spent[0])
+    del rt, parts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rank=rank, rows=rows, peak=peak, resident=resident,
+                setup_s=setup_s, counts=sums if rank == 0 else None,
+                m_rows=None if mesh is None else mesh.block(12288),
+                profile=profile)
+
+
+def p16_headline_rank(mesh, planes, out_path):
+    """p16_probe, then the headline on this rank; a primitive that gloo
+    refuses on CUDA tensors fails the rank."""
+    probe = p16_probe(mesh)
+    if any(v != "ok" for v in probe.values()):
+        raise RuntimeError(f"gloo on CUDA tensors: {probe}")
+    res = p16_headline_run(mesh, mesh.device, planes, out_path)
+    res.update(calls=dict(mesh.calls), probe=probe)
+    return res
+
+
+def p16_kernel_rows(dev):
+    """K1-K4 on one block of m rows (their m0 argument, as each rank of a
+    mesh launches them) against the whole launch's rows at
+    P16_ROWS_ORDER: name -> (relative, absolute) error; K2 and K3 exact
+    (the same sums in the same order), K1 and K4 within K1_BOUND (their
+    atomic adds)."""
+    import torch
+    from calclens_tpu_torch.sht import legendre as TL
+
+    plan, _, streams, ana = band_limited_inputs(P16_ROWS_ORDER, dev, 16)
+    m0, m1 = plan.nm // 3, plan.nm // 3 + plan.nm // 4
+    mcut2 = plan.mcut(TL.SYNTH_TILE_J)
+    g3 = (plan.cth, plan.sth, plan.cot, plan.inv_sth)
+    rows = [x[m0:m1].contiguous() for x in streams]
+    logc = plan.logc[m0:m1].contiguous()
+    out = {}
+    full = TL.synth_cuda(streams, plan.cth, plan.ln_sth, plan.logc, mcut2)
+    part = TL.synth_cuda(rows, plan.cth, plan.ln_sth, logc, mcut2, m0)
+    out["legendre_synth"] = col_errs(part, full[m0:m1])
+    full = TL.synth_vpu_cuda(*streams[:2], *g3, True, mcut2)
+    part = TL.synth_vpu_cuda(*rows[:2], *g3, True, mcut2, m0=m0)
+    out["legendre_synth_vpu"] = col_errs(part, full[m0:m1])
+    ana_rows = (*(x[m0:m1].contiguous() for x in ana[:4]), plan.cth,
+                plan.ln_sth, logc, ana[7])
+    for name, fn in (("legendre_analysis", TL.analysis_cuda),
+                     ("legendre_analysis_dot", TL.analysis_dot_cuda)):
+        full = fn(*ana, plan.nl)
+        part = fn(*ana_rows, plan.nl, m0)
+        out[name] = pair_errs(part, tuple(x[m0:m1] for x in full))
+    del plan, streams, ana, full, part
+    torch.cuda.empty_cache()
+    return out, (m0, m1)
+
+
+def mesh_phase(dev, card, tmp):
+    """Phase 16 (see the module docstring); prints and checks; returns the
+    headline ranks' launches for the kernels line."""
+    import torch
+    from calclens_tpu_torch import maps as tmaps
+    from calclens_tpu_torch.parallel.launch import run_ranks
+
+    t_phase = time.perf_counter()
+    say(f"phase 16: torch.cuda.device_count() {torch.cuda.device_count()}; "
+        f"ranks share card 0 over gloo ({card})")
+    krows, (m0, m1) = p16_kernel_rows(dev)
+    say(f"phase 16: kernels on m rows [{m0}, {m1}) at order {P16_ROWS_ORDER} "
+        f"vs the whole launch's rows: " + ", ".join(
+            f"{k} rel {v[0]:.3e} abs {v[1]:.3e}" for k, v in krows.items()))
+    check(krows["legendre_synth"][1] == 0.0
+          and krows["legendre_synth_vpu"][1] == 0.0
+          and krows["legendre_analysis"][0] < K1_BOUND
+          and krows["legendre_analysis_dot"][0] < K1_BOUND,
+          f"kernels on a block of m rows: {krows}")
+    run = functools.partial(run_ranks, timeout=P16_TIMEOUT, threads=0)
+    rank_dev = f"cuda:{dev.index or 0}"
+
+    # NCCL at world size 1, in this process
+    import torch.distributed as dist
+    from calclens_tpu_torch.parallel.sharding import make_mesh
+
+    t0 = time.perf_counter()
+    try:
+        nc = p16_nccl(make_mesh("nccl", f"file://{tmp}/nccl", 0, 1,
+                                device=rank_dev))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    say(f"phase 16: NCCL world size 1: identities {nc['identities']}; "
+        f"sharded trace order 7/6 vs one-device per plane "
+        f"{', '.join(f'{e:.3e}' for e in nc['errs'])} (bound "
+        f"{TRACE_BOUND:g}); collectives {nc['calls']} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(all(nc["identities"].values()) and max(nc["errs"]) < TRACE_BOUND,
+          f"NCCL world size 1: {nc}")
+
+    # the headline on ranks sharing the card, against one rank
+    t0 = time.perf_counter()
+    ref = p16_headline_run(None, dev, P16_HEAD_PLANES, f"{tmp}/ref.npy")
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    heads = run(p16_headline_rank, P16_HEAD_RANKS, f"{tmp}/head",
+                device=rank_dev, args=(P16_HEAD_PLANES, f"{tmp}/mesh.npy"))
+    head_s = time.perf_counter() - t0
+    # gloo took every primitive on CUDA tensors (each rank probed them
+    # before its headline, and a refused one failed the rank)
+    probe = heads[0]["probe"]
+    say(f"phase 16: gloo on CUDA tensors, {P16_HEAD_RANKS} ranks on one "
+        f"card: " + "; ".join(f"{k} {v}" for k, v in probe.items()))
+    check(all(v == "ok" for h in heads for v in h["probe"].values()),
+          f"gloo on CUDA tensors: {[h['probe'] for h in heads]}")
+    a = torch.from_numpy(np.load(f"{tmp}/mesh.npy"))
+    b = torch.from_numpy(np.load(f"{tmp}/ref.npy"))
+    errs = {q: float((a[r0:r1] - b[r0:r1]).abs().max()
+                     / b[r0:r1].abs().max())
+            for q, (r0, r1) in (("A", (6, 10)), ("alpha", (14, 16)))}
+    del a, b
+    counts_equal = bool(np.array_equal(heads[0]["counts"], ref["counts"]))
+    peaks = [h["peak"] for h in heads]
+    for h in heads:
+        med = float(np.median([r["s"] for r in h["rows"][1:]]))
+        say(f"phase 16 headline, rank {h['rank']} of {P16_HEAD_RANKS} "
+            f"sharing one card ({card}), not a scaling result: m rows "
+            f"{h['m_rows']}, setup {h['setup_s']:.2f} s; planes "
+            + "; ".join(f"{r['plane']}: {r['s']:.4f} s, K1 {r['K1_ms']:.2f} "
+                        f"ms, K2 {r['K2_ms']:.2f} ms, launches "
+                        f"{r['launches']}" for r in h["rows"])
+            + f"; timed median {med:.4f} s/plane; peak "
+            f"{h['peak'] / 2**30:.2f} GiB ({h['resident'] / 2**30:.2f} "
+            f"resident); collectives {h['calls']}; Profile'd plane "
+            f"{h['profile'][0]:.4f} s: " + ", ".join(
+                f"{k} {h['profile'][1][k]:.4f}" for k in PROFILE_TAGS)
+            + f", collectives (synced) {h['profile'][2]:.4f} s")
+        for r in h["rows"]:
+            check(r["launches"] == {"legendre_analysis": 1,
+                                    "legendre_synth": 1},
+                  f"headline rank {h['rank']} plane {r['plane']}: launches "
+                  f"{r['launches']}")
+    rmed = float(np.median([r["s"] for r in ref["rows"][1:]]))
+    say(f"phase 16 headline, one rank on the card: planes "
+        + "; ".join(f"{r['plane']}: {r['s']:.4f} s, K1 {r['K1_ms']:.2f} ms, "
+                    f"K2 {r['K2_ms']:.2f} ms" for r in ref["rows"])
+        + f"; timed median {rmed:.4f} s/plane; peak "
+        f"{ref['peak'] / 2**30:.2f} GiB ({ref_s:.1f} s)")
+    say(f"phase 16 headline: {P16_HEAD_RANKS} ranks vs one rank after "
+        f"planes {P16_HEAD_PLANES}: A {errs['A']:.3e}, alpha "
+        f"{errs['alpha']:.3e} of each quantity's max (bound "
+        f"{MASS_MAP_RAY_BOUND:g}); order-{MAP_ORDER} lens map counts equal "
+        f"{counts_equal}; peaks sum {sum(peaks) / 2**30:.2f} GiB (under "
+        f"{DEVICE_MEMORY / 1e9:.0f} GB); ranks' call {head_s:.1f} s")
+    check(max(errs.values()) < MASS_MAP_RAY_BOUND and counts_equal
+          and sum(peaks) < DEVICE_MEMORY,
+          f"phase 16 headline: {errs}, counts equal {counts_equal}, peaks "
+          f"{peaks}")
+
+    # the small-order traces on 2 and 4 ranks against one rank on the card
+    zgrid = np.linspace(0.0, 3.0, 30001)
+    zs = np.interp(np.array([1.0, 2.0]) * 250.0,
+                   tmaps.comoving_distance_2f1(zgrid, 0.3), zgrid)
+    with open(f"{tmp}/zs.txt", "w") as fp:
+        fp.write("".join(f"{z:.10f}\n" for z in zs))
+    write_catalog(f"{tmp}/gals", P16_TRACE_GALS, 16, 100.0, 990.0)
+    t0 = time.perf_counter()
+    one = p16_trace_cases(None, dev, tmp)
+    say(f"phase 16 traces order 7/6, one rank: {time.perf_counter() - t0:.1f}"
+        f" s")
+    traces = {}
+    for n in P16_TRACE_RANKS:
+        t0 = time.perf_counter()
+        res = run(p16_trace_rank, n, f"{tmp}/trace{n}", device=rank_dev,
+                  args=(tmp,))
+        traces[n] = res
+        errs = {k: grouped_row_err(torch.from_numpy(res[0]["cases"][k][0]),
+                                   torch.from_numpy(v[0]))
+                for k, v in one.items()}
+        files = p16_compare_files(tmp, n)
+        say(f"phase 16 traces order 7/6 f32, {n} ranks vs one rank on the "
+            f"card, {P16_TRACE_PLANES} planes (run(): 4): " + ", ".join(
+                f"{k} {e:.3e}" for k, e in errs.items())
+            + f" (bound {TRACE_BOUND:g}); files: {files}; rank 0 launches "
+            + "; ".join(f"{k} {v[1]}" for k, v in res[0]["cases"].items())
+            + f"; collectives {res[0]['calls']} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        check(max(errs.values()) < TRACE_BOUND and files["ok"],
+              f"phase 16 traces on {n} ranks: {errs}, {files}")
+        for r in res:
+            c = r["cases"]
+            check(all(x == {"legendre_analysis": 1, "legendre_synth": 1}
+                       for x in c["NGP"][1])
+                  and all(x == {"legendre_analysis": 8, "legendre_synth": 1}
+                          for x in c["SPH"][1])
+                  and all(x == {"legendre_analysis": 1, "legendre_synth": 4}
+                          for x in c["4 blocks"][1])
+                  and all(x.get("legendre_analysis_dot") == 1
+                          and x.get("legendre_synth_vpu", 0) >= 1
+                          and x.get("legendre_chain_seed", 0) >= 1
+                          and "legendre_synth" not in x
+                          for x in c["(k3, k4)"][1]),
+                  f"phase 16 traces on {n} ranks: launches {c}")
+    say(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return dict(probe=probe, heads=heads, ref=ref,
+                traces={n: [r["cases"]["(k3, k4)"][1] for r in t]
+                        for n, t in traces.items()})
+
+
+def p16_compare_files(tmp, n):
+    """run()'s files of n ranks against one rank's: ray files (layout and
+    nest column equal, each other column within TRACE_BOUND of its max),
+    lens maps (ray counts equal), galaxy catalogs (imaged sources equal
+    but for GALS_SET_SLACK of them)."""
+    import os
+
+    from calclens_tpu_torch.gals import io as galsio
+    from calclens_tpu_torch.io import fits
+
+    a_dir, b_dir = f"{tmp}/1", f"{tmp}/{n}"
+    names = sorted(os.listdir(a_dir))
+    out = dict(ok=sorted(os.listdir(b_dir)) == names, rays=0.0, maps=0,
+               gals=0)
+    for name in names:
+        if not os.path.exists(f"{b_dir}/{name}"):
+            continue
+        if name.startswith("rays_"):
+            ha, hb = fits.read_fits(f"{a_dir}/{name}"), fits.read_fits(
+                f"{b_dir}/{name}")
+            ok = np.array_equal(ha[0][1], hb[0][1]) and np.array_equal(
+                ha[1][1]["nest"], hb[1][1]["nest"])
+            for col in ha[1][1].dtype.names:
+                if col != "nest":
+                    x = np.asarray(ha[1][1][col], np.float64)
+                    y = np.asarray(hb[1][1][col], np.float64)
+                    out["rays"] = max(out["rays"], float(
+                        np.abs(x - y).max() / np.abs(x).max()))
+            out["ok"] &= ok
+        elif name.startswith("Rays_"):
+            ok = np.array_equal(fits.read_fits(f"{a_dir}/{name}")[1][1][
+                "N_RAYS"], fits.read_fits(f"{b_dir}/{name}")[1][1]["N_RAYS"])
+            out["maps"] += 1
+            out["ok"] &= ok
+        elif name.startswith("gal_"):
+            sa = set(galsio.read_image_gals(f"{a_dir}/{name}")["index"])
+            sb = set(galsio.read_image_gals(f"{b_dir}/{name}")["index"])
+            diff = len(sa ^ sb)
+            out["gals"] += len(sa)
+            out["ok"] &= diff <= GALS_SET_SLACK * max(len(sa), 1) + 1
+    out["ok"] &= out["rays"] < TRACE_BOUND and out["maps"] == 2 and out[
+        "gals"] > 0
+    return out
 
 
 def main():
@@ -3235,7 +3742,13 @@ def main():
         stream_phase(dev, card)
         say(f"chip_smoke --phase 15: {time.perf_counter() - t_start:.1f} s")
         return
+    if sys.argv[1:] == ["--phase", "16"]:
+        with tempfile.TemporaryDirectory() as tmp:
+            mesh_phase(dev, card, tmp)
+        say(f"chip_smoke --phase 16: {time.perf_counter() - t_start:.1f} s")
+        return
 
+    t_phase = time.perf_counter()
     # 3. kernels vs twins at orders 8 and 10; times at order 10
     variants10 = None
     for order, reps in ((8, 1), (10, 5)):
@@ -3260,6 +3773,8 @@ def main():
         del plan, streams, ana
         torch.cuda.empty_cache()
 
+    say(f"phase 3: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     # 4. CUDA vs CPU trace, default and variant kernels with the default
     # synthesis ring stage, then the default kernels with "uniform"
     runs = [(*k, DEFAULT_SYNTHESIS_RINGS_MODE) for k in PATH_KERNELS]
@@ -3281,6 +3796,8 @@ def main():
         f"({time.perf_counter() - t0:.1f} s for both runs)")
     torch.cuda.empty_cache()
 
+    say(f"phase 4: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     # 5. headline shape through Raytracer.step, default then variant
     h = headline("k2", "k1", (2, 3, 4), snapshot_after=3,
                  maps_order=MAP_ORDER, profile_plane=5,
@@ -3302,6 +3819,8 @@ def main():
     del hv["snap"]  # h["snap"] starts phase 10's mass-map plane
     torch.cuda.empty_cache()
 
+    say(f"phase 5: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     # 6. the kernels at the headline shape
     plan, alm, streams, ana = band_limited_inputs(12, dev, 12)
     k1, k2 = compare_kernels(plan, streams, ana, reps=3)
@@ -3387,6 +3906,8 @@ def main():
     v10 = {k.split()[1]: v for k, v in variants10.items()}
     v12 = {k.split()[1]: v for k, v in rows12.items()}
 
+    say(f"phase 6: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     # 7. P1, the Legendre roofline probe; the kernels' shares of its
     # ceilings from the order-12 times above (not timed again)
     kernel_ms = {"legendre_analysis": k1[2], "legendre_synth": k2[2],
@@ -3397,16 +3918,22 @@ def main():
     del plan  # its ring tables (~6.5 GiB) must not count in phase 10's peaks
     torch.cuda.empty_cache()
 
+    say(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     # 8. P2-P4, the gather probes, beside torch's tab[idx]
     gathers = gather_phase(dev)
     torch.cuda.empty_cache()
 
+    say(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     # 9. the synthesis ring stages on K2's streams; the port's default mode
     # must be the fastest one here (within RING_DEFAULT_SLACK)
     rings = ring_stage_phase(dev)
     report_ring_stages(rings, DEFAULT_SYNTHESIS_RINGS_MODE)
     torch.cuda.empty_cache()
 
+    say(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     # 10. the deposit schemes and sky cuts at the headline shape: SPH (K1
     # eight times per plane), CIC in the octant box with its lens maps, and
     # one precomputed mass-map plane against the particle path
@@ -3441,6 +3968,8 @@ def main():
         f"written in {mm[4]:.2f} s")
     torch.cuda.empty_cache()
 
+    say(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     # 11. CUDA vs CPU traces of the new paths at SHTOrder 7 / rayOrder 6
     for label, kw, maps in (("SPH", dict(DepositScheme="SPH"), False),
                             ("CIC 40x40 box", dict(DepositScheme="CIC",
@@ -3452,6 +3981,8 @@ def main():
             f"{nrays} rays on both; vacuum-mask pixels differing {vac_diff}")
     torch.cuda.empty_cache()
 
+    say(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     # 12. the galaxy image search and the CMB mode
     t0 = time.perf_counter()
     gals = gals_cmb_phase()
@@ -3485,6 +4016,19 @@ def main():
     k3s = p15["counts"][K3_STREAM[0]]["k3"]
     torch.cuda.empty_cache()
 
+    # 16. the multi-device path on ranks that share the card
+    with tempfile.TemporaryDirectory() as tmp:
+        p16 = mesh_phase(dev, card, tmp)
+    torch.cuda.empty_cache()
+    sharded = {k: dict(ranks=P16_HEAD_RANKS,
+                       launches_per_rank_per_plane=[
+                           [r["launches"].get(k, 0) for r in h["rows"]]
+                           for h in p16["heads"]],
+                       ms_per_rank_per_plane=[
+                           [r[ms] for r in h["rows"]] for h in p16["heads"]])
+               for k, ms in (("legendre_analysis", "K1_ms"),
+                             ("legendre_synth", "K2_ms"))}
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, **extra):
         b = bounds[name]
         return dict(name=name, route="cuda",
@@ -3501,6 +4045,7 @@ def main():
         entry("legendre_analysis", "legendre_analysis.cu",
               "calclens_tpu/sht/pallas_legendre.py:251",
               h["counts"]["legendre_analysis"], k1[1], k1[2], k1[3],
+              sharded=sharded["legendre_analysis"],
               sph_launches=hs["counts"]["legendre_analysis"],
               gals_run_launches=gals_launches["legendre_analysis"],
               mg_launches=mg_launches["legendre_analysis"],
@@ -3510,6 +4055,7 @@ def main():
         entry("legendre_synth", "legendre_synth.cu",
               "calclens_tpu/sht/pallas_legendre_mx.py:124",
               h["counts"]["legendre_synth"], k2[1], k2[2], k2[3],
+              sharded=sharded["legendre_synth"],
               sph_launches=hs["counts"]["legendre_synth"],
               gals_run_launches=gals_launches["legendre_synth"],
               order13=dict(ms_per_plane=k13["k2_ms"], windows=k13["nblk"],
@@ -3527,6 +4073,7 @@ def main():
               hv["counts"]["legendre_synth_vpu"],
               v12["legendre_synth_vpu"][1], v12["legendre_synth_vpu"][2],
               v10["legendre_synth_vpu"][3], plain_order=10,
+              sharded_trace_launches={n: v for n, v in p16["traces"].items()},
               streamed=dict(order=K3_STREAM[0], blocks=K3_STREAM[1],
                             launches=k3s[K3_STREAM[1]]["launches"][
                                 "legendre_synth_vpu"],

@@ -5,8 +5,10 @@ helpers included), the io readers (FITS ring weights and pixel windows,
 pixLC and HDF5 lens planes) on files written by the JAX package's writers,
 the HDF5 plane writer, LGadget snapshots, the lightcone readers and the
 lens-plane maker, the point-mass and NFW plane writers and the SPH oracle
-(testing/), the precomputed mass maps (io/healpix_maps), utils/profile and
-bench.py's reference constants (benchconst).
+(testing/), the precomputed mass maps (io/healpix_maps), utils/profile,
+bench.py's reference constants (benchconst), and the host halves of the
+multi-device path (parallel/halo.required_halo, gals/gridsearch.ray_halo,
+parallel/sharding.pad_to_multiple).
 The copies run the same numpy code, so every result must be equal."""
 import dataclasses
 
@@ -503,3 +505,35 @@ def test_sph_oracle_copy_matches_jax():
     np.testing.assert_array_equal(tso.deposit_sph_exact(4, pos, mass, sl),
                                   jso.deposit_sph_exact(4, pos, mass, sl))
     assert tso.SMOOTHKERN_SHTRESOLVE_FAC == jso.SMOOTHKERN_SHTRESOLVE_FAC
+
+
+# the (rayOrder, map order, shards) list of tests/test_multichip.py's halo
+# bound, and halos wider than a block (8 shards at order 3)
+HALO_CASES = [(5, 5, 8), (6, 4, 8), (4, 6, 8), (7, 7, 8), (5, 7, 4),
+              (3, 3, 8), (10, 12, 2)]
+
+
+@pytest.mark.parametrize("ray_order,map_order,n", HALO_CASES)
+def test_halo_sizes_match_jax(ray_order, map_order, n):
+    import warnings
+
+    from calclens_tpu.gals import gridsearch as jgs
+    from calclens_tpu.parallel import halo as jhalo
+    from calclens_tpu.parallel import sharding as jsharding
+    from calclens_tpu_torch.gals import gridsearch as tgs
+    from calclens_tpu_torch.parallel import halo as thalo
+    from calclens_tpu_torch.parallel import sharding as tsharding
+
+    for drift in (0.0, 0.02):
+        with warnings.catch_warnings(record=True) as wj:
+            warnings.simplefilter("always")
+            ref = jhalo.required_halo(ray_order, map_order, n, drift)
+        with warnings.catch_warnings(record=True) as wt:
+            warnings.simplefilter("always")
+            got = thalo.required_halo(ray_order, map_order, n, drift)
+        assert got == ref
+        assert len(wt) == len(wj)
+    assert tgs.ray_halo(ray_order, n) == jgs.ray_halo(ray_order, n)
+    for k in (1, 7, 4096):
+        assert (tsharding.pad_to_multiple(ray_order * 1000 + 3, k)
+                == jsharding.pad_to_multiple(ray_order * 1000 + 3, k))

@@ -213,7 +213,8 @@ def test_import_port_leaves_jax_unloaded():
         "    importlib.import_module(mod.name)\n"
         "for mod in ('fftpot', 'io.lgadget', 'io.lightcone', 'io.lensplanes',\n"
         "            'lensplane_maker', 'testing.pointmass',\n"
-        "            'testing.sph_oracle'):\n"
+        "            'testing.sph_oracle', 'parallel.sharding',\n"
+        "            'parallel.halo', 'parallel.launch'):\n"
         "    assert 'calclens_tpu_torch.' + mod in sys.modules, mod\n"
         "assert 'h5py' not in sys.modules, 'h5py loaded at import'\n"
         "for script in ('chip_smoke.py', 'bench_torch.py'):\n"
