@@ -17,11 +17,18 @@ last-scattering surface (the CMB mode).
 
 On a mesh (Raytracer(..., mesh=Mesh), parallel/sharding.py) each rank
 holds a contiguous block of the ray columns and of each plane's particle
-rows, and runs the sharded SHT-only step (poisson.py); the lens maps,
-the ray files, the npz restarts and the galaxy images are reduced or
-gathered to rank 0, which writes the same files a one-device run writes.
-The multigrid step (SHTOnly 0) and THREEDPOT on a mesh are slice 14b of
-the port (ROADMAP.md) and raise NotImplementedError.
+rows.  The SHT-only step runs sharded (poisson.py: the map deposit
+reduce-scattered onto pixel blocks, the transforms on the rank's m rows).
+The multigrid step (SHTOnly 0) adds the sharded patch solve, as the JAX
+driver's plane_step_mg with spec=plan.spec (calclens_tpu/mgdriver.py
+mg_refine): the patch deposit reduce-scattered onto the rank's block of
+patches, its BC fill and FAS cycles there, the solved patches gathered
+whole for the rank's rays.  THREEDPOT builds each grid from the ranks'
+shares of the snapshot by a slab-decomposed solve (fftpot.ThreeDPotDriver,
+parallel/slabfft.py) and holds it whole on every rank, as the JAX driver
+does, for the rank's rays.  The lens maps, the ray files, the npz restarts
+and the galaxy images are reduced or gathered to rank 0, which writes the
+same files a one-device run writes.
 """
 
 from __future__ import annotations
@@ -138,10 +145,6 @@ class Raytracer:
                  mesh=None):
         self.cfg = cfg
         self.mesh = mesh
-        if mesh is not None and (not cfg.SHTOnly or cfg.ThreeDPot):
-            raise NotImplementedError(
-                "the multigrid step (SHTOnly 0) and THREEDPOT on a mesh are "
-                "slice 14b of the port (ROADMAP.md), not ported yet")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Raytracer on CUDA, but torch sees no GPU")
@@ -509,7 +512,7 @@ class Raytracer:
                     self.plan, self.tab, self._mg_setup(), self.rays_packed,
                     pos_d, mass_d, cfg.DepositScheme, cfg.BornApprx, scal,
                     self.vacmask, float(cfg.MGConvFact), self.sph,
-                    self._ray_nest_dev(), **kw)
+                    self._ray_nest_dev(), col0=self._col0(), **kw)
                 self.mg_cycles[plane_num] = cycles
             elif npart:
                 pos_d, mass_d = self._pad_particles(pos, mass)
@@ -539,24 +542,34 @@ class Raytracer:
 
     def _threedpot(self):
         """The THREEDPOT snapshot driver (fftpot.ThreeDPotDriver), made at
-        the first plane on the rays' device."""
+        the first plane on the rays' device (and mesh)."""
         if self.threedpot is None:
             from .fftpot import ThreeDPotDriver
 
             self.threedpot = ThreeDPotDriver(self.cfg, self.cosmo,
-                                             self.device)
+                                             self.device, self.mesh)
         return self.threedpot
 
     def _ray_nest_dev(self):
-        """_ray_nest on the rays' device (None for full-sky rays in RING
-        order), uploaded once per array: the multigrid step reads each ray
-        chunk's cells from it without a host -> device copy."""
+        """_ray_nest of this rank's columns on the rays' device (None for
+        full-sky rays in RING order), uploaded once per array: the
+        multigrid step reads each ray chunk's cells from it without a host
+        -> device copy."""
         if self._ray_nest is None:
             return None
         if self._nest_dev[0] is not self._ray_nest:
+            nest = self._ray_nest
+            if self.mesh is not None:
+                nest = nest[self._col0():
+                            int(self.ray_bounds[self.mesh.rank + 1])]
             self._nest_dev = (self._ray_nest, torch.as_tensor(
-                np.asarray(self._ray_nest, np.int64), device=self.device))
+                np.asarray(nest, np.int64), device=self.device))
         return self._nest_dev[1]
+
+    def _col0(self):
+        """The global index of this rank's first ray column (0 on one
+        device)."""
+        return 0 if self.mesh is None else int(self.ray_bounds[self.mesh.rank])
 
     def _mg_setup(self):
         """The patch tables of the non-SHTONLY step, built at the first

@@ -200,6 +200,28 @@ def solve_potential(rho, nfft: int, L, a, mp, scalar_dtype=torch.float32):
     return torch.fft.irfftn(spec, s=(nfft, nfft, nfft))
 
 
+def potential_from_counts_slab(counts_slab, nfft: int, L, a, mp, mesh):
+    """Slab-decomposed variant (reference DD-4, fftw3-mpi slab
+    decomposition; parallel/slabfft.py): counts_slab is this rank's x-slab
+    [nfft / n, nfft, nfft] of the counts (the JAX function takes the whole
+    grid and constrains it to x-slabs), and the result is the same x rows
+    of the float32 potential.  The kernel is _poisson_kern's at the same
+    potfact and wave vectors (fftfreq times kscale), in float32, and the
+    whole solve runs in complex64, as the JAX package's slab solve."""
+    from .parallel import slabfft
+
+    dL = L / nfft
+    potfact = FOUR_PI_G / a * mp / (dL * dL * dL)
+    kscale = 2.0 * math.pi / (nfft * dL)
+
+    def kern_fn(fx, fy, fz):
+        return _poisson_kern(fx * kscale, fy * kscale, fz * kscale, dL,
+                             potfact)
+
+    return slabfft.poisson_slab(counts_slab.to(torch.float32), nfft, kern_fn,
+                                mesh).to(torch.float32)
+
+
 def compute_potential_grid(pos, L, nfft, a, omega_m, n_total):
     """Snapshot particles (numpy or a tensor) -> float32 potential grid; mp
     from the mean density (fftpoissonsolve.c:61).  The deposit runs on
@@ -393,18 +415,30 @@ class ThreeDPotDriver:
     """Per-plane driver with snapshot/grid caching
     (threedpot_poissondriver, fftpoissondriver.c:45-150), on a device: the
     potential grid of the last (snapshot, nfft) and its periodic padding
-    stay there until another snapshot or size is asked for."""
+    stay there until another snapshot or size is asked for.
 
-    def __init__(self, cfg, cosmo, device):
+    On a mesh (parallel/sharding.Mesh) each rank reads and deposits a
+    disjoint share of the snapshot's particles (file f on rank f mod n; with
+    fewer files than ranks, its block of each file's rows) into a whole
+    partial grid of counts, so the periodic wrap needs no care at the slab
+    edges; one reduce-scatter sums them onto the ranks' x-slabs, the slab
+    solve (potential_from_counts_slab) gives each rank its x rows of the
+    potential, and one all-gather makes the grid whole on every rank, as
+    the JAX driver holds it, for the rank's ray columns."""
+
+    def __init__(self, cfg, cosmo, device, mesh=None):
         self.cfg = cfg
         self.cosmo = cosmo
         self.device = torch.device(device)
+        self.mesh = mesh
         self.length_conv = (cfg.LengthConvFact if cfg.LengthConvFact > 0
                             else 1.0)
         self.snaps = read_snap_list(cfg.ThreeDPotSnapList, cosmo,
                                     self.length_conv)
         self._cached = None  # (snap index, nfft, grid, L, padded grid)
         self.builds = 0
+        # the particles this rank deposited for the last grid built
+        self.rows_deposited = 0
 
     def _upload(self, pos):
         """Host float32 positions -> float32 on the device, scaled by
@@ -418,7 +452,9 @@ class ThreeDPotDriver:
         """(grid, L, padded grid) of the snapshot nearest plane_rad, built on
         first use: each file's float32 positions read (PARTIO), uploaded
         (UPLOAD) and deposited (DEPOSIT), then the solve and the padding
-        (FFTSOLVE)."""
+        (FFTSOLVE).  On a mesh: this rank's share of the particles, the
+        deposits' reduce-scatter (DEPOSIT), the slab solve and the grid's
+        all-gather (FFTSOLVE)."""
         from .io import lgadget
 
         i = nearest_snap(self.snaps, plane_rad)
@@ -430,21 +466,49 @@ class ThreeDPotDriver:
         self._cached = None  # the old grids go before the new ones come
         counts = torch.zeros((nfft, nfft, nfft), dtype=torch.float32,
                              device=self.device)
-        for fn in snapshot_files(s["fname"]):
-            pos, _ = phase("PARTIO", lgadget.read_positions_f32, fn)
+        self.rows_deposited = 0
+        for fn, rows in self._my_files(s["fname"]):
+            pos, _ = phase("PARTIO", lgadget.read_positions_f32, fn, rows)
             pos_d = phase("UPLOAD", self._upload, pos)
+            self.rows_deposited += len(pos)
             del pos
             phase("DEPOSIT", cic_deposit_3d, pos_d, nfft,
                   np.float32(s["L"]), counts)
             del pos_d
         mp = RHO_CRIT * self.cfg.OmegaM * s["L"] ** 3 / s["npart_total"]
-        grid = phase("FFTSOLVE", potential_from_counts, counts, nfft,
-                     s["L"], s["a"], mp)
-        del counts
+        if self.mesh is None:
+            grid = phase("FFTSOLVE", potential_from_counts, counts, nfft,
+                         s["L"], s["a"], mp)
+            del counts
+        else:
+            counts = phase("DEPOSIT", self.mesh.reduce_scatter_rows, counts)
+            slab = phase("FFTSOLVE", potential_from_counts_slab, counts,
+                         nfft, s["L"], s["a"], mp, self.mesh)
+            del counts
+            grid = phase("FFTSOLVE", self.mesh.all_gather_rows, slab,
+                         self.mesh.blocks(nfft))
+            del slab
         padded = phase("FFTSOLVE", pad_periodic, grid)
         self._cached = (i, nfft, grid, s["L"], padded)
         self.builds += 1
         return self._cached[2:]
+
+    def _my_files(self, fname):
+        """[(file, rows)] this rank reads of the snapshot `fname`: every
+        file whole on one device; on a mesh of n ranks file f on rank
+        f mod n, or, with fewer files than ranks, the rank's block of each
+        file's rows ((a, b), Mesh.block of the file's count)."""
+        from .io import lgadget
+
+        files = snapshot_files(fname)
+        mesh = self.mesh
+        if mesh is None:
+            return [(fn, None) for fn in files]
+        if len(files) >= mesh.size:
+            return [(fn, None) for f, fn in enumerate(files)
+                    if f % mesh.size == mesh.rank]
+        return [(fn, mesh.block(lgadget.read_header(fn)["npart"]))
+                for fn in files]
 
     def nint(self, L, nfft, binL):
         """Samples per ray chord: two per grid cell, at least 4."""

@@ -68,15 +68,18 @@ def write_snapshot(filename, pos, mass1_1e10=1.0, time=1.0, boxsize=1000.0,
         fp.write(struct.pack("<i", blen))
 
 
-def read_positions_f32(filename):
+def read_positions_f32(filename, rows=None):
     """(pos [N,3] float32 as stored, header dict): the THREEDPOT deposit
-    takes the file's float32 positions without a float64 host copy."""
+    takes the file's float32 positions without a float64 host copy.  rows
+    (a, b) reads the particles a..b of the file alone."""
     hd = read_header(filename)
     with open(filename, "rb") as fp:
         n1 = struct.unpack("<i", fp.read(4))[0]
         fp.seek(n1 + 4, 1)
         blen = struct.unpack("<i", fp.read(4))[0]
-        pos = np.fromfile(fp, dtype="<f4", count=blen // 4).reshape(-1, 3)
+        a, b = rows if rows is not None else (0, blen // 12)
+        fp.seek(12 * a, 1)
+        pos = np.fromfile(fp, dtype="<f4", count=3 * (b - a)).reshape(-1, 3)
     return pos, hd
 
 

@@ -273,13 +273,17 @@ def _truncation_norm(u, rhs, levels):
 
 
 def solve_fas_adaptive(u0, rhs, levels: tuple, conv_fact,
-                       max_cycles: int = 20, npre: int = 2, npost: int = 2):
+                       max_cycles: int = 20, npre: int = 2, npost: int = 2,
+                       agree=None):
     """FAS solve with the reference's truncation-error-relative stopping
     rule (MGConvFact, mgpoissonsolve_utils.c:44-192): V-cycle until every
     patch's residual L1 norm is below conv_fact times its truncation-error
     estimate, capped at max_cycles.  A single-level hierarchy cycles
     max_cycles times.  Returns (u, cycles taken); the test runs on the
-    host before each cycle."""
+    host before each cycle.  agree(flag) turns this batch's flag (a bool
+    tensor) into the host decision: on a mesh, Mesh.all_true, so the test
+    covers every rank's patches, as JAX's jnp.all covers every patch, and
+    every rank takes the one-device count of cycles."""
     if len(levels) < 2:
         return solve_fas(u0, rhs, levels, max_cycles, npre, npost), max_cycles
     lev = levels[0]
@@ -290,7 +294,8 @@ def solve_fas_adaptive(u0, rhs, levels: tuple, conv_fact,
         taun = _truncation_norm(u, rhs, levels)
         res = torch.sum(torch.abs((rhs - lop(u, lev)) * mask), dim=(-2, -1))
         # patches with zero source (tau ~ 0) are converged by definition
-        if bool(torch.all(res <= conv_fact * torch.clamp(taun, min=1e-300))):
+        done = torch.all(res <= conv_fact * torch.clamp(taun, min=1e-300))
+        if agree(done) if agree is not None else bool(done):
             break
         _vcycle_(u, rhs, levels, 0, npre, npost)
         k += 1

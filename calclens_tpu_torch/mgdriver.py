@@ -1,6 +1,6 @@
 """Multigrid refinement driver (reference mgpoissonsolve.c:59-297).
 
-Port of calclens_tpu/mgdriver.py on one device.  Non-SHTONLY mode: the
+Port of calclens_tpu/mgdriver.py.  Non-SHTONLY mode: the
 spherical-harmonic solve supplies only the long-range potential map; each
 bundle cell then gets a tangent-patch FAS solve (mg.py) whose Dirichlet
 boundary values and initial guess are interpolated from that map, and the
@@ -21,9 +21,15 @@ chunks of cells, and the ray side evaluates the finite-difference stencils
 at each ray's four taps, in chunks of rays, instead of building six whole
 derivative fields.  With i0, j0 clipped to [1, N-3] every stencil stays
 inside the patch, so this is the same function as the JAX package's rolled
-whole-field stencils, with the same per-tap operation order.  The sharded
-deposit (_deposit_patches_sharded) and the patch-axis constraint
-(_cst_patch) are not ported: they go with the multi-GPU slice.
+whole-field stencils, with the same per-tap operation order.
+
+On a mesh (mg_refine's mesh, parallel/sharding.py) the patch batch is
+sharded in contiguous blocks of patches, the JAX _cst_patch layout: each
+rank deposits its particle rows into a whole [C, N, N] partial grid, one
+reduce-scatter sums it onto the ranks' patch blocks
+(_deposit_patches_sharded), the BC fill and every FAS cycle run on the
+rank's patches (the MGConvFact test agreed over the ranks), and one
+all-gather of the solved patches feeds the rank's rays.
 """
 
 from __future__ import annotations
@@ -251,8 +257,17 @@ def deposit_patches_sph(setup: MGSetup, pos, mass, sl, densfact, backdens,
     sigma buckets (linearly in ln sigma), each bucket's CIC mass grid is
     convolved with the bucket's normalized Epanechnikov stamp ("same"
     padding: the JAX package's conv_general_dilated; _conv_same), and the
-    buckets are summed.  The buckets run one after another, so one
-    [C, N, N] temporary lives at a time beside the sum."""
+    buckets are summed (_sph_patch_mass), then scaled to the kappa source
+    term."""
+    return _scale_patch_density(
+        setup, _sph_patch_mass(setup, pos, mass, sl, sigmas), densfact,
+        backdens)
+
+
+def _sph_patch_mass(setup: MGSetup, pos, mass, sl, sigmas):
+    """The smoothed mass grid [C, N, N] of deposit_patches_sph, unscaled.
+    The buckets run one after another, so one [C, N, N] temporary lives at
+    a time beside the sum."""
     lev = setup.levels[0]
     B = len(sigmas)
     logsig = torch.log(setup.dev(("sigmas", tuple(sigmas)), sl.dtype,
@@ -274,7 +289,28 @@ def deposit_patches_sph(setup: MGSetup, pos, mass, sl, densfact, backdens,
         del gb
         grid = conv if grid is None else grid.add_(conv)
         del conv
-    return _scale_patch_density(setup, grid, densfact, backdens)
+    return grid
+
+
+def _deposit_patches_sharded(setup: MGSetup, mesh, pos, mass, densfact,
+                             backdens, sl=None, sigmas=None):
+    """The patch deposit on a mesh: pos, mass (and sl) are this rank's
+    particle rows, deposited into a whole [C, N, N] partial mass grid; one
+    reduce-scatter sums the ranks' grids onto this rank's block of patches
+    (mesh.blocks(C): uneven blocks need no C % n == 0), which is scaled
+    there.  This is the reference's particle exchange (mgpoissonsolve.c:
+    59-123) as one collective.  SPH: each rank convolves its own bucket
+    grids with the stamps (the convolution is linear and per patch) and
+    the smoothed grid is reduce-scattered once; the JAX package
+    reduce-scatters each bucket's grid and convolves on the shard: the same
+    sums up to rounding, one reduce-scatter instead of one per bucket."""
+    if sl is None:
+        grid = _cic_patch_mass(setup, pos, mass)
+    else:
+        grid = _sph_patch_mass(setup, pos, mass, sl, sigmas)
+    rho = mesh.reduce_scatter_rows(grid)
+    del grid
+    return _scale_patch_density(setup, rho, densfact, backdens)
 
 
 def _patch_centers_soa(setup: MGSetup, li: int, cells, dtype, device):
@@ -301,17 +337,19 @@ def _patch_centers_soa(setup: MGSetup, li: int, cells, dtype, device):
     return comp(0), comp(1), comp(2)
 
 
-def fill_u_from_map(setup: MGSetup, tab, potmap):
+def fill_u_from_map(setup: MGSetup, tab, potmap, c0=0, c1=None):
     """Initial guess + Dirichlet BCs: interpolate the SHT potential map
-    (RING) at every patch cell center (fill_u_mggrid / fill_bcs_mggrid),
-    in chunks of cells.  Returns [C, N, N] in potmap's dtype."""
+    (RING, whole) at every patch cell center (fill_u_mggrid /
+    fill_bcs_mggrid) of the patches c0..c1 (all by default), in chunks of
+    cells.  Returns [c1 - c0, N, N] in potmap's dtype."""
     lev = setup.levels[0]
     N = lev.N
     dt, dev = potmap.dtype, potmap.device
-    u = torch.empty((setup.C, N, N), dtype=dt, device=dev)
+    c1 = setup.C if c1 is None else c1
+    u = torch.empty((c1 - c0, N, N), dtype=dt, device=dev)
     step = max(1, FILL_CHUNK_ELEMS // (N * N))
-    for a in range(0, setup.C, step):
-        cells = slice(a, min(setup.C, a + step))
+    for a in range(c0, c1, step):
+        cells = slice(a, min(c1, a + step))
         vx, vy, vz = _patch_centers_soa(setup, 0, cells, dt, dev)
         theta = torch.arccos(torch.clamp(vz, -1.0, 1.0))
         phi = torch.atan2(vy, vx)
@@ -322,19 +360,23 @@ def fill_u_from_map(setup: MGSetup, tab, potmap):
         acc = potmap[pix4[0]] * wgt4[0]
         for k in range(1, 4):
             acc += potmap[pix4[k]] * wgt4[k]
-        u[cells] = acc
+        u[a - c0: cells.stop - c0] = acc
         del pix4, wgt4, acc
     return u
 
 
-def solve_patches(setup: MGSetup, u0, rho, conv_fact=-1.0, max_cycles=20):
+def solve_patches(setup: MGSetup, u0, rho, conv_fact=-1.0, max_cycles=20,
+                  mesh=None):
     """Batched patch solve; conv_fact > 0 enables the reference's
     truncation-error-relative stopping rule (MGConvFact, README.md:215-221,
-    default 0.1), else a fixed 10-cycle solve.  Returns (u, cycles)."""
+    default 0.1), else a fixed 10-cycle solve.  On a mesh u0 and rho are
+    the rank's patches and the stopping test covers every rank's.  Returns
+    (u, cycles)."""
     if conv_fact <= 0:
         return mg.solve_fas(u0, rho, setup.levels, 10, 2, 2), 10
-    return mg.solve_fas_adaptive(u0, rho, setup.levels, conv_fact,
-                                 max_cycles, 2, 2)
+    return mg.solve_fas_adaptive(
+        u0, rho, setup.levels, conv_fact, max_cycles, 2, 2,
+        agree=None if mesh is None else mesh.all_true)
 
 
 def _tangent_basis_soa(n0, n1, n2):
@@ -445,22 +487,24 @@ def interp_derivs_to_rays(setup: MGSetup, u, ray_vec, cell):
     return pot * okf, g0, g1, h00, h01, h10, h11
 
 
-def ray_cells(ray_nest, a, b, ray_order, bundle_order, device):
+def ray_cells(ray_nest, a, b, ray_order, bundle_order, device, col0=0):
     """NEST bundle cell of the rays a..b: full-sky rays (ray_nest None) sit
-    at RING pixel = storage index, whose NEST index is taken on the device;
-    otherwise ray_nest (a tensor on the device) holds each ray's NEST
-    pixel."""
+    at RING pixel = col0 + storage index (col0: the first column a rank
+    holds on a mesh), whose NEST index is taken on the device; otherwise
+    ray_nest (a tensor on the device, the rays' own rows) holds each ray's
+    NEST pixel."""
     shift = 2 * (ray_order - bundle_order)
     if ray_nest is None:
         nest = torchhp.ring2nest_dev(
-            torch.arange(a, b, dtype=torch.int32, device=device), ray_order)
+            torch.arange(col0 + a, col0 + b, dtype=torch.int32,
+                         device=device), ray_order)
         return nest.long() >> shift
     return ray_nest[a:b] >> shift
 
 
 def mg_refine(setup: MGSetup, tab, rows, ray_nest, ray_order, potmap, pos,
               mass, densfact, backdens, conv_fact=-1.0, sl=None,
-              phase=None):
+              phase=None, mesh=None, col0=0):
     """Full refinement: deposit, BC fill, batched FAS solve, and the rays'
     fields.  Returns (field(a, b), cycles): field(a, b) gives the rays
     a..b's (pot, g0, g1, h00, h01, h10, h11) from the solved patches, the
@@ -468,24 +512,45 @@ def mg_refine(setup: MGSetup, tab, rows, ray_nest, ray_order, potmap, pos,
     -grad to alpha and hess to U.  rows(a, b) returns their packed
     position rows [3, b - a].
 
-    potmap: RING-ordered SHT potential map (long range / boundary data).
-    sl (per-particle angular smoothing lengths) switches the patch deposit
-    to the spline kernel; conv_fact > 0 enables MGConvFact stopping.
-    phase(tag, fn, *args) wraps each part (MGDEPOSIT, MGBC, MGSOLVE)."""
+    potmap: RING-ordered SHT potential map (long range / boundary data),
+    whole.  sl (per-particle angular smoothing lengths) switches the patch
+    deposit to the spline kernel; conv_fact > 0 enables MGConvFact
+    stopping.  phase(tag, fn, *args) wraps each part (MGDEPOSIT, MGBC,
+    MGSOLVE).
+
+    mesh (a parallel.sharding.Mesh) shards the patch batch over the ranks:
+    pos, mass and sl are this rank's particle rows, the deposit
+    reduce-scatters into this rank's block of patches (mesh.blocks(C)),
+    the BC fill and every FAS cycle run on that block (the MGConvFact test
+    agreed over the ranks each cycle), and only the solved [C, N, N]
+    potential is all-gathered for the rays (the JAX _cst_patch with
+    replicate=True).  The long-range potmap stays whole on every rank: in
+    non-SHTONLY mode the SHT order is low (MG supplies the small scales),
+    so the map is small by design (poissondrivers.c:64-75).  The rays a..b
+    are this rank's columns: ray_nest holds their own NEST pixels, or,
+    for full-sky rays, col0 is the global index of the rank's first
+    column (Raytracer.ray_bounds)."""
     phase = phase or (lambda tag, fn, *args: fn(*args))
-    if sl is not None:
+    c0, c1 = (0, setup.C) if mesh is None else mesh.block(setup.C)
+    if mesh is not None:
+        rho = phase("MGDEPOSIT", _deposit_patches_sharded, setup, mesh, pos,
+                    mass, densfact, backdens, sl, setup.sph_sigmas)
+    elif sl is not None:
         rho = phase("MGDEPOSIT", deposit_patches_sph, setup, pos, mass, sl,
                     densfact, backdens, setup.sph_sigmas)
     else:
         rho = phase("MGDEPOSIT", deposit_patches, setup, pos, mass,
                     densfact, backdens)
-    u0 = phase("MGBC", fill_u_from_map, setup, tab, potmap)
-    u, cycles = phase("MGSOLVE", solve_patches, setup, u0, rho, conv_fact)
+    u0 = phase("MGBC", fill_u_from_map, setup, tab, potmap, c0, c1)
+    u, cycles = phase("MGSOLVE", solve_patches, setup, u0, rho, conv_fact,
+                      20, mesh)
     del rho, u0
+    if mesh is not None:
+        u = phase("MGSOLVE", mesh.all_gather_rows, u, mesh.blocks(setup.C))
 
     def field(a, b):
         cell = ray_cells(ray_nest, a, b, ray_order, setup.bundle_order,
-                         u.device)
+                         u.device, col0)
         return interp_derivs_to_rays(setup, u, rows(a, b), cell)
 
     return field, cycles

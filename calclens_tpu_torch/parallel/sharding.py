@@ -17,9 +17,19 @@ crosses ranks:
     _cst_blocks1), the layout the deposit's reduce-scatter gives and the
     halo-exchange interpolation reads: blocks(npix).
 
+  * patches and 3D grids: contiguous blocks of the leading axis, the
+    multigrid patches [C, N, N] (JAX _cst_patch) and the x-slabs of the
+    THREEDPOT grid (JAX slabfft's P(AXIS, None, None)): blocks(C),
+    blocks(nfft).
+
 Collectives (each rank calls each one in the same order):
   * reduce_scatter_blocks: the deposit's global sum onto pixel blocks
     (calclens_tpu/poisson.py _cst_blocks, the JAX psum_scatter);
+  * reduce_scatter_rows, all_gather_rows: the same on the leading axis
+    (the patch deposit's psum_scatter and the solved patches' all-gather,
+    calclens_tpu/mgdriver.py; the THREEDPOT grid's slabs);
+  * all_true: a flag that holds on every rank (the MGConvFact stop test,
+    jnp.all over every patch in JAX);
   * rings_to_m / m_to_rings: the ring <-> m transposes of the analysis and
     the synthesis (calclens_tpu/sht/transforms.py _cst_rings2);
   * repartition: one contiguous partition of an axis to another, with
@@ -180,6 +190,50 @@ class Mesh:
         self._reduce_scatter(_real(out).reshape(-1), _flat(inp))
         a, b = self.block(T)
         return out[..., : b - a]
+
+    def reduce_scatter_rows(self, x):
+        """x [T, ...] (each rank's full partial sums) -> [b - a, ...] the
+        sums over ranks of this rank's block (blocks(T)) of the leading
+        axis: one reduce-scatter of x as it lies (its blocks are
+        contiguous; a copy only to pad T to n equal blocks)."""
+        self._count("reduce_scatter")
+        n = self.size
+        T = x.shape[0]
+        B = -(-T // n)
+        if n * B > T:
+            x = torch.cat([x, x.new_zeros((n * B - T,) + x.shape[1:])])
+        out = torch.empty((B,) + x.shape[1:], dtype=x.dtype, device=x.device)
+        self._reduce_scatter(_real(out).reshape(-1), _flat(x))
+        a, b = self.block(T)
+        return out[: b - a]
+
+    def all_gather_rows(self, x, bounds):
+        """x [b - a, ...] (this rank's block of the leading axis under
+        `bounds`) -> [T, ...] the whole axis on every rank: one all-gather
+        of blocks padded to the longest (the result itself when the blocks
+        are equal)."""
+        self._count("all_gather")
+        n = self.size
+        sizes = np.diff(bounds)
+        w = int(sizes.max())
+        if x.shape[0] < w:
+            x = torch.cat([x, x.new_zeros((w - x.shape[0],) + x.shape[1:])])
+        out = torch.empty((n * w,) + x.shape[1:], dtype=x.dtype,
+                          device=x.device)
+        self._all_gather(_real(out).reshape(-1), _flat(x))
+        if np.all(sizes == w):
+            return out
+        return torch.cat([out[d * w: d * w + int(sizes[d])]
+                          for d in range(n)])
+
+    def all_true(self, flag):
+        """flag: a bool tensor (one element) on this rank -> True when it
+        holds on every rank (one all-gather of one float; the host waits
+        for it)."""
+        self._count("all_gather")
+        out = torch.empty(self.size, dtype=torch.float32, device=flag.device)
+        self._all_gather(out, flag.reshape(1).to(torch.float32))
+        return bool(torch.all(out > 0))
 
     def repartition(self, x, src, dst):
         """x [..., src[r + 1] - src[r]]: this rank's part of an axis under

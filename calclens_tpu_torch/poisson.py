@@ -19,6 +19,9 @@ are summed onto the ranks' pixel blocks by one reduce-scatter and scaled
 there, the transforms run sharded (sht/transforms.py), and each rank's rays
 read the field maps through a halo exchange (parallel/halo.py) when the
 rays are the full sky's in RING order, else from the maps gathered whole.
+plane_step_mg on a mesh runs the same sharded deposit and transforms, the
+potential map gathered whole on every rank, then the sharded multigrid
+refinement (mgdriver.mg_refine's mesh) for the rank's ray columns.
 """
 
 from __future__ import annotations
@@ -260,10 +263,20 @@ def plane_step_density_packed(plan: SHTPlan, tab, packed, density,
     return packed, (FieldMaps(*maps[:6].unbind(0)) if with_maps else None)
 
 
+def potential_map(plan: SHTPlan, alm):
+    """alm -> the whole RING potential map (alm2map: K2's 4-column form);
+    on a mesh the rank's alm columns -> its pixel block, gathered whole on
+    every rank (the JAX package keeps the map replicated)."""
+    potmap = T.alm2map(plan, alm)
+    if plan.mesh is None:
+        return potmap
+    return plan.mesh.all_gather_cols(potmap, plan.pix_bounds)
+
+
 def plane_step_mg(plan: SHTPlan, tab, mgsetup, packed, pos, mass,
                   scheme: str, born: bool, scal: PlaneScalars, vacmask=None,
                   conv_fact: float = -1.0, sph=None, ray_nest=None,
-                  phase=_call):
+                  phase=_call, col0=0):
     """Non-SHTONLY plane step (reference poissondrivers.c:14-80 +
     mgpoissonsolve.c): the SHT solve gives the long-range potential MAP
     only (the NGP map deposit, CIC under scheme "CIC"; map2alm, the
@@ -279,14 +292,20 @@ def plane_step_mg(plan: SHTPlan, tab, mgsetup, packed, pos, mass,
     (MGINTERP), propagated (RAYPROP) and written into a new buffer, so the
     input is left as it was.  Each part is made as phase(tag, fn, *args):
     DEPOSIT, SHTSOLVE, SHT, MGDEPOSIT, MGBC, MGSOLVE, then MGINTERP and
-    RAYPROP per chunk.  Returns (packed', V-cycles of the patch solve)."""
+    RAYPROP per chunk.  Returns (packed', V-cycles of the patch solve).
+
+    On a mesh (plan.mesh): packed, pos and mass are this rank's columns and
+    rows, ray_nest the NEST pixels of its columns (or col0 its first
+    column, for full-sky rays); the map deposit reduce-scatters, the
+    transforms run on the rank's m rows, the potential map is gathered
+    whole (SHT) and the patch solve is sharded (mgdriver.mg_refine)."""
     from . import mgdriver
 
     density = phase("DEPOSIT", phase_deposit, plan, tab, pos, mass,
                     "CIC" if scheme == "CIC" else "NGP", scal, vacmask)
     alm = phase("SHTSOLVE", phase_analysis, plan, density)
     del density
-    potmap = phase("SHT", T.alm2map, plan, alm)
+    potmap = phase("SHT", potential_map, plan, alm)
     del alm
     sl = None
     if scheme == "SPH" and sph is not None:
@@ -294,7 +313,7 @@ def plane_step_mg(plan: SHTPlan, tab, mgsetup, packed, pos, mass,
     field, cycles = mgdriver.mg_refine(
         mgsetup, tab, lambda a, b: packed[0:3, a:b], ray_nest,
         mgsetup.ray_order, potmap, pos, mass, scal.densfact, scal.backdens,
-        conv_fact=conv_fact, sl=sl, phase=phase)
+        conv_fact=conv_fact, sl=sl, phase=phase, mesh=plan.mesh, col0=col0)
     del potmap
 
     def interp(a, b):

@@ -20,7 +20,7 @@ of which must pass:
      K3's seed pre-pass against the twin's chain, bit for bit, with its
      share of its bound; all timed at order 10;
   4. CUDA vs CPU trace: the port's Raytracer at SHTOrder 7 / rayOrder 6,
-     float32, three planes of seeded particles at pixel centres, once on
+     float32, two planes of seeded particles at pixel centres, once on
      the CPU (twins) and once on the card (kernels); the packed ray buffers
      must agree within 5e-4 of each quantity's max |value| after every
      plane.  Run with the default kernels (K2, K1) and with the variant (K3
@@ -33,7 +33,7 @@ of which must pass:
      with the CPU's within the same bound (ray counts exact);
   5. headline: SHTOrder 12 (NSIDE 4096, lmax 12287), rayOrder 10
      (12,582,912 rays), 2^21 particles, float32, through Raytracer.step:
-     one warm-up plane and three timed planes, with the kernel launch counts
+     one warm-up plane and two timed planes, with the kernel launch counts
      of exactly that run, the peak device memory and finite rays; one more
      plane with Profile set, whose phase row (DEPOSIT, SHTSOLVE, SHT,
      RAYPROP) is printed; one timed plane with the "uniform" synthesis ring
@@ -87,7 +87,7 @@ of which must pass:
      uniform analysis; at order 10 every mode against a float64 uniform
      run; the port's default mode must be the fastest (5 % slack);
  10. the deposit schemes and sky cuts at the headline shape, through
-     Raytracer.step: SPH (one warm-up plane, two timed, one Profile'd;
+     Raytracer.step: SPH (one warm-up plane, one timed, one Profile'd;
      K1 launched exactly 8 times and K2 once per j-block, nothing else; the
      per-bucket windows built once and timed), beside one kernel_bl window
      by scipy's eval_legendre and by the port's recurrence at lmax 1023;
@@ -99,7 +99,7 @@ of which must pass:
      its alpha, U and phi beside the particle plane's (run twice: K1's
      atomic adds make two runs differ) within 1e-2 of each quantity's
      max;
- 11. CUDA vs CPU traces of the new paths at SHTOrder 7 / rayOrder 6 (3
+ 11. CUDA vs CPU traces of the new paths at SHTOrder 7 / rayOrder 6 (2
      planes each, 5e-4, the same ray pixels, the launches per plane
      exact): SPH, CIC in a 40 x 40 degree box, and precomputed mass-map
      planes;
@@ -129,12 +129,12 @@ of which must pass:
      (SHTOrder 10, rayOrder 12: 201,326,592 rays, bundleOrder 6: 49,152
      patches of 130^2, 2^21 particles, f32, NGP map and CIC patch
      deposits, 10 fixed V-cycles) through Raytracer.step: one warm-up and
-     two timed planes (s/plane, rays/s, the peak device memory under 80
-     GB, K1 and K2-4col launched exactly once per plane and nothing
-     else), one Profile'd plane and one plane with its parts timed by
+     one timed, Profile'd plane (s/plane, rays/s, the phase row, the peak
+     device memory under 80 GB, K1 and K2-4col launched exactly once per
+     plane and nothing else) and one plane with its parts timed by
      CUDA events (SHT solve, patch deposit, BC fill, FAS solve, ray
      interpolation, propagation); one plane with MGConvFact 0.1 and SPH
-     (its V-cycles); 3-plane CUDA-vs-CPU MG traces at SHTOrder 5 /
+     (its V-cycles); 2-plane CUDA-vs-CPU MG traces at SHTOrder 5 /
      rayOrder 6 / bundleOrder 2 with the defaults and with MGConvFact 0.1
      + SPH (5e-4, V-cycles printed); the headline rays after phase 5's
      plane 3 written by Raytracer.write_rays in 4 files as FITS and as
@@ -148,9 +148,10 @@ of which must pass:
  14. the THREEDPOT path (fftpot.py) at full width: 2^27 particles from a
      numpy seed (uniform, a quarter in 4096 Gaussian clumps of 2 Mpc/h)
      in a 1050 Mpc/h box, written by the port's io/lgadget as two files
-     in a temporary directory the phase deletes; ThreeDPot with NFFT 1024,
-     rayOrder 10, float32, 24 planes of 25 Mpc/h to 600 Mpc/h (nint 48;
-     not the cell's 40 planes to 1000 Mpc/h, for the smoke's time) through
+     in a temporary directory (kept for phase 17 in a whole run);
+     ThreeDPot with NFFT 1024, rayOrder 10, float32, 4 planes of 25
+     Mpc/h to 100 Mpc/h (nint 48; not the cell's 40 planes to 1000 Mpc/h,
+     for the smoke's time) through
      Raytracer.step: one grid build, s/plane (first, median, last, with
      their radii), rays/s, the peak device memory under 80 GB, plane 0
      (with the build) by parts with CUDA events (snapshot read, upload,
@@ -159,7 +160,7 @@ of which must pass:
      deposit's float64 total within 1e-6 of the particle count; the
      float32 potential against float64 of the same counts (bound: twice
      the card's distance at NFFT 128; the CPU's there printed beside it);
-     the float32 fields of 2^16 rays against float64 sampling of the same
+     the float32 fields of 2^14 rays against float64 sampling of the same
      grid (bound: twice the same comparison on the CPU, same grid and
      rays); a 4-plane card-vs-CPU trace (box 200, NFFT 64, rayOrder 6,
      float32, two snapshots, one in two files: the nearest snapshot
@@ -171,9 +172,9 @@ of which must pass:
  15. the j-block streamed synthesis (sht/transforms.py) and NSIDE 8192:
      SHTOrder 13 (lmax 24575) / rayOrder 12 (201,326,592 rays), 2^24
      particles, f32, full sky, NGP, through Raytracer.step: the plan's and
-     the rays' build seconds, one warm-up plane, two timed (s/plane,
-     rays/s), each plane's launches exact (K1 once, K2 once per j-block),
-     the peak memory after a reset under 80 GB, one Profile'd plane; K1
+     the rays' build seconds, one warm-up plane, one timed and Profile'd
+     (s/plane, rays/s), each plane's launches exact (K1 once, K2 once per
+     j-block), the peak memory after a reset under 80 GB; K1
      and K2 at order 13 against their twins on 9 m rows (K2 on the windows
      of the first and the last block), K1's ms and K2's summed
      over the blocks; the analysis ring stage with its 6.4 GB phase table
@@ -184,10 +185,10 @@ of which must pass:
      Raytracer.run over two planes with 10^6 sources in plane 1's bin,
      every source imaged, gals/s and the peak (its closing 16.9 GB npz
      restart left out); then the synthesis at every candidate block count
-     at orders 12-13 on one alm (at order 12 1, 8, 16, 32 and 64; orders
-     10-11 and 2 or 4 blocks at 12, which never beat the whole synthesis,
-     and the order-13 per-block tables kept, which the port does not keep,
-     are left out for the smoke's time), timed, against the
+     at orders 12-13 on one alm (at order 12 1, 8 and 32, at 13 16 and
+     32; orders 10-11 and the counts that never beat the fastest, and the
+     order-13 per-block tables kept, which the port does not keep, are
+     left out for the smoke's time), timed, against the
      unstreamed synthesis (order 13: the default count) within 1e-5 of
      each map's max, the default count within 15 % of the fastest, and at
      order 12 K3 through the synthesis at 32 blocks (each window with its
@@ -200,23 +201,44 @@ of which must pass:
      order 10 (K2, K3 exact; K1, K4 1e-5); that gloo takes each collective
      primitive on CUDA tensors (2 ranks; a refused one fails the phase);
      NCCL at world size 1 (every
-     Mesh collective an identity, the sharded 3-plane trace at order 7/6
+     Mesh collective an identity, the sharded 2-plane trace at order 7/6
      vs the one-device trace within 5e-4); the headline (SHTOrder 12,
-     rayOrder 10, 2^21 particles, f32, NGP, 1 warm-up and 2 timed planes)
+     rayOrder 10, 2^21 particles, f32, NGP, 1 warm-up and 1 timed,
+     Profile'd plane)
      on 2 ranks sharing the card over gloo against one rank: each rank's
      step seconds, K1 and K2 ms and launches per plane (exactly one each),
      each rank's peak and their sum under 80 GB, alpha and A within 1e-2
      of each quantity's max, the order-8 lens map counts equal; the
-     order-7/6 traces (3 planes: NGP, SPH, 4 forced j-blocks, K3 + K4;
+     order-7/6 traces (2 planes: NGP, SPH, 4 forced j-blocks, K3 + K4;
      launches per rank per plane exact) and a 4-plane Raytracer.run with
      lens maps, two ray files and 2000 galaxy sources, on 2 and 4 ranks
      against one rank on the card: rays within 5e-4, ray files' layout and
      NEST columns equal, lens map ray counts equal, the imaged sources
      equal but for 1e-3 of them.  The ranks share one card: their times are
-     not a scaling result.
+     not a scaling result;
+ 17. the sharded multigrid step and the slab-decomposed THREEDPOT solve
+     (mgdriver.mg_refine and fftpot.ThreeDPotDriver on a mesh,
+     parallel/slabfft.py) on 2 gloo ranks sharing the card, each against
+     one rank on the card: the MG design point (phase 13's shape; plane 1
+     untimed, plane 2 timed and Profile'd) with each rank's phase row,
+     the collectives' seconds (each between two syncs) and the bytes it
+     sent (from the shapes), its launches (K1 and K2-4col once), V-cycles
+     and peak, the peaks' sum under 80 GB, A and alpha within 1e-2 of
+     their max (K1's atomic adds); THREEDPOT at phase 14's shape (its
+     snapshot written again, one file per rank) over 2 planes, plane 0 by
+     parts (CUDA events) with the collectives, each rank's x rows of the
+     potential against the one-device grid within twice phase 14's bound
+     on the card's float32 distance (the slab solve rounds a second
+     float32 transform), the rays within 5e-4, the ranks' particles
+     summing to the snapshot's; the MG traces at SHTOrder 5 / rayOrder 6 /
+     bundleOrder 2 (defaults, and MGConvFact 0.1 with SPH; 2 planes, the
+     V-cycles equal to one rank's, launches per plane exact) and a
+     THREEDPOT trace (phase 14's, NFFT 64) on 2 and 4 ranks and on NCCL at
+     world size 1, against one rank within 5e-4.  The one-rank references
+     reach the ranks as files in a temporary directory (~10 GB).
 
-`python3 chip_smoke.py --phase 15` (or `--phase 16`) runs the build and
-that phase alone and prints no JSON line.
+`python3 chip_smoke.py --phase 15` (or `--phase 16`, `--phase 17`) runs the
+build and that phase alone and prints no JSON line.
 
 It prints the card's line, a JSON line {"kernels": [...]} with each
 kernel's launches on its path's run, its error against its twin, its
@@ -225,7 +247,6 @@ times, its bound and the library column, and last {"ok": true, "device":
 or there is no GPU.
 """
 
-import functools
 import gc
 import json
 import math
@@ -359,8 +380,13 @@ CMB_MAP_ORDER = 10
 # (bench.py's BENCH_MODE=MG: SHTOrder, rayOrder, bundleOrder), its
 # particles and its fixed V-cycles, and the small card-vs-CPU MG trace
 MG_ORDERS = (10, 12, 6)
+# the design point's planes through Raytracer.step: the first a warm-up,
+# the last timed and Profile'd (then one plane by parts)
+MG_DESIGN_PLANES = (1, 2)
 MG_PARTICLES = 1 << 21
 MG_TRACE_ORDERS = (5, 6, 2)
+# the planes of each small MG trace (phases 13 and 17)
+MG_TRACE_PLANES = 2
 # the MG step's parts (poisson.plane_step_mg's phase tags)
 MG_PARTS = ("DEPOSIT", "SHTSOLVE", "SHT", "MGDEPOSIT", "MGBC", "MGSOLVE",
             "MGINTERP", "RAYPROP")
@@ -379,8 +405,8 @@ TDP_PARTICLES = 1 << 27
 TDP_BOX = 1050.0
 TDP_NFFT = 1024
 TDP_RAY_ORDER = 10
-TDP_MAX_DIST = 600.0
-TDP_PLANES = 24
+TDP_MAX_DIST = 100.0
+TDP_PLANES = 4
 TDP_CLUMPS = 4096
 TDP_CLUMP_SHARE = 0.25
 TDP_CLUMP_SIGMA = 2.0
@@ -396,8 +422,8 @@ TDP_DEPOSIT_BOUND = 1e-6
 # TDP_F64_FACTOR times the CPU's distance on the same grid and rays (in
 # float32 a second difference loses digits as the cells shrink, so a
 # coarser grid would not bound a finer one)
-TDP_CHECK_RAYS = 1 << 16
-TDP_CHECK_PLANE = 20
+TDP_CHECK_RAYS = 1 << 14
+TDP_CHECK_PLANE = 3
 TDP_CPU_NFFT = 128
 TDP_F64_FACTOR = 2.0
 # the card-vs-CPU trace: box, grid, rays, planes over maxComvDistance, and
@@ -938,6 +964,9 @@ def pixel_centre_particles(cfg, cosmo, plane, n, seed):
 
 # the driver's phase row of a Profile'd plane step
 PROFILE_TAGS = ("DEPOSIT", "SHTSOLVE", "SHT", "RAYPROP")
+# the planes of each CUDA-vs-CPU trace at SHTOrder 7 / rayOrder 6 (phases 4
+# and 11)
+TRACE_PLANES = 2
 # the kernels each pair of selectors runs on the plane step
 PATH_KERNELS = {("k2", "k1"): ("legendre_synth", "legendre_analysis"),
                 ("k3", "k4"): ("legendre_synth_vpu", "legendre_analysis_dot",
@@ -961,13 +990,14 @@ def trace_cuda_vs_cpu(synth, analysis, rings_mode):
         rt.init_rays()
     _ext.reset_launches()
     errs = []
-    for p in range(3):
+    for p in range(TRACE_PLANES):
         pos, mass = pixel_centre_particles(cfg, cpu.cosmo, p, 20000, 100 + p)
         cpu.step(p, pos=pos, mass=mass)
         gpu.step(p, pos=pos, mass=mass)
         errs.append(grouped_row_err(gpu.rays_packed.cpu(), cpu.rays_packed))
     counts = dict(_ext.launches)
-    check(all(counts[k] >= 3 for k in PATH_KERNELS[(synth, analysis)]),
+    check(all(counts[k] >= TRACE_PLANES
+              for k in PATH_KERNELS[(synth, analysis)]),
           f"CUDA trace ({synth}, {analysis}) did not launch its kernels: "
           f"{counts}")
     check(bool(torch.isfinite(gpu.rays_packed).all()), "non-finite rays")
@@ -1524,7 +1554,7 @@ def mass_map_plane(snap, plane):
 
 
 def trace_path(label, cfg_kw, mass_maps=False):
-    """A 3-plane CUDA-vs-CPU trace at SHTOrder 7 / rayOrder 6, f32, with
+    """A CUDA-vs-CPU trace of TRACE_PLANES at SHTOrder 7 / rayOrder 6, f32, with
     cfg_kw on the trace configuration: each plane's particles at pixel
     centres, or (mass_maps) their mass per pixel / partMass written as the
     plane's <f4 map; the packed rays within TRACE_BOUND of each quantity's
@@ -1556,7 +1586,7 @@ def trace_path(label, cfg_kw, mass_maps=False):
         vac_diff = (0 if cpu.vacmask is None else
                     int((cpu.vacmask != gpu.vacmask.cpu()).sum()))
         errs, plane_counts = [], []
-        for p in range(3):
+        for p in range(TRACE_PLANES):
             pos, mass = pixel_centre_particles(cfg, cpu.cosmo, p, 20000,
                                                100 + p)
             if mass_maps:
@@ -2006,16 +2036,17 @@ def mg_config(orders, **kw):
                           **kw).finalize()
 
 
-def mg_design_point():
+def mg_design_point(ref_dir=None):
     """The multigrid step at its design point (MG_ORDERS, MG_PARTICLES
     seeded particles, f32, NGP map deposit and the CIC patch deposit, 10
-    fixed V-cycles) through Raytracer.step: plane 1 as warm-up, planes 2
-    and 3 timed, plane 4 with Profile set (the driver's host-timed phase
-    row), plane 5 with its parts timed by CUDA events; K1 and K2-4col
-    launched exactly once per plane and nothing else, the peak device
-    memory under DEVICE_MEMORY, finite rays.  Then a new Raytracer with
-    MGConvFact 0.1 and DepositScheme SPH steps plane 2 once: its time and
-    V-cycles."""
+    fixed V-cycles) through Raytracer.step: MG_DESIGN_PLANES (the first
+    a warm-up, the last timed with Profile set: the driver's host-timed
+    phase row), plane 5 with its parts timed by CUDA events; K1
+    and K2-4col launched exactly once per plane and nothing else, the peak
+    device memory under DEVICE_MEMORY, finite rays.  With ref_dir, the
+    rays after MG_DESIGN_PLANES are written there as phase 17's one-rank
+    reference (p17_save_mg_ref).  Then a new Raytracer with MGConvFact 0.1
+    and DepositScheme SPH steps plane 2 once: its time and V-cycles."""
     import torch
     from calclens_tpu_torch import _ext
     from calclens_tpu_torch.driver import Raytracer
@@ -2031,13 +2062,14 @@ def mg_design_point():
     nrays = rt.rays_packed.shape[1]
     pos, mass = seeded_particles(MG_PARTICLES, 1.0, 12)
     staged = {p: rt.stage_particles(pos * (250.0 * p + 125.0), mass)
-              for p in range(1, 6)}
+              for p in (*MG_DESIGN_PLANES, 5)}
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     _ext.reset_launches()
     plane_counts, times = [], []
-    for p in (1, 2, 3):
+    for p in MG_DESIGN_PLANES:
+        rt.cfg.Profile = p == MG_DESIGN_PLANES[-1]
         before = dict(_ext.launches)
         t = time.perf_counter()
         rt.step(p, *staged[p])  # ends in torch.cuda.synchronize()
@@ -2046,14 +2078,14 @@ def mg_design_point():
                              for k, v in _ext.launches.items()})
     launches = dict(_ext.launches)
     peak = torch.cuda.max_memory_allocated()
+    if ref_dir is not None:
+        p17_save_mg_ref(rt.rays_packed, ref_dir)
     check_plane_launches("MG design point", plane_counts, "MG")
     check(peak < DEVICE_MEMORY, f"MG design point peak {peak / 1e9:.2f} GB")
     check(bool(torch.isfinite(rt.rays_packed).all()),
           "MG design point: non-finite rays")
-    rt.cfg.Profile = True
-    rt.step(4, *staged[4])
-    rt.cfg.Profile = False
-    profile = (rt.timings[-1][1], dict(dict(rt.phase_rows)[4]))
+    p = MG_DESIGN_PLANES[-1]
+    profile = (rt.timings[-1][1], dict(dict(rt.phase_rows)[p]))
     parts = {}
     rt._timed_phase = lambda plane_num: event_phase(parts)
     rt.cfg.Profile = True  # the step passes the hook only in Profile mode
@@ -2101,7 +2133,7 @@ def mg_design_point():
 
 
 def mg_trace(**cfg_kw):
-    """A 3-plane CUDA-vs-CPU MG trace at MG_TRACE_ORDERS, f32, particles at
+    """A CUDA-vs-CPU MG trace of MG_TRACE_PLANES at MG_TRACE_ORDERS, f32, particles at
     pixel centres (cfg_kw on the configuration): the packed rays within
     TRACE_BOUND of each quantity's max after every plane, the card's
     launches PLANE_LAUNCHES["MG"] per plane.  Returns (errors per plane,
@@ -2115,7 +2147,7 @@ def mg_trace(**cfg_kw):
     for rt in (cpu, gpu):
         rt.init_rays()
     errs, plane_counts = [], []
-    for p in range(3):
+    for p in range(MG_TRACE_PLANES):
         pos, mass = pixel_centre_particles(cfg, cpu.cosmo, p, 20000, 100 + p)
         cpu.step(p, pos=pos, mass=mass)
         before = dict(_ext.launches)
@@ -2290,10 +2322,11 @@ def traced_run_outputs():
     return errs, len(rays) + len(dbg)
 
 
-def mg_rayio_phase(snap, card):
-    """Phase 13: the MG design point, the small MG traces and the ray
-    outputs, each part's lines printed as it ends."""
-    res = {"design": mg_design_point()}
+def mg_rayio_phase(snap, card, ref_dir=None):
+    """Phase 13: the MG design point (its rays kept in ref_dir for phase
+    17), the small MG traces and the ray outputs, each part's lines printed
+    as it ends."""
+    res = {"design": mg_design_point(ref_dir)}
     report_mg_design(res["design"], card)
     for label, kw in (("default", {}), ("MGConvFact 0.1 + SPH",
                                         dict(MGConvFact=0.1,
@@ -2433,14 +2466,16 @@ def field_distances(padded, nfft, box, rows, plane_rad, binL, nint):
     return dist, f32
 
 
-def threedpot_full(tmp):
+def threedpot_full(tmp, keep_refs=False):
     """Phase 14's full-width run: the snapshot (TDP_PARTICLES in two
     files), Raytracer.step over TDP_PLANES planes, plane 0 (with the grid
     build) timed by parts with CUDA events; the fields of TDP_CHECK_RAYS
     rays against float64 on the card and on the CPU; the grid built again
     with cuFFT's plan cache as it is and cleared; the deposit's total and
     the float32 potential against float64 of the same counts (and the same
-    comparison on the CPU at TDP_CPU_NFFT)."""
+    comparison on the CPU at TDP_CPU_NFFT).  keep_refs: the snapshot stays
+    in tmp, with the grid and the rays after P17_TDP_PLANES planes
+    (p17_save_tdp_ref), phase 17's one-rank reference."""
     import torch
     from calclens_tpu_torch import fftpot
     from calclens_tpu_torch.cosmology import RHO_CRIT
@@ -2479,6 +2514,8 @@ def threedpot_full(tmp):
         t = time.perf_counter()
         rt.step(p)  # ends in torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
+        if keep_refs and p == P17_TDP_PLANES - 1:
+            p17_save_tdp_ref(rt, tmp)
     res["peak"] = torch.cuda.max_memory_allocated()
     res["part_ms"] = {tag: sum(a.elapsed_time(b) for a, b in parts[tag])
                       for tag in TDP_PARTS}
@@ -2627,13 +2664,17 @@ def threedpot_trace(tmp):
     return dict(errs=errs, snaps=snaps, nrays=gpu.rays_packed.shape[1])
 
 
-def threedpot_phase():
-    """Phase 14: the full-width run and the card-vs-CPU trace, each in a
+def threedpot_phase(ref_dir=None):
+    """Phase 14: the full-width run (in ref_dir, where its snapshot and
+    phase 17's reference stay, when given) and the card-vs-CPU trace, each
     temporary directory deleted at its end."""
     import tempfile
 
-    with tempfile.TemporaryDirectory() as tmp:
-        full = threedpot_full(tmp)
+    if ref_dir is not None:
+        full = threedpot_full(ref_dir, keep_refs=True)
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            full = threedpot_full(tmp)
     with tempfile.TemporaryDirectory() as tmp:
         trace = threedpot_trace(tmp)
     return dict(full=full, trace=trace)
@@ -2693,7 +2734,7 @@ def report_threedpot(r, card):
 # with its particles per plane, the m rows of its kernel checks and the
 # ring-pair windows (first, middle, last of the default count) on which K2
 # is held to its twin; the point-mass plane and the galaxy run's sources
-STREAM_COUNTS = {12: (1, 8, 16, 32, 64), 13: (8, 16, 32, 64)}
+STREAM_COUNTS = {12: (1, 8, 32), 13: (16, 32)}
 # the streamed synthesis against the unstreamed one (at order 13, where the
 # unstreamed one does not fit, against the default count), relative to
 # each map's max: the kernel-vs-twin bound
@@ -2966,7 +3007,7 @@ def order13_pointmass(rt, plane):
 
 def order13_step():
     """The order-13 configuration through Raytracer.step: the plan's and
-    the rays' build seconds, one warm-up plane, two timed, one Profile'd
+    the rays' build seconds, one warm-up plane, one timed with Profile set
     (with each phase's peak memory),
     each plane's launches exact (K1 once, K2 once per block), the peak
     memory after a reset under DEVICE_MEMORY; then K1 and K2 at order 13
@@ -2997,13 +3038,34 @@ def order13_step():
     want = {"legendre_analysis": 1, "legendre_synth": nblk}
     pos, mass = seeded_particles(O13_PARTICLES, 1.0, 13)
     staged = {p: rt.stage_particles(pos * (250.0 * p + 125.0), mass)
-              for p in (1, 2, 3, 4)}
+              for p in (1, 2)}
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     _ext.reset_launches()
+    # plane 1 a warm-up, plane 2 timed with Profile set, the peak of each
+    # of its phases taken apart
+    phase_peaks = {}
+    between = [0]  # the peak outside the phases
+    timed_phase = rt._timed_phase
+
+    def peak_phase(plane_num):
+        inner = timed_phase(plane_num)
+
+        def phase(tag, fn, *args):
+            between[0] = max(between[0], torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            out_ = inner(tag, fn, *args)
+            phase_peaks[tag] = torch.cuda.max_memory_allocated()
+            return out_
+
+        return phase
+
     times, plane_counts = [], []
-    for p in (1, 2, 3):
+    for p in (1, 2):
+        if p == 2:
+            rt._timed_phase = peak_phase
+            rt.cfg.Profile = True
         before = dict(_ext.launches)
         t = time.perf_counter()
         rt.step(p, *staged[p])
@@ -3013,30 +3075,14 @@ def order13_step():
         check(counts == want, f"order-13 plane {p} launched {counts}, "
               f"expected {want}")
         plane_counts.append(counts)
-    peak = torch.cuda.max_memory_allocated()
+    rt.cfg.Profile = False
+    rt._timed_phase = timed_phase
+    peak = max(between[0], torch.cuda.max_memory_allocated(),
+               *phase_peaks.values())
     check(bool(torch.isfinite(rt.rays_packed).all()),
           "order-13 step: non-finite rays")
     check(peak < DEVICE_MEMORY, f"order-13 step peak {peak / 1e9:.1f} GB")
-    phase_peaks = {}
-    timed_phase = rt._timed_phase
-
-    def peak_phase(plane_num):
-        inner = timed_phase(plane_num)
-
-        def phase(tag, fn, *args):
-            torch.cuda.reset_peak_memory_stats()
-            out_ = inner(tag, fn, *args)
-            phase_peaks[tag] = torch.cuda.max_memory_allocated()
-            return out_
-
-        return phase
-
-    rt._timed_phase = peak_phase
-    rt.cfg.Profile = True
-    rt.step(4, *staged[4])
-    rt.cfg.Profile = False
-    rt._timed_phase = timed_phase
-    row = dict(rt.phase_rows)[4]
+    row = dict(rt.phase_rows)[2]
     profile = (rt.timings[-1][1], row, phase_peaks)
     check(sorted(row) == sorted(PROFILE_TAGS), f"Profile'd plane: {row}")
     del staged
@@ -3205,15 +3251,15 @@ def stream_phase(dev, card):
 # ----------------------------------------------------------------------------
 
 # the headline over ranks sharing the card: SHTOrder 12 / rayOrder 10, 2^21
-# particles, f32, NGP, one warm-up plane and two timed planes; its rays'
+# particles, f32, NGP, one warm-up plane and one timed plane; its rays'
 # alpha and A against the one-rank step's within MASS_MAP_RAY_BOUND (two
 # runs of one order-12 plane lie that far apart through K1's atomic adds),
 # its order-8 lens map counts exact
 P16_HEAD_RANKS = 2
-P16_HEAD_PLANES = (2, 3, 4)
+P16_HEAD_PLANES = (2, 3)
 # the small-order traces: ranks, planes, particles and sources per case
 P16_TRACE_RANKS = (2, 4)
-P16_TRACE_PLANES = 3
+P16_TRACE_PLANES = 2
 P16_TRACE_PARTICLES = 20000
 P16_TRACE_GALS = 2000
 # K1-K4 launched on a block of m rows (the m0 argument) against the whole
@@ -3223,6 +3269,59 @@ P16_ROWS_ORDER = 10
 P16_TIMEOUT = 600.0
 # the collectives every Mesh method goes through
 MESH_PRIMITIVES = ("all_to_all", "reduce_scatter", "all_gather")
+# the Mesh methods each collective goes through, timed between two syncs
+MESH_COLLECTIVES = ("exchange", "reduce_scatter_blocks",
+                    "reduce_scatter_rows", "all_gather_cols",
+                    "all_gather_rows", "all_true")
+
+
+def sent_bytes(name, n, rank, args):
+    """The bytes this rank sends to the others in one call of the Mesh
+    method `name`, from its arguments' shapes: the pieces for the other
+    ranks of an exchange, (n - 1) / n of a reduce-scatter's input, an
+    all-gather's block to each of the n - 1 others."""
+    import torch
+
+    if name == "exchange":
+        send, _, dtype = args
+        size = torch.empty((), dtype=dtype).element_size()
+        return sum(int(x.numel()) for d, x in enumerate(send)
+                   if d != rank) * size
+    x = args[0]
+    nbytes = x.numel() * x.element_size()
+    if name.startswith("reduce_scatter"):
+        return nbytes * (n - 1) // n
+    return nbytes * (n - 1)
+
+
+def time_collectives(mesh):
+    """Wrap mesh's collective methods: each call timed on the host between
+    two device syncs and its bytes sent counted; returns the dict
+    {method: [seconds, bytes, calls]} they add to (untime_collectives
+    removes the wrappers)."""
+    import torch
+
+    spent = {}
+    for name in MESH_COLLECTIVES:
+        def synced(*a, _fn=getattr(mesh, name), _name=name):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = _fn(*a)
+            torch.cuda.synchronize()
+            row = spent.setdefault(_name, [0.0, 0, 0])
+            row[0] += time.perf_counter() - t
+            row[1] += sent_bytes(_name, mesh.size, mesh.rank, a)
+            row[2] += 1
+            return res
+        setattr(mesh, name, synced)
+    return spent
+
+
+def untime_collectives(mesh):
+    """The Mesh's own collective methods again."""
+    if mesh is not None:
+        for name in MESH_COLLECTIVES:
+            mesh.__dict__.pop(name, None)
 
 
 def p16_probe(mesh):
@@ -3273,7 +3372,7 @@ def p16_probe(mesh):
 
 def p16_nccl(mesh):
     """NCCL at world size 1: every Mesh collective returns its input, and
-    the sharded 3-plane trace at order 7/6 equals the one-device trace on
+    the sharded 2-plane trace at order 7/6 equals the one-device trace on
     the same card within TRACE_BOUND (grouped_row_err per plane)."""
     import torch
     from calclens_tpu_torch.config import RayTraceConfig
@@ -3372,7 +3471,9 @@ def p16_headline_run(mesh, device, planes, out_path):
     seconds, this rank's launches and its K1 and K2 milliseconds (CUDA
     events around each call of the two wrappers); the peak memory; the
     order-8 lens map counts and the whole rays (written to out_path) on
-    rank 0 or the one device."""
+    rank 0 or the one device.  On a mesh the last plane runs with Profile
+    set and the collectives' host seconds, each between two device syncs,
+    summed apart."""
     import torch
     from calclens_tpu_torch import _ext
     from calclens_tpu_torch.config import RayTraceConfig
@@ -3412,8 +3513,12 @@ def p16_headline_run(mesh, device, planes, out_path):
     TL.analysis_columns = timed("K1", kept[0])
     TL.synth_columns = timed("K2", kept[1])
     rows = []
+    spent = {}
     try:
         for p in planes:
+            if mesh is not None and p == planes[-1]:
+                rt.cfg.Profile = True
+                spent = time_collectives(mesh)
             for v in events.values():
                 v.clear()
             _ext.reset_launches()
@@ -3427,6 +3532,7 @@ def p16_headline_run(mesh, device, planes, out_path):
                    for k, v in events.items()}))
     finally:
         TL.analysis_columns, TL.synth_columns = kept
+        untime_collectives(mesh)
     peak = torch.cuda.max_memory_allocated()
     check(bool(torch.isfinite(rt.rays_packed).all()), "non-finite rays")
     sums = rt._lens_map_sums(MAP_ORDER)
@@ -3437,25 +3543,11 @@ def p16_headline_run(mesh, device, planes, out_path):
         np.save(out_path, full.cpu().numpy())
         sums = sums.cpu().numpy()[0]
     del full
-    # one more plane with Profile set; on a mesh the collectives' host
-    # seconds, each between two device syncs, summed apart
-    spent = [0.0]
-    if mesh is not None:
-        for name in ("exchange", "reduce_scatter_blocks", "all_gather_cols"):
-            def synced(*a, _fn=getattr(mesh, name), **k):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                res = _fn(*a, **k)
-                torch.cuda.synchronize()
-                spent[0] += time.perf_counter() - t
-                return res
-            setattr(mesh, name, synced)
     profile = None
     if mesh is not None:
-        p = planes[-1] + 1
-        rt.cfg.Profile = True
-        rt.step(p, *rt.stage_particles(pos * (250.0 * p + 125.0), mass))
-        profile = (rt.timings[-1][1], dict(rt.phase_rows)[p], spent[0])
+        p = planes[-1]
+        profile = (rt.timings[-1][1], dict(rt.phase_rows)[p],
+                   sum(v[0] for v in spent.values()))
     del rt, parts
     gc.collect()
     torch.cuda.empty_cache()
@@ -3512,10 +3604,11 @@ def p16_kernel_rows(dev):
 
 def mesh_phase(dev, card, tmp):
     """Phase 16 (see the module docstring); prints and checks; returns the
-    headline ranks' launches for the kernels line."""
+    headline ranks' launches for the kernels line.  A generator for
+    run_phases: it yields the parts its ranks run and takes their
+    results."""
     import torch
     from calclens_tpu_torch import maps as tmaps
-    from calclens_tpu_torch.parallel.launch import run_ranks
 
     t_phase = time.perf_counter()
     say(f"phase 16: torch.cuda.device_count() {torch.cuda.device_count()}; "
@@ -3529,7 +3622,6 @@ def mesh_phase(dev, card, tmp):
           and krows["legendre_analysis"][0] < K1_BOUND
           and krows["legendre_analysis_dot"][0] < K1_BOUND,
           f"kernels on a block of m rows: {krows}")
-    run = functools.partial(run_ranks, timeout=P16_TIMEOUT, threads=0)
     rank_dev = f"cuda:{dev.index or 0}"
 
     # NCCL at world size 1, in this process
@@ -3552,14 +3644,29 @@ def mesh_phase(dev, card, tmp):
     check(all(nc["identities"].values()) and max(nc["errs"]) < TRACE_BOUND,
           f"NCCL world size 1: {nc}")
 
-    # the headline on ranks sharing the card, against one rank
+    # the one-rank references: the headline and the small-order traces
     t0 = time.perf_counter()
     ref = p16_headline_run(None, dev, P16_HEAD_PLANES, f"{tmp}/ref.npy")
     ref_s = time.perf_counter() - t0
+    zgrid = np.linspace(0.0, 3.0, 30001)
+    zs = np.interp(np.array([1.0, 2.0]) * 250.0,
+                   tmaps.comoving_distance_2f1(zgrid, 0.3), zgrid)
+    with open(f"{tmp}/zs.txt", "w") as fp:
+        fp.write("".join(f"{z:.10f}\n" for z in zs))
+    write_catalog(f"{tmp}/gals", P16_TRACE_GALS, 16, 100.0, 990.0)
     t0 = time.perf_counter()
-    heads = run(p16_headline_rank, P16_HEAD_RANKS, f"{tmp}/head",
-                device=rank_dev, args=(P16_HEAD_PLANES, f"{tmp}/mesh.npy"))
-    head_s = time.perf_counter() - t0
+    one = p16_trace_cases(None, dev, tmp)
+    say(f"phase 16 traces order 7/6, one rank: {time.perf_counter() - t0:.1f}"
+        f" s")
+
+    # the ranks: the headline (after a probe of gloo's primitives) on
+    # P16_HEAD_RANKS, the traces on each of P16_TRACE_RANKS
+    program = {P16_HEAD_RANKS: [(p16_headline_rank, (
+        P16_HEAD_PLANES, f"{tmp}/mesh.npy"))]}
+    for n in P16_TRACE_RANKS:
+        program.setdefault(n, []).append((p16_trace_rank, (tmp,)))
+    res = yield program
+    heads = [r[0] for r in res[P16_HEAD_RANKS]]
     # gloo took every primitive on CUDA tensors (each rank probed them
     # before its headline, and a refused one failed the rank)
     probe = heads[0]["probe"]
@@ -3605,30 +3712,17 @@ def mesh_phase(dev, card, tmp):
         f"{errs['alpha']:.3e} of each quantity's max (bound "
         f"{MASS_MAP_RAY_BOUND:g}); order-{MAP_ORDER} lens map counts equal "
         f"{counts_equal}; peaks sum {sum(peaks) / 2**30:.2f} GiB (under "
-        f"{DEVICE_MEMORY / 1e9:.0f} GB); ranks' call {head_s:.1f} s")
+        f"{DEVICE_MEMORY / 1e9:.0f} GB)")
     check(max(errs.values()) < MASS_MAP_RAY_BOUND and counts_equal
           and sum(peaks) < DEVICE_MEMORY,
           f"phase 16 headline: {errs}, counts equal {counts_equal}, peaks "
           f"{peaks}")
 
     # the small-order traces on 2 and 4 ranks against one rank on the card
-    zgrid = np.linspace(0.0, 3.0, 30001)
-    zs = np.interp(np.array([1.0, 2.0]) * 250.0,
-                   tmaps.comoving_distance_2f1(zgrid, 0.3), zgrid)
-    with open(f"{tmp}/zs.txt", "w") as fp:
-        fp.write("".join(f"{z:.10f}\n" for z in zs))
-    write_catalog(f"{tmp}/gals", P16_TRACE_GALS, 16, 100.0, 990.0)
-    t0 = time.perf_counter()
-    one = p16_trace_cases(None, dev, tmp)
-    say(f"phase 16 traces order 7/6, one rank: {time.perf_counter() - t0:.1f}"
-        f" s")
     traces = {}
     for n in P16_TRACE_RANKS:
-        t0 = time.perf_counter()
-        res = run(p16_trace_rank, n, f"{tmp}/trace{n}", device=rank_dev,
-                  args=(tmp,))
-        traces[n] = res
-        errs = {k: grouped_row_err(torch.from_numpy(res[0]["cases"][k][0]),
+        res_n = traces[n] = [r[-1] for r in res[n]]
+        errs = {k: grouped_row_err(torch.from_numpy(res_n[0]["cases"][k][0]),
                                    torch.from_numpy(v[0]))
                 for k, v in one.items()}
         files = p16_compare_files(tmp, n)
@@ -3636,12 +3730,11 @@ def mesh_phase(dev, card, tmp):
             f"card, {P16_TRACE_PLANES} planes (run(): 4): " + ", ".join(
                 f"{k} {e:.3e}" for k, e in errs.items())
             + f" (bound {TRACE_BOUND:g}); files: {files}; rank 0 launches "
-            + "; ".join(f"{k} {v[1]}" for k, v in res[0]["cases"].items())
-            + f"; collectives {res[0]['calls']} "
-            f"({time.perf_counter() - t0:.1f} s)")
+            + "; ".join(f"{k} {v[1]}" for k, v in res_n[0]["cases"].items())
+            + f"; collectives {res_n[0]['calls']}")
         check(max(errs.values()) < TRACE_BOUND and files["ok"],
               f"phase 16 traces on {n} ranks: {errs}, {files}")
-        for r in res:
+        for r in res_n:
             c = r["cases"]
             check(all(x == {"legendre_analysis": 1, "legendre_synth": 1}
                        for x in c["NGP"][1])
@@ -3706,6 +3799,523 @@ def p16_compare_files(tmp, n):
     return out
 
 
+# ----------------------------------------------------------------------------
+# phase 17: the sharded multigrid step and the slab-decomposed THREEDPOT
+# solve on ranks that share the card
+# ----------------------------------------------------------------------------
+
+# the full-width runs on ranks sharing the card over gloo: the MG design
+# point (MG_ORDERS, MG_PARTICLES) with one untimed plane and one timed,
+# Profile'd plane; THREEDPOT at TDP_NFFT and TDP_RAY_ORDER from
+# TDP_PARTICLES in two files (one per rank) over P17_TDP_PLANES planes
+P17_RANKS = 2
+# phase 13's design point planes: its rays after them are the reference
+P17_MG_PLANES = MG_DESIGN_PLANES
+P17_TDP_PLANES = 2
+# the small traces: ranks, and the MG cases at MG_TRACE_ORDERS (MG_TRACE_PLANES of
+# P16_TRACE_PARTICLES at pixel centres); THREEDPOT at TDP_TRACE
+P17_TRACE_RANKS = (2, 4)
+P17_MG_CASES = {"default": {},
+                "MGConvFact 0.1 + SPH": dict(MGConvFact=0.1,
+                                             DepositScheme="SPH")}
+# the slab solve rounds two float32 transforms (forward and inverse, both
+# complex64, as the JAX slab solve) where the one-device solve rounds one
+# (its inverse is complex128): its distance from the one-device potential
+# is held to this many times phase 14's bound on the card's float32
+# distance (TDP_F64_FACTOR times the distance at TDP_CPU_NFFT)
+P17_SLAB_TRANSFORMS = 2
+def p17_mg_run(mesh, device, ref_dir):
+    """The MG design point on `mesh` (None: one device): plane
+    P17_MG_PLANES[0] untimed, then P17_MG_PLANES[1] timed with Profile set
+    (on a mesh with the collectives timed between syncs); its launches and
+    V-cycles, the peak memory.  One device writes the A and alpha rows of
+    its final rays, one file per rank's column block, into ref_dir; a rank
+    reads its block and returns its distance from it."""
+    import torch
+    from calclens_tpu_torch import _ext
+    from calclens_tpu_torch.driver import Raytracer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = mg_config(MG_ORDERS)
+    t0 = time.perf_counter()
+    rt = Raytracer(cfg, device=device, mesh=mesh)
+    rt.init_rays()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    pos, mass = seeded_particles(MG_PARTICLES, 1.0, 12)
+    staged = {p: rt.stage_particles(pos * (250.0 * p + 125.0), mass)
+              for p in P17_MG_PLANES}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first, timed = P17_MG_PLANES
+    t = time.perf_counter()
+    rt.step(first, *staged[first])
+    first_s = time.perf_counter() - t
+    spent = {} if mesh is None else time_collectives(mesh)
+    rt.cfg.Profile = True
+    _ext.reset_launches()
+    t = time.perf_counter()
+    rt.step(timed, *staged[timed])  # ends in torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    launches = {k: v for k, v in _ext.launches.items() if v}
+    untime_collectives(mesh)
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(rt.rays_packed).all()),
+          "phase 17 MG design point: non-finite rays")
+    out = dict(rank=out_rank(mesh), setup_s=setup_s,
+               first_s=first_s, step_s=step_s,
+               row=dict(rt.phase_rows)[timed], launches=launches,
+               cycles=dict(rt.mg_cycles), peak=peak, collectives=spent,
+               patches=(rt.mgsetup.C if mesh is None
+                        else mesh.block(rt.mgsetup.C)),
+               columns=(int(rt.ray_bounds[out_rank(mesh)]),
+                        int(rt.ray_bounds[out_rank(mesh) + 1])))
+    if mesh is None:
+        p17_save_mg_ref(rt.rays_packed, ref_dir)
+    else:
+        path = f"{ref_dir}/mg{mesh.rank}.npy"
+        ref = torch.from_numpy(np.load(path)).to(rt.rays_packed.device)
+        os.remove(path)
+        got = torch.cat([rt.rays_packed[a0:b0]
+                         for a0, b0 in P17_MG_ROWS.values()])
+        k = 0
+        out["dist"] = {}
+        for q, (a0, b0) in P17_MG_ROWS.items():
+            d = b0 - a0
+            out["dist"][q] = (float((got[k:k + d] - ref[k:k + d]).abs().max()),
+                              float(ref[k:k + d].abs().max()))
+            k += d
+        del ref, got
+    del rt, staged
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def out_rank(mesh):
+    return 0 if mesh is None else mesh.rank
+
+
+# the packed rows of the MG ranks' comparison with one rank
+P17_MG_ROWS = {"A": (6, 10), "alpha": (14, 16)}
+
+
+def p17_save_mg_ref(packed, ref_dir):
+    """The A and alpha rows of one device's rays, one file per rank's
+    column block (<ref_dir>/mg<rank>.npy): phase 17's MG reference."""
+    import torch
+
+    for r in range(P17_RANKS):
+        a, b = block_of(packed.shape[1], r)
+        np.save(f"{ref_dir}/mg{r}.npy", torch.cat(
+            [packed[a0:b0, a:b] for a0, b0 in P17_MG_ROWS.values()]
+        ).cpu().numpy())
+
+
+def p17_save_tdp_ref(rt, ref_dir):
+    """One device's THREEDPOT grid and rays (<ref_dir>/grid.npy,
+    rays.npy): phase 17's THREEDPOT reference."""
+    np.save(f"{ref_dir}/grid.npy", rt.threedpot._cached[2].cpu().numpy())
+    np.save(f"{ref_dir}/rays.npy", rt.rays_packed.cpu().numpy())
+
+
+def block_of(total, rank):
+    """Rank `rank`'s block of an axis of `total` on P17_RANKS ranks (the
+    Mesh's block_bounds)."""
+    from calclens_tpu_torch.parallel.sharding import block_bounds
+
+    b = block_bounds(total, P17_RANKS)
+    return int(b[rank]), int(b[rank + 1])
+
+
+def p17_tdp_run(mesh, device, tmp):
+    """THREEDPOT at full width on `mesh` (None: one device) from the
+    snapshot <tmp>/snap_full (two files): P17_TDP_PLANES planes through
+    Raytracer.step, plane 0 (with the grid build) by parts with CUDA
+    events (on a mesh with the collectives timed between syncs), the peak.
+    One device writes its grid and final rays into tmp; a rank returns
+    its x rows' distance from that grid and its columns' distance from
+    those rays, and the particles it deposited."""
+    import torch
+
+    from calclens_tpu_torch.driver import Raytracer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = threedpot_config(f"{tmp}/full.txt", TDP_RAY_ORDER, TDP_NFFT,
+                           TDP_MAX_DIST, TDP_PLANES)
+    rt = Raytracer(cfg, device=device, mesh=mesh)
+    rt.init_rays()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    spent = {} if mesh is None else time_collectives(mesh)
+    parts = {}
+    rt._timed_phase = lambda plane_num: event_phase(parts)
+    rt.cfg.Profile = True  # the step passes the hook only in Profile mode
+    times = []
+    for p in range(P17_TDP_PLANES):
+        if p == 1:
+            rt.cfg.Profile = False
+        t = time.perf_counter()
+        rt.step(p)  # ends in torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    untime_collectives(mesh)
+    peak = torch.cuda.max_memory_allocated()
+    d = rt.threedpot
+    check(d.builds == 1, f"phase 17 THREEDPOT grid built {d.builds} times")
+    check(bool(torch.isfinite(rt.rays_packed).all()),
+          "phase 17 THREEDPOT: non-finite rays")
+    grid = d._cached[2]
+    out = dict(rank=out_rank(mesh), times=times, peak=peak,
+               part_ms={tag: sum(a.elapsed_time(b) for a, b in v)
+                        for tag, v in parts.items()},
+               collectives=dict(spent), rows=d.rows_deposited,
+               files=[f for f, _ in d._my_files(d.snaps[0]["fname"])])
+    if mesh is None:
+        p17_save_tdp_ref(rt, tmp)
+    else:
+        a, b = mesh.block(TDP_NFFT)
+        ref = np.load(f"{tmp}/grid.npy", mmap_mode="r")
+        ref = torch.from_numpy(np.ascontiguousarray(ref[a:b])).to(
+            grid.device)
+        out["slab_dist"] = max_rel(grid[a:b], ref)
+        del ref
+        c0, c1 = (int(rt.ray_bounds[mesh.rank]),
+                  int(rt.ray_bounds[mesh.rank + 1]))
+        ref = torch.from_numpy(np.load(f"{tmp}/rays.npy")).to(grid.device)
+        out["ray_err"] = [
+            (float((rt.rays_packed[a0:b0] - ref[a0:b0, c0:c1]).abs().max()),
+             float(ref[a0:b0].abs().max()))
+            for a0, b0 in ((0, 3), (3, 6), (6, 10), (10, 14), (14, 16),
+                           (16, 20), (20, 21))]
+        del ref
+    del rt, grid, d
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def p17_full_rank(mesh, ref_dir):
+    """The two full-width runs on this rank of the shared card, against
+    the one-rank references in ref_dir."""
+    return dict(mg=p17_mg_run(mesh, mesh.device, ref_dir),
+                tdp=p17_tdp_run(mesh, mesh.device, ref_dir))
+
+
+def p17_trace_cases(mesh, device, tmp):
+    """The small traces on `mesh` (None: one device): the MG cases at
+    MG_TRACE_ORDERS over MG_TRACE_PLANES (each plane's launches and V-cycles),
+    and the THREEDPOT trace (TDP_TRACE's snapshots in tmp; each grid
+    built once); the whole rays after each case (host numpy)."""
+    import torch
+    from calclens_tpu_torch import _ext
+    from calclens_tpu_torch.driver import Raytracer
+
+    out = {}
+    for label, kw in P17_MG_CASES.items():
+        cfg = mg_config(MG_TRACE_ORDERS, **kw)
+        rt = Raytracer(cfg, device=device, mesh=mesh)
+        rt.init_rays()
+        counts = []
+        for p in range(MG_TRACE_PLANES):
+            pos, mass = pixel_centre_particles(cfg, rt.cosmo, p,
+                                               P16_TRACE_PARTICLES, 100 + p)
+            _ext.reset_launches()
+            rt.step(p, pos=pos, mass=mass)
+            counts.append({k: v for k, v in _ext.launches.items() if v})
+        out[label] = (rt.packed_global().cpu().numpy(), counts,
+                      dict(rt.mg_cycles))
+        del rt
+    T = TDP_TRACE
+    cfg = threedpot_config(f"{tmp}/trace.txt", T["ray_order"], T["nfft"],
+                           T["max_dist"], T["planes"])
+    rt = Raytracer(cfg, device=device, mesh=mesh)
+    rt.init_rays()
+    for p in range(T["planes"]):
+        rt.step(p)
+    out["threedpot"] = (rt.packed_global().cpu().numpy(), rt.threedpot.builds)
+    torch.cuda.synchronize()
+    return out
+
+
+def p17_trace_rank(mesh, tmp):
+    res = p17_trace_cases(mesh, mesh.device, tmp)
+    return dict(cases={k: ((v[0] if mesh.rank == 0 else None),) + v[1:]
+                       for k, v in res.items()}, calls=dict(mesh.calls))
+
+
+def p17_nccl(mesh, tmp, one):
+    """NCCL at world size 1: the small traces sharded on it against the
+    one-device traces `one` on the same card (grouped_row_err)."""
+    import torch
+
+    check(mesh.backend == "nccl" and mesh.size == 1, f"{mesh}")
+    res = p17_trace_cases(mesh, mesh.device, tmp)
+    errs = {k: grouped_row_err(torch.from_numpy(v[0]),
+                               torch.from_numpy(one[k][0]))
+            for k, v in res.items()}
+    return dict(errs=errs, calls=dict(mesh.calls))
+
+
+def p17_write_full_snapshot(tmp):
+    """Phase 14's full-width snapshot (TDP_PARTICLES in two files, its
+    seed) and its list, as threedpot_full writes them."""
+    pos = clumpy_snapshot(TDP_PARTICLES, TDP_BOX, 14)
+    write_lgadget(f"{tmp}/snap_full", pos, TDP_BOX, 1.0, 2)
+    del pos
+    with open(f"{tmp}/full.txt", "w") as fp:
+        fp.write(f"{tmp}/snap_full\n")
+
+
+def p17_write_trace_snapshots(tmp):
+    """TDP_TRACE's two snapshots (the second in two files) and their
+    list."""
+    from calclens_tpu_torch.cosmology import Cosmology
+
+    T = TDP_TRACE
+    cosmo = Cosmology(0.3)
+    stems = []
+    for k, chi in enumerate(T["snap_chi"]):
+        stem = f"{tmp}/snap_{k}"
+        write_lgadget(stem, clumpy_snapshot(T["particles"], T["box"], 20 + k,
+                                            T["clumps"]),
+                      T["box"], float(cosmo.acomvdist(chi)), k + 1)
+        stems.append(stem)
+    with open(f"{tmp}/trace.txt", "w") as fp:
+        fp.write("\n".join(stems) + "\n")
+
+
+def p17_coarse_distance(tmp, dev):
+    """Phase 14's float32 distance on the card at TDP_CPU_NFFT: the
+    snapshot's counts solved in float32 (potential_from_counts) against
+    float64 (solve_potential)."""
+    import torch
+    from calclens_tpu_torch import fftpot
+    from calclens_tpu_torch.cosmology import RHO_CRIT
+    from calclens_tpu_torch.io import lgadget
+
+    coarse = torch.zeros((TDP_CPU_NFFT,) * 3, dtype=torch.float32,
+                         device=dev)
+    for fn in fftpot.snapshot_files(f"{tmp}/snap_full"):
+        pos, _ = lgadget.read_positions_f32(fn)
+        fftpot.cic_deposit_3d(torch.from_numpy(pos).to(dev), TDP_CPU_NFFT,
+                              np.float32(TDP_BOX), coarse)
+    mp = RHO_CRIT * 0.3 * TDP_BOX ** 3 / TDP_PARTICLES
+    p32 = fftpot.potential_from_counts(coarse, TDP_CPU_NFFT, TDP_BOX, 1.0, mp)
+    p64 = fftpot.solve_potential(coarse.double(), TDP_CPU_NFFT, TDP_BOX, 1.0,
+                                 mp, torch.float64)
+    return max_rel(p32, p64)
+
+
+def p17_report_collectives(spent):
+    return ", ".join(f"{k} {v[0]:.4f} s / {v[1] / 1e9:.4f} GB sent "
+                     f"({v[2]} calls)" for k, v in sorted(spent.items()))
+
+
+def sharded_phase(dev, card, tmp, refs=None):
+    """Phase 17 (see the module docstring); prints and checks; returns the
+    MG ranks' results for the kernels line.  refs: (the directory where
+    phases 13 and 14 left the one-rank references and the snapshot, phase
+    14's float32 distance at TDP_CPU_NFFT); None makes them here, in tmp.
+    A generator for run_phases: it yields the parts its ranks run and
+    takes their results."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    from calclens_tpu_torch.parallel.sharding import make_mesh
+
+    t_phase = time.perf_counter()
+    rank_dev = f"cuda:{dev.index or 0}"
+    t0 = time.perf_counter()
+    p17_write_trace_snapshots(tmp)
+    if refs is None:
+        # one device: the references of the full-width runs
+        p17_write_full_snapshot(tmp)
+        mg_one = p17_mg_run(None, dev, tmp)
+        tdp_one = p17_tdp_run(None, dev, tmp)
+        refs = (tmp, p17_coarse_distance(tmp, dev))
+        torch.cuda.empty_cache()
+        say(f"phase 17: one rank on the card: MG design point plane "
+            f"{P17_MG_PLANES[1]} {mg_one['step_s']:.4f} s (first "
+            f"{mg_one['first_s']:.4f} s), peak {mg_one['peak'] / 2**30:.2f} "
+            f"GiB; THREEDPOT planes "
+            + ", ".join(f"{t:.4f}" for t in tdp_one["times"])
+            + f" s, peak {tdp_one['peak'] / 2**30:.2f} GiB")
+    ref_dir, d128 = refs
+    say(f"phase 17: snapshots and one-rank references ready "
+        f"({time.perf_counter() - t0:.1f} s; {ref_dir}: "
+        f"{shutil.disk_usage(ref_dir).free / 1e9:.1f} GB free); ranks share "
+        f"card 0 over gloo ({card}), not a scaling result; float32 "
+        f"potential vs float64 at NFFT {TDP_CPU_NFFT}: {d128:.3e}")
+
+    # the full-width runs on ranks sharing the card
+    t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    one = p17_trace_cases(None, dev, tmp)
+    say(f"phase 17 traces, one rank: V-cycles " + ", ".join(
+        f"{k} {v[2]}" for k, v in one.items() if k in P17_MG_CASES)
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    # the ranks: the full-width runs on P17_RANKS, the traces on each of
+    # P17_TRACE_RANKS
+    program = {P17_RANKS: [(p17_full_rank, (ref_dir,))]}
+    for n in P17_TRACE_RANKS:
+        program.setdefault(n, []).append((p17_trace_rank, (tmp,)))
+    res = yield program
+    full = [r[0] for r in res[P17_RANKS]]
+    mg_peaks = [r["mg"]["peak"] for r in full]
+    for r in full:
+        m = r["mg"]
+        dist_ = {q: a / b for q, (a, b) in m["dist"].items()}
+        say(f"phase 17 MG design point, rank {m['rank']} of {P17_RANKS} "
+            f"({card}): patches {m['patches']}, columns {m['columns']}, "
+            f"setup {m['setup_s']:.2f} s, plane {P17_MG_PLANES[0]} "
+            f"{m['first_s']:.4f} s, plane {P17_MG_PLANES[1]} (Profile'd) "
+            f"{m['step_s']:.4f} s: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in m["row"].items())
+            + f"; collectives (synced) {p17_report_collectives(m['collectives'])}"
+            f"; launches {m['launches']}; V-cycles {m['cycles']}; peak "
+            f"{m['peak'] / 2**30:.2f} GiB; vs one rank: A {dist_['A']:.3e}, "
+            f"alpha {dist_['alpha']:.3e} of max (bound "
+            f"{MASS_MAP_RAY_BOUND:g})")
+        check(max(dist_.values()) < MASS_MAP_RAY_BOUND,
+              f"phase 17 MG rank {m['rank']} vs one rank: {dist_}")
+        check(m["launches"] == PLANE_LAUNCHES["MG"],
+              f"phase 17 MG rank {m['rank']} launches {m['launches']}")
+        check(set(m["cycles"].values()) == {10},
+              f"phase 17 MG rank {m['rank']} V-cycles {m['cycles']}")
+        check(all(m["collectives"].get(k, [0, 0, 0])[2] > 0 for k in (
+            "reduce_scatter_blocks", "reduce_scatter_rows", "all_gather_cols",
+            "all_gather_rows", "exchange")),
+              f"phase 17 MG rank {m['rank']} collectives {m['collectives']}")
+    say(f"phase 17 MG design point: peaks sum {sum(mg_peaks) / 2**30:.2f} "
+        f"GiB (under {DEVICE_MEMORY / 1e9:.0f} GB)")
+    check(sum(mg_peaks) < DEVICE_MEMORY, f"phase 17 MG peaks {mg_peaks}")
+    slab_bound = P17_SLAB_TRANSFORMS * TDP_F64_FACTOR * d128
+    tdp_peaks = [r["tdp"]["peak"] for r in full]
+    for r in full:
+        t = r["tdp"]
+        pm = t["part_ms"]
+        rel = max(a / b for a, b in t["ray_err"])
+        say(f"phase 17 THREEDPOT NFFT {TDP_NFFT}, rayOrder {TDP_RAY_ORDER}, "
+            f"rank {t['rank']} of {P17_RANKS} ({card}): files "
+            f"{[os.path.basename(f) for f in t['files']]}, {t['rows']} "
+            f"particles; planes " + ", ".join(f"{x:.4f}" for x in t["times"])
+            + " s; plane 0 by parts (CUDA events): " + ", ".join(
+                f"{k} {pm[k]:.2f} ms" for k in TDP_PARTS if k in pm)
+            + f"; collectives (synced) "
+            f"{p17_report_collectives(t['collectives'])}; peak "
+            f"{t['peak'] / 2**30:.2f} GiB; its x rows vs the one-device "
+            f"potential {t['slab_dist']:.3e} (bound {P17_SLAB_TRANSFORMS} x "
+            f"{TDP_F64_FACTOR:g} x {d128:.3e} = {slab_bound:.3e}); its rays "
+            f"vs one rank {rel:.3e} (bound {TRACE_BOUND:g})")
+        check(t["slab_dist"] <= slab_bound and rel < TRACE_BOUND,
+              f"phase 17 THREEDPOT rank {t['rank']}: slab {t['slab_dist']}, "
+              f"rays {t['ray_err']}")
+        check(all(t["collectives"].get(k, [0, 0, 0])[2] > 0 for k in (
+            "reduce_scatter_rows", "exchange", "all_gather_rows")),
+              f"phase 17 THREEDPOT rank {t['rank']} collectives "
+              f"{t['collectives']}")
+    check(sum(r["tdp"]["rows"] for r in full) == TDP_PARTICLES
+          and sum(tdp_peaks) < DEVICE_MEMORY,
+          f"phase 17 THREEDPOT particles {[r['tdp']['rows'] for r in full]}"
+          f", peaks {tdp_peaks}")
+    say(f"phase 17 THREEDPOT: the ranks deposited "
+        f"{sum(r['tdp']['rows'] for r in full)} of {TDP_PARTICLES} particles;"
+        f" peaks sum {sum(tdp_peaks) / 2**30:.2f} GiB")
+
+    # the small traces on 2 and 4 ranks against one rank on the card
+    for n in P17_TRACE_RANKS:
+        res_n = [r[-1] for r in res[n]]
+        errs = {k: grouped_row_err(
+            torch.from_numpy(res_n[0]["cases"][k][0]),
+            torch.from_numpy(v[0])) for k, v in one.items()}
+        say(f"phase 17 traces f32, {n} ranks vs one rank on the card: MG "
+            f"order {MG_TRACE_ORDERS} {MG_TRACE_PLANES} planes, THREEDPOT "
+            f"NFFT {TDP_TRACE['nfft']} rayOrder {TDP_TRACE['ray_order']} "
+            f"{TDP_TRACE['planes']} planes: " + ", ".join(
+                f"{k} {e:.3e}" for k, e in errs.items())
+            + f" (bound {TRACE_BOUND:g}); rank 0 launches "
+            + "; ".join(f"{k} {res_n[0]['cases'][k][1]}"
+                        for k in P17_MG_CASES)
+            + f"; collectives {res_n[0]['calls']}")
+        check(max(errs.values()) < TRACE_BOUND,
+              f"phase 17 traces on {n} ranks: {errs}")
+        for r in res_n:
+            c = r["cases"]
+            for k in P17_MG_CASES:
+                check_plane_launches(f"phase 17 MG trace {k}, {n} ranks",
+                                     c[k][1], "MG")
+                check(c[k][2] == one[k][2],
+                      f"phase 17 MG trace {k} on {n} ranks: V-cycles "
+                      f"{c[k][2]}, one rank {one[k][2]}")
+            check(c["threedpot"][1] == 2,
+                  f"phase 17 THREEDPOT trace builds {c['threedpot'][1]}")
+
+    # NCCL at world size 1, in this process
+    t0 = time.perf_counter()
+    try:
+        nc = p17_nccl(make_mesh("nccl", f"file://{tmp}/nccl17", 0, 1,
+                                device=rank_dev), tmp, one)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    say(f"phase 17: NCCL world size 1, the traces vs one device: "
+        + ", ".join(f"{k} {e:.3e}" for k, e in nc["errs"].items())
+        + f" (bound {TRACE_BOUND:g}); collectives {nc['calls']} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(max(nc["errs"].values()) < TRACE_BOUND,
+          f"phase 17 NCCL world size 1: {nc}")
+    say(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return dict(mg=[r["mg"] for r in full])
+
+
+def run_program(mesh, program):
+    """One rank's parts in order: [fn(mesh, *args) for fn, args in
+    program], each part counting its own collectives (mesh.calls)."""
+    out = []
+    for fn, args in program:
+        mesh.calls.clear()
+        out.append(fn(mesh, *args))
+    return out
+
+
+def run_phases(phases, dev, tmp):
+    """Run the mesh phases (generators: each yields {ranks: [(fn, args),
+    ...]} and takes {ranks: [each rank's results of its parts]}) with one
+    spawn per rank count shared by all of them (parallel/launch.run_ranks,
+    ranks on the card over gloo): a spawn's ranks take ~10 s to reach the
+    card.  Returns each phase's value."""
+    from calclens_tpu_torch.parallel.launch import run_ranks
+
+    programs = [next(p) for p in phases]
+    results = [{} for _ in phases]
+    for n in sorted({n for prog in programs for n in prog}):
+        parts = [step for prog in programs for step in prog.get(n, [])]
+        t0 = time.perf_counter()
+        res = run_ranks(run_program, n, f"{tmp}/ranks{n}",
+                        device=f"cuda:{dev.index or 0}", timeout=P16_TIMEOUT,
+                        threads=0, args=(parts,))
+        say(f"{n} ranks sharing the card ran {len(parts)} parts in "
+            f"{time.perf_counter() - t0:.1f} s")
+        k = 0
+        for prog, out in zip(programs, results):
+            m = len(prog.get(n, []))
+            out[n] = [r[k:k + m] for r in res]
+            k += m
+    values = []
+    for p, out in zip(phases, results):
+        try:
+            p.send(out)
+        except StopIteration as stop:
+            values.append(stop.value)
+        else:
+            raise SmokeFailure("a mesh phase yielded twice")
+    return values
+
+
 def main():
     import torch
 
@@ -3742,16 +4352,18 @@ def main():
         stream_phase(dev, card)
         say(f"chip_smoke --phase 15: {time.perf_counter() - t_start:.1f} s")
         return
-    if sys.argv[1:] == ["--phase", "16"]:
-        with tempfile.TemporaryDirectory() as tmp:
-            mesh_phase(dev, card, tmp)
-        say(f"chip_smoke --phase 16: {time.perf_counter() - t_start:.1f} s")
-        return
+    for n, phase in (("16", mesh_phase), ("17", sharded_phase)):
+        if sys.argv[1:] == ["--phase", n]:
+            with tempfile.TemporaryDirectory() as tmp:
+                run_phases([phase(dev, card, tmp)], dev, tmp)
+            say(f"chip_smoke --phase {n}: "
+                f"{time.perf_counter() - t_start:.1f} s")
+            return
 
     t_phase = time.perf_counter()
     # 3. kernels vs twins at orders 8 and 10; times at order 10
     variants10 = None
-    for order, reps in ((8, 1), (10, 5)):
+    for order, reps in ((8, 1), (10, 3)):
         plan, _, streams, ana = band_limited_inputs(order, dev, order)
         k1, k2 = compare_kernels(plan, streams, ana, reps)
         for name, k, bound in (("K1 legendre_analysis", k1, K1_BOUND),
@@ -3799,7 +4411,7 @@ def main():
     say(f"phase 4: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     # 5. headline shape through Raytracer.step, default then variant
-    h = headline("k2", "k1", (2, 3, 4), snapshot_after=3,
+    h = headline("k2", "k1", (2, 3), snapshot_after=3,
                  maps_order=MAP_ORDER, profile_plane=5,
                  compare_mode=("uniform" if DEFAULT_SYNTHESIS_RINGS_MODE
                                != "uniform" else None))
@@ -3937,7 +4549,7 @@ def main():
     # 10. the deposit schemes and sky cuts at the headline shape: SPH (K1
     # eight times per plane), CIC in the octant box with its lens maps, and
     # one precomputed mass-map plane against the particle path
-    hs = headline("k2", "k1", (2, 3), snapshot_after=None, profile_plane=4,
+    hs = headline("k2", "k1", (2,), snapshot_after=None, profile_plane=4,
                   DepositScheme="SPH")
     report_headline_path("SPH headline", hs, "SPH")
     torch.cuda.empty_cache()
@@ -3945,7 +4557,7 @@ def main():
     say(f"one kernel_bl window at lmax 1023: scipy eval_legendre route "
         f"{scipy_s:.3f} s, the port's recurrence {port_s:.4f} s (equal "
         f"values)")
-    hc = headline("k2", "k1", (2, 3), snapshot_after=None,
+    hc = headline("k2", "k1", (2,), snapshot_after=None,
                   maps_order=MAP_ORDER, profile_plane=4,
                   DepositScheme="CIC", **OCTANT)
     report_headline_path("cut-sky CIC headline (octant)", hc, "CIC")
@@ -3993,8 +4605,11 @@ def main():
 
     # 13. the multigrid step at its design point, the small MG traces, and
     # the ray outputs (the headline rays' files; run() with every output)
+    # phases 13 and 14 leave phase 17's one-rank references and the
+    # THREEDPOT snapshot here
+    refs = tempfile.TemporaryDirectory()
     t0 = time.perf_counter()
-    mgr = mg_rayio_phase(snap, card)
+    mgr = mg_rayio_phase(snap, card, refs.name)
     del snap
     say(f"phase 13: {time.perf_counter() - t0:.1f} s")
     mg_launches = mgr["design"]["launches"]
@@ -4003,7 +4618,8 @@ def main():
     # 14. the THREEDPOT path at full width (NFFT 1024, 2^27 particles in two
     # files, rayOrder 10) and its card-vs-CPU trace
     t0 = time.perf_counter()
-    report_threedpot(threedpot_phase(), card)
+    tdp = threedpot_phase(refs.name)
+    report_threedpot(tdp, card)
     say(f"phase 14: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
@@ -4016,10 +4632,20 @@ def main():
     k3s = p15["counts"][K3_STREAM[0]]["k3"]
     torch.cuda.empty_cache()
 
-    # 16. the multi-device path on ranks that share the card
-    with tempfile.TemporaryDirectory() as tmp:
-        p16 = mesh_phase(dev, card, tmp)
+    # 16. the multi-device path on ranks that share the card, and 17. the
+    # sharded multigrid step and the slab-decomposed THREEDPOT solve, their
+    # ranks in shared spawns
+    with tempfile.TemporaryDirectory() as tmp16, \
+            tempfile.TemporaryDirectory() as tmp17:
+        p16, p17 = run_phases([
+            mesh_phase(dev, card, tmp16),
+            sharded_phase(dev, card, tmp17, (
+                refs.name, tdp["full"]["potential"]["card_coarse"]))],
+            dev, tmp16)
+    refs.cleanup()
     torch.cuda.empty_cache()
+    # the sharded MG step's launches on each rank in its timed plane
+    mesh_mg = [r["launches"] for r in p17["mg"]]
     sharded = {k: dict(ranks=P16_HEAD_RANKS,
                        launches_per_rank_per_plane=[
                            [r["launches"].get(k, 0) for r in h["rows"]]
@@ -4049,6 +4675,8 @@ def main():
               sph_launches=hs["counts"]["legendre_analysis"],
               gals_run_launches=gals_launches["legendre_analysis"],
               mg_launches=mg_launches["legendre_analysis"],
+              mesh_mg_launches=[r.get("legendre_analysis", 0)
+                                for r in mesh_mg],
               order13=dict(ms=k13["k1_ms"], rows_max_abs_err=k13["k1"][1],
                            launches_per_plane=o13["counts"][0][
                                "legendre_analysis"])),
@@ -4067,7 +4695,9 @@ def main():
               "calclens_tpu/sht/pallas_legendre_mx.py:124",
               mg_launches["legendre_synth_phi"], v12["legendre_synth_phi"][1],
               v12["legendre_synth_phi"][2], v10["legendre_synth_phi"][3],
-              plain_order=10, alm2map_launches=phi_launches),
+              plain_order=10, alm2map_launches=phi_launches,
+              mesh_mg_launches=[r.get("legendre_synth_phi", 0)
+                                for r in mesh_mg]),
         entry("legendre_synth_vpu", "legendre_synth_vpu.cu",
               "calclens_tpu/sht/pallas_legendre.py:49",
               hv["counts"]["legendre_synth_vpu"],

@@ -214,7 +214,7 @@ def test_import_port_leaves_jax_unloaded():
         "for mod in ('fftpot', 'io.lgadget', 'io.lightcone', 'io.lensplanes',\n"
         "            'lensplane_maker', 'testing.pointmass',\n"
         "            'testing.sph_oracle', 'parallel.sharding',\n"
-        "            'parallel.halo', 'parallel.launch'):\n"
+        "            'parallel.halo', 'parallel.launch', 'parallel.slabfft'):\n"
         "    assert 'calclens_tpu_torch.' + mod in sys.modules, mod\n"
         "assert 'h5py' not in sys.modules, 'h5py loaded at import'\n"
         "for script in ('chip_smoke.py', 'bench_torch.py'):\n"
