@@ -12,18 +12,19 @@
 // directly in log2 space (stored value in [2^-32, 2^32) times 2^(64 k)),
 // and a per-element scale counter k rescales by 2^-64 whenever |p| > 2^32;
 // lambda = p for k == 0, p * 2^-64 for k == -1 and 0 below (the
-// reference's plmgen rescaling and lmin cutoff).  Blocks whose m lies at or
-// beyond the j-tile's turning-point cutoff mcut (transforms.m_cutoff on the
-// tile's largest sin theta) contribute nothing and exit at once.
+// reference's plmgen rescaling and lmin cutoff).  A tile whose cutoff mcut
+// (transforms.m_cutoff on the tile's largest sin theta) lies at or below m
+// contributes nothing to the row and is skipped.
 //
 // What bounds it on the H100: instruction issue.  The inputs (E, O) are
 // read once and alm is written once; per (l, m, j) element the function
 // needs the recurrence's 4 operations, rounded one by one as the twin
 // rounds them (no FMA), and 2 FMAs (re, im): 6 issue slots.  The sum runs
 // over j, across threads, so a cross-thread reduction comes on top.
-// Design: a block is one m times a 512-ring tile; each of its 128 threads
-// carries the recurrence of 4 rings (one warp: 128 consecutive rings) in
-// registers and sums their products locally.
+// Design: a block is one m row and walks that row's 512-ring tiles in
+// order; each of its 128 threads carries the recurrence of 4 rings of the
+// tile (one warp: 128 consecutive rings) in registers and sums their
+// products locally.
 //  - The seed row l == m is peeled off the loop; a warp then runs its
 //    degrees in groups of 16, each in one of three modes chosen by a vote
 //    after the previous group (legendre_common.cuh's analysis_sweep, which
@@ -40,11 +41,18 @@
 //    the sum are free of bank conflicts), then 8 threads per degree sum the
 //    degree's 128 partials and 3 shuffles combine them.  The partials are
 //    double-buffered: one barrier per 16 degrees.
-//  - The 512-ring tiles of a degree are combined with atomicAdd into the
-//    zeroed alm buffer.  So for J > 512 (HEALPix order >= 9) the order of
-//    the final f32 sums can change from run to run and the last bits of alm
-//    with it; for J <= 512 the kernel is deterministic.
-//  - The recurrence coefficients of 128 degrees are computed once per block
+//  - The 512-ring tiles of a degree are combined in a fixed order: tile
+//    by tile, the block's thread that sums a degree adds that tile's sum
+//    to the degree's alm element (a load, an add, a store: no other block
+//    touches the row, and the same thread holds the element in every
+//    tile).  So alm is the same bits on every run, and a row's bits depend
+//    only on that row's inputs, not on the launch's m0 or nm; the TPU
+//    kernel's j grid axis adds its tiles in order too.  The rows run
+//    longest first (m = m0 first: the most degrees and the most tiles
+//    below the cutoff), so the short rows fill the tail of the launch.
+//    The combine moves 16 B per (m, l, tile) below the cutoff (alm's re
+//    and im read and written).
+//  - The recurrence coefficients of 128 degrees are computed once per tile
 //    into shared memory instead of two square roots per degree in every
 //    thread.
 
@@ -92,7 +100,7 @@ struct Analysis : Rings<kRings> {
 };
 
 // kRowOffset: the rows start at m0 > 0 (a rank's block of m rows); without
-// it m is blockIdx.y, the one-device code, which ptxas schedules 5 % faster
+// it m is blockIdx.x, the one-device code, which ptxas schedules 5 % faster
 // than the same sweep with a runtime offset (chip_smoke.py phase 6 and
 // tools/legendre_variants.py on an H100)
 template <bool kRowOffset>
@@ -108,10 +116,8 @@ legendre_analysis_kernel(const float* __restrict__ ere,
                          float* __restrict__ alm_re,  // [nm, nl], zeroed
                          float* __restrict__ alm_im,
                          int nl, int J, int m0) {
-  const int jt = blockIdx.x;
-  const int mr = blockIdx.y;  // input and output row; m = m0 + mr
+  const int mr = blockIdx.x;  // input and output row; m = m0 + mr
   const int m = kRowOffset ? m0 + mr : mr;
-  if (m >= mcut[jt]) return;  // whole (m, tile) below f32 significance
 
   __shared__ __align__(16) float2 coef[kChunkL];  // (a, b) per degree
   __shared__ __align__(16) float red[2][kRedL][kRedRow];
@@ -120,60 +126,75 @@ legendre_analysis_kernel(const float* __restrict__ ere,
   const int lane = t & 31;
   const float mf = static_cast<float>(m);
   const float logc_m = logc[mr];
-
-  Analysis s;
-  float sv[kRings];
-  int sk[kRings];
-#pragma unroll
-  for (int q = 0; q < kRings; ++q) {
-    // warp w holds rings 128 w .. 128 w + 127 of the tile
-    const int j = jt * kTileJ + (t >> 5) * (32 * kRings) + q * 32 + lane;
-    s.er[q] = s.ei[q] = s.orr[q] = s.oi[q] = 0.0f;
-    s.c[q] = 0.0f;
-    sv[q] = 0.0f;
-    sk[q] = 0;
-    if (j < J) {
-      const size_t o = static_cast<size_t>(mr) * J + j;
-      s.er[q] = ere[o];
-      s.ei[q] = eim[o];
-      s.orr[q] = ore[o];
-      s.oi[q] = oim[o];
-      s.c[q] = cth[j];
-      diag_seed(logc_m, mf, ln_sth[j], sv[q], sk[q]);
-    }
-  }
+  float* const row_re = alm_re + static_cast<size_t>(mr) * nl;
+  float* const row_im = alm_im + static_cast<size_t>(mr) * nl;
 
   // the cross-thread sum of one block of kRedL degrees: thread t sums
   // every kSumThreads-th float4 of row t / kSumThreads
   const int sum_row = t / kSumThreads;
   const int sum_col = t % kSumThreads;
 
-  int buf = 0;
-  calclens::analysis_sweep<kRedL, kRedRow>(
-      s, coef, m, nl, sv, sk, [&] { return &red[buf][0][2 * t]; },
-      [&](int lb, bool) {
-        __syncthreads();  // the partials of these kRedL degrees are stored
-        const float4* row =
-            reinterpret_cast<const float4*>(&red[buf][sum_row][0]);
-        float sr = 0.0f, si = 0.0f;
+  const int ntiles = (J + kTileJ - 1) / kTileJ;
+  for (int jt = 0; jt < ntiles; ++jt) {
+    if (m >= mcut[jt]) continue;  // whole (m, tile) below f32 significance
+
+    Analysis s;
+    float sv[kRings];
+    int sk[kRings];
 #pragma unroll
-        for (int v = sum_col; v < kRowVec; v += kSumThreads) {
-          const float4 x = row[v];
-          sr += x.x + x.z;
-          si += x.y + x.w;
-        }
+    for (int q = 0; q < kRings; ++q) {
+      // warp w holds rings 128 w .. 128 w + 127 of the tile
+      const int j = jt * kTileJ + (t >> 5) * (32 * kRings) + q * 32 + lane;
+      s.er[q] = s.ei[q] = s.orr[q] = s.oi[q] = 0.0f;
+      s.c[q] = 0.0f;
+      sv[q] = 0.0f;
+      sk[q] = 0;
+      if (j < J) {
+        const size_t o = static_cast<size_t>(mr) * J + j;
+        s.er[q] = ere[o];
+        s.ei[q] = eim[o];
+        s.orr[q] = ore[o];
+        s.oi[q] = oim[o];
+        s.c[q] = cth[j];
+        diag_seed(logc_m, mf, ln_sth[j], sv[q], sk[q]);
+      }
+    }
+
+    int buf = 0;
+    calclens::analysis_sweep<kRedL, kRedRow>(
+        s, coef, m, nl, sv, sk, [&] { return &red[buf][0][2 * t]; },
+        [&](int lb, bool) {
+          // this thread's alm element of the block, read before the
+          // barrier so that its latency overlaps the wait
+          const int l = lb + sum_row;
+          const bool mine = sum_col == 0 && l < nl;
+          float ar = 0.0f, ai = 0.0f;
+          if (mine) {
+            ar = row_re[l];
+            ai = row_im[l];
+          }
+          __syncthreads();  // the partials of these kRedL degrees are stored
+          const float4* row =
+              reinterpret_cast<const float4*>(&red[buf][sum_row][0]);
+          float sr = 0.0f, si = 0.0f;
 #pragma unroll
-        for (int off = kSumThreads / 2; off > 0; off >>= 1) {
-          sr += __shfl_xor_sync(0xffffffffu, sr, off);
-          si += __shfl_xor_sync(0xffffffffu, si, off);
-        }
-        if (sum_col == 0 && lb + sum_row < nl) {
-          const size_t o = static_cast<size_t>(mr) * nl + lb + sum_row;
-          atomicAdd(alm_re + o, sr);
-          atomicAdd(alm_im + o, si);
-        }
-        buf ^= 1;  // the next block of partials goes to the other buffer
-      });
+          for (int v = sum_col; v < kRowVec; v += kSumThreads) {
+            const float4 x = row[v];
+            sr += x.x + x.z;
+            si += x.y + x.w;
+          }
+#pragma unroll
+          for (int off = kSumThreads / 2; off > 0; off >>= 1) {
+            sr += __shfl_xor_sync(0xffffffffu, sr, off);
+            si += __shfl_xor_sync(0xffffffffu, si, off);
+          }
+          if (mine) {
+            row_re[l] = __fadd_rn(ar, sr);
+            row_im[l] = __fadd_rn(ai, si);
+          }
+          buf ^= 1;  // the next block of partials goes to the other buffer
+        });
+  }
 }
 
 }  // namespace
@@ -181,20 +202,20 @@ legendre_analysis_kernel(const float* __restrict__ ere,
 // E/O real and imaginary planes [nm, J] of the m rows m0 .. m0 + nm - 1;
 // cth, ln_sth [J]; logc [nm] (of those rows);
 // mcut [ceil(J / 512)] int32; alm_re/alm_im [nm, nl] (TRANSPOSED, zeroed by
-// the caller).  Returns cudaGetLastError() after the launch.
+// the caller).  One block per row, row 0 (the longest) first.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int legendre_analysis_launch(
     const float* ere, const float* eim, const float* ore, const float* oim,
     const float* cth, const float* ln_sth, const float* logc, const int* mcut,
     float* alm_re, float* alm_im, int nl, int nm, int J, int m0,
     void* stream) {
-  const dim3 grid((J + kTileJ - 1) / kTileJ, nm);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m0 != 0) {
-    legendre_analysis_kernel<true><<<grid, kThreads, 0, s>>>(
+    legendre_analysis_kernel<true><<<nm, kThreads, 0, s>>>(
         ere, eim, ore, oim, cth, ln_sth, logc, mcut, alm_re, alm_im, nl, J,
         m0);
   } else {
-    legendre_analysis_kernel<false><<<grid, kThreads, 0, s>>>(
+    legendre_analysis_kernel<false><<<nm, kThreads, 0, s>>>(
         ere, eim, ore, oim, cth, ln_sth, logc, mcut, alm_re, alm_im, nl, J,
         0);
   }

@@ -13,9 +13,9 @@
 // route: the recurrence first STORES lambda for a block of degrees, then the
 // block is contracted over the rings against the parity-resolved sources.
 // The TPU kernel held a [32 m, 128 l, 512 j] lambda tile (8 MB of VMEM) and
-// contracted it on the MXU at HIGHEST precision; here a block is one m times
-// a 512-ring tile, each warp stores 16 degrees of its 128 rings and
-// contracts them on the tensor cores.
+// contracted it on the MXU at HIGHEST precision; here a block is one m row
+// and walks its 512-ring tiles in order, and in each tile each warp stores
+// 16 degrees of its 128 rings and contracts them on the tensor cores.
 //
 // What bounds it on the H100: instruction issue on the CUDA cores.  Per
 // (l, m, j) element the recurrence costs 4 rounded operations there (no
@@ -51,9 +51,12 @@
 //    tools/legendre_variants.py) was 6 % slower;
 //  - each degree keeps the pair of its l parity; the four warps' partial
 //    sums of a block of degrees meet in shared memory (one barrier per 16
-//    degrees) and the 512-ring tiles of a degree are combined with
-//    atomicAdd into the zeroed alm buffer, as in K1: for J > 512 the last
-//    bits of alm can change from run to run.
+//    degrees), and the 512-ring tiles of a degree are combined in a fixed
+//    order, as in K1: tile by tile, one thread per (degree, re or im) adds
+//    the tile's sum to the alm element, which no other block touches.  So
+//    alm is the same bits on every run, and a row's bits depend only on
+//    that row's inputs, not on the launch's m0 or nm.  The rows run
+//    longest first.
 
 #include <cuda_runtime.h>
 
@@ -124,10 +127,8 @@ legendre_analysis_dot_kernel(const float* __restrict__ ere,
                              float* __restrict__ alm_re,  // [nm, nl], zeroed
                              float* __restrict__ alm_im,
                              int nl, int J, int m0) {
-  const int jt = blockIdx.x;
-  const int mr = blockIdx.y;  // input and output row; m = m0 + mr
+  const int mr = blockIdx.x;  // input and output row; m = m0 + mr
   const int m = m0 + mr;
-  if (m >= mcut[jt]) return;  // whole (m, tile) below f32 significance
 
   __shared__ __align__(16) float2 coef[kChunkL];  // (a, b) per degree
   __shared__ __align__(16) float lam_s[kWarps][kBlockL][kRow];
@@ -139,115 +140,125 @@ legendre_analysis_dot_kernel(const float* __restrict__ ere,
   const float mf = static_cast<float>(m);
   const bool m_even = (m & 1) == 0;
   const size_t mrow = static_cast<size_t>(mr) * J;
-  const int jw = jt * kTileJ + w * kWarpJ;  // the warp's first ring
+  // thread t < 2 kBlockL combines degree t / 2 of a block, re (t even) or
+  // im (t odd), into this element of the row
+  float* const row = ((t & 1) ? alm_im : alm_re) + static_cast<size_t>(mr) * nl;
 
-  // ring q of a thread: jw + 32 q + lane, stored at column 4 lane + q
-  Store s;
-  float sv[kRings];
-  int sk[kRings];
-#pragma unroll
-  for (int q = 0; q < kRings; ++q) {
-    const int j = jw + 32 * q + lane;
-    s.c[q] = 0.0f;
-    sv[q] = 0.0f;
-    sk[q] = 0;
-    if (j < J) {
-      s.c[q] = cth[j];
-      diag_seed(logc[mr], mf, ln_sth[j], sv[q], sk[q]);
-    }
-  }
+  const int ntiles = (J + kTileJ - 1) / kTileJ;
+  for (int jt = 0; jt < ntiles; ++jt) {
+    if (m >= mcut[jt]) continue;  // whole (m, tile) below f32 significance
+    const int jw = jt * kTileJ + w * kWarpJ;  // the warp's first ring
 
-  // the sources at column v = 4 p' + q of the warp's rows: ring
-  // jw + 32 q + p'.  The B fragment of k-step 2p + h (rows kk = tig,
-  // tig + 4 of the 8-ring step) is columns 16 p + 4 tig + 2 h + (0, 1);
-  // column n = g of B is source g & 3 (S0 re, S0 im, S1 re, S1 im), its
-  // high part for g < 4 and its low part for g >= 4.
-  const int g = lane >> 2, tig = lane & 3;
-  uint32_t bf[8][4];
-  {
-    const float* s0r = m_even ? ere : ore;
-    const float* s0i = m_even ? eim : oim;
-    const float* s1r = m_even ? ore : ere;
-    const float* s1i = m_even ? oim : eim;
-    const float* src = (g & 3) == 0 ? s0r : (g & 3) == 1 ? s0i
-                       : (g & 3) == 2 ? s1r : s1i;
+    // ring q of a thread: jw + 32 q + lane, stored at column 4 lane + q
+    Store s;
+    float sv[kRings];
+    int sk[kRings];
 #pragma unroll
-    for (int p = 0; p < 8; ++p) {
-#pragma unroll
-      for (int q = 0; q < kRings; ++q) {
-        const int j = jw + 32 * q + 4 * p + tig;
-        const float x = j < J ? src[mrow + j] : 0.0f;
-        uint32_t hi, lo;
-        split(x, hi, lo);
-        bf[p][q] = g < 4 ? hi : lo;
+    for (int q = 0; q < kRings; ++q) {
+      const int j = jw + 32 * q + lane;
+      s.c[q] = 0.0f;
+      sv[q] = 0.0f;
+      sk[q] = 0;
+      if (j < J) {
+        s.c[q] = cth[j];
+        diag_seed(logc[mr], mf, ln_sth[j], sv[q], sk[q]);
       }
     }
-  }
 
-  int buf = 0;
-  calclens::analysis_sweep<kBlockL, kRow>(
-      s, coef, m, nl, sv, sk, [&] { return &lam_s[w][0][4 * lane]; },
-      [&](int lb, bool stored) {
-        __syncwarp();  // the warp's lambda of these 16 degrees is stored
-        if (!stored) {
-          if (lane < kBlockL) part[buf][w][lane] = make_float2(0.0f, 0.0f);
-        } else {
-          // the 16 degrees' sums over the warp's rings, lambda's high and
-          // low parts in two sums: two independent chains
-          float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          float e[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          const float* r0 = &lam_s[w][g][4 * tig];
-          const float* r1 = &lam_s[w][g + 8][4 * tig];
+    // the sources at column v = 4 p' + q of the warp's rows: ring
+    // jw + 32 q + p'.  The B fragment of k-step 2p + h (rows kk = tig,
+    // tig + 4 of the 8-ring step) is columns 16 p + 4 tig + 2 h + (0, 1);
+    // column n = g of B is source g & 3 (S0 re, S0 im, S1 re, S1 im), its
+    // high part for g < 4 and its low part for g >= 4.
+    const int g = lane >> 2, tig = lane & 3;
+    uint32_t bf[8][4];
+    {
+      const float* s0r = m_even ? ere : ore;
+      const float* s0i = m_even ? eim : oim;
+      const float* s1r = m_even ? ore : ere;
+      const float* s1i = m_even ? oim : eim;
+      const float* src = (g & 3) == 0 ? s0r : (g & 3) == 1 ? s0i
+                         : (g & 3) == 2 ? s1r : s1i;
 #pragma unroll
-          for (int p = 0; p < 8; ++p) {
-            const float4 x = *reinterpret_cast<const float4*>(r0 + 16 * p);
-            const float4 y = *reinterpret_cast<const float4*>(r1 + 16 * p);
-            uint32_t ah[4], al[4];
-            // k-step 2p: columns (tig, tig + 4) = stored (x, y).(x, y)
-            split(x.x, ah[0], al[0]);
-            split(y.x, ah[1], al[1]);
-            split(x.y, ah[2], al[2]);
-            split(y.y, ah[3], al[3]);
-            mma_tf32(d, ah, bf[p][0], bf[p][1]);
-            mma_tf32(e, al, bf[p][0], bf[p][1]);
-            // k-step 2p + 1: stored (x, y).(z, w)
-            split(x.z, ah[0], al[0]);
-            split(y.z, ah[1], al[1]);
-            split(x.w, ah[2], al[2]);
-            split(y.w, ah[3], al[3]);
-            mma_tf32(d, ah, bf[p][2], bf[p][3]);
-            mma_tf32(e, al, bf[p][2], bf[p][3]);
-          }
-          // d = rows (g, g + 8) x columns (2 tig, 2 tig + 1): tig 0 and 1
-          // hold S0 and S1 (re, im) of the high parts, tig 2 and 3 of the
-          // low
+      for (int p = 0; p < 8; ++p) {
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            d[c] += e[c];
-            d[c] += __shfl_xor_sync(0xffffffffu, d[c], 2);
-          }
-          // rows g and g + 8 share the parity of degree lb + g
-          if (tig == ((lb + g) & 1)) {
-            part[buf][w][g] = make_float2(d[0], d[1]);
-            part[buf][w][g + 8] = make_float2(d[2], d[3]);
-          }
+        for (int q = 0; q < kRings; ++q) {
+          const int j = jw + 32 * q + 4 * p + tig;
+          const float x = j < J ? src[mrow + j] : 0.0f;
+          uint32_t hi, lo;
+          split(x, hi, lo);
+          bf[p][q] = g < 4 ? hi : lo;
         }
-        __syncthreads();  // every warp's partial sums of these degrees are in
-        if (t < 2 * kBlockL) {
-          const int dg = t >> 1;
-          if (lb + dg < nl) {
+      }
+    }
+
+    int buf = 0;
+    calclens::analysis_sweep<kBlockL, kRow>(
+        s, coef, m, nl, sv, sk, [&] { return &lam_s[w][0][4 * lane]; },
+        [&](int lb, bool stored) {
+          // this thread's alm element of the block, read before the
+          // barriers so that its latency overlaps the contraction
+          const int l = lb + (t >> 1);
+          const bool mine = t < 2 * kBlockL && l < nl;
+          const float old = mine ? row[l] : 0.0f;
+          __syncwarp();  // the warp's lambda of these 16 degrees is stored
+          if (!stored) {
+            if (lane < kBlockL) part[buf][w][lane] = make_float2(0.0f, 0.0f);
+          } else {
+            // the 16 degrees' sums over the warp's rings, lambda's high and
+            // low parts in two sums: two independent chains
+            float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            float e[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            const float* r0 = &lam_s[w][g][4 * tig];
+            const float* r1 = &lam_s[w][g + 8][4 * tig];
+#pragma unroll
+            for (int p = 0; p < 8; ++p) {
+              const float4 x = *reinterpret_cast<const float4*>(r0 + 16 * p);
+              const float4 y = *reinterpret_cast<const float4*>(r1 + 16 * p);
+              uint32_t ah[4], al[4];
+              // k-step 2p: columns (tig, tig + 4) = stored (x, y).(x, y)
+              split(x.x, ah[0], al[0]);
+              split(y.x, ah[1], al[1]);
+              split(x.y, ah[2], al[2]);
+              split(y.y, ah[3], al[3]);
+              mma_tf32(d, ah, bf[p][0], bf[p][1]);
+              mma_tf32(e, al, bf[p][0], bf[p][1]);
+              // k-step 2p + 1: stored (x, y).(z, w)
+              split(x.z, ah[0], al[0]);
+              split(y.z, ah[1], al[1]);
+              split(x.w, ah[2], al[2]);
+              split(y.w, ah[3], al[3]);
+              mma_tf32(d, ah, bf[p][2], bf[p][3]);
+              mma_tf32(e, al, bf[p][2], bf[p][3]);
+            }
+            // d = rows (g, g + 8) x columns (2 tig, 2 tig + 1): tig 0 and 1
+            // hold S0 and S1 (re, im) of the high parts, tig 2 and 3 of the
+            // low
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              d[c] += e[c];
+              d[c] += __shfl_xor_sync(0xffffffffu, d[c], 2);
+            }
+            // rows g and g + 8 share the parity of degree lb + g
+            if (tig == ((lb + g) & 1)) {
+              part[buf][w][g] = make_float2(d[0], d[1]);
+              part[buf][w][g + 8] = make_float2(d[2], d[3]);
+            }
+          }
+          __syncthreads();  // every warp's partial sums of these degrees are in
+          if (mine) {
+            const int dg = t >> 1;
             float v = 0.0f;
 #pragma unroll
             for (int u = 0; u < kWarps; ++u) {
               const float2 x = part[buf][u][dg];
               v += (t & 1) ? x.y : x.x;
             }
-            const size_t o = static_cast<size_t>(mr) * nl + lb + dg;
-            atomicAdd(((t & 1) ? alm_im : alm_re) + o, v);
+            row[l] = __fadd_rn(old, v);
           }
-        }
-        buf ^= 1;  // the next partial sums go to the other buffer
-      });
+          buf ^= 1;  // the next partial sums go to the other buffer
+        });
+  }
 }
 
 }  // namespace
@@ -255,14 +266,14 @@ legendre_analysis_dot_kernel(const float* __restrict__ ere,
 // E/O real and imaginary planes [nm, J] of the m rows m0 .. m0 + nm - 1;
 // cth, ln_sth [J]; logc [nm] (of those rows);
 // mcut [ceil(J / 512)] int32; alm_re/alm_im [nm, nl] (TRANSPOSED, zeroed by
-// the caller).  Returns cudaGetLastError() after the launch.
+// the caller).  One block per row, row 0 (the longest) first.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int legendre_analysis_dot_launch(
     const float* ere, const float* eim, const float* ore, const float* oim,
     const float* cth, const float* ln_sth, const float* logc, const int* mcut,
     float* alm_re, float* alm_im, int nl, int nm, int J, int m0,
     void* stream) {
-  const dim3 grid((J + kTileJ - 1) / kTileJ, nm);
-  legendre_analysis_dot_kernel<<<grid, kThreads, 0,
+  legendre_analysis_dot_kernel<<<nm, kThreads, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
       ere, eim, ore, oim, cth, ln_sth, logc, mcut, alm_re, alm_im, nl, J,
       m0);

@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from .cosmology import RHO_CRIT, CSOL
+from .ops.deposit import add_at
 from .poisson import RAY_CHUNK, _call
 
 FOUR_PI_G = 5.4061952545633574e-8  # Mpc (km/s)^2 / Msun (fftpoissonsolve.h:20)
@@ -117,8 +118,8 @@ def cic_deposit_3d(pos, nfft: int, L, out=None):
     """Periodic CIC of unit-weight particles pos [N, 3] (a tensor, in its
     own dtype) onto a float32 [nfft]^3 grid of counts, added into out when
     given.  The 8 corners are added in the JAX package's order, in chunks of
-    CIC_CHUNK particles, by index_add_ on the flat grid (atomic adds on the
-    card)."""
+    CIC_CHUNK particles, by one ops/deposit.add_at per chunk on the flat
+    grid (a fixed order of sums: the same bits on every run)."""
     L = torch.as_tensor(L, dtype=pos.dtype, device=pos.device)
     dL = L / nfft
     grid = out if out is not None else torch.zeros(
@@ -130,6 +131,7 @@ def cic_deposit_3d(pos, nfft: int, L, out=None):
         f = u - i0f
         i0 = i0f.to(torch.int64)
         del u, i0f
+        idx, val = [], []
         for dx in (0, 1):
             wx = 1.0 - f[:, 0] if dx == 0 else f[:, 0]
             ix = torch.remainder(i0[:, 0] + dx, nfft) * (nfft * nfft)
@@ -138,8 +140,11 @@ def cic_deposit_3d(pos, nfft: int, L, out=None):
                 ixy = ix + torch.remainder(i0[:, 1] + dy, nfft) * nfft
                 for dz in (0, 1):
                     wz = 1.0 - f[:, 2] if dz == 0 else f[:, 2]
-                    idx = ixy + torch.remainder(i0[:, 2] + dz, nfft)
-                    flat.index_add_(0, idx, (wx * wy * wz).to(torch.float32))
+                    idx.append(ixy + torch.remainder(i0[:, 2] + dz, nfft))
+                    val.append((wx * wy * wz).to(torch.float32))
+        del f, i0
+        add_at(flat, torch.cat(idx), torch.cat(val))
+        del idx, val
     return grid
 
 

@@ -407,7 +407,10 @@ def _dedup_rows_device(hit, ix, iy, tol):
 def _compact(flat, size):
     """Indices of the first `size` True entries of flat, 0-filled
     (jnp.nonzero(flat, size=size, fill_value=0)), by a cumulative sum and a
-    scatter: no host sync, unlike torch.nonzero."""
+    scatter: no host sync, unlike torch.nonzero.  The kept entries scatter
+    to distinct positions (the integer cumsum is exact), so the result does
+    not depend on the scatter's order; the rest all land in the dropped
+    slot `size`."""
     pos = torch.cumsum(flat, 0) - 1
     dest = torch.where(flat & (pos < size), pos, size)
     out = torch.zeros(size + 1, dtype=torch.long, device=flat.device)

@@ -25,6 +25,7 @@ from scipy.special import hyp2f1
 from .healpix import core as hp
 from .healpix import torchhp
 from .io import fits
+from .ops.deposit import add_at
 
 DRIVER_MAP_ORDER = 11  # reference raytrace.c map_n_side = 2048
 CMB_MAP_ORDER = 12     # propagate_to_cmb_from_restart.c order-12 maps
@@ -125,10 +126,11 @@ def accum_lens_map_fullsky(packed, ray_order: int, map_order: int,
 
 def update_lens_map_stacked(accum7, packed, lpix):
     """Add packed rays into the stacked [7, npix_map] accumulator at coarse
-    NEST pixels lpix [N] (general path: ray sets not on the full grid).
+    NEST pixels lpix [N] (general path: ray sets not on the full grid), in
+    a fixed order (ops/deposit.add_at: the same bits on every run).
     Returns a new tensor; accum7 is not changed."""
-    return accum7.index_add(1, lpix.long(),
-                            lens_vals_packed(packed).to(accum7.dtype))
+    return add_at(accum7.clone(), lpix,
+                  lens_vals_packed(packed).to(accum7.dtype), dim=1)
 
 
 def accum_lens_map_packed(packed, ray_nest, ray_order: int, map_order: int):

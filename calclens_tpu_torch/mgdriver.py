@@ -9,8 +9,9 @@ potential: the short-range force at resolution far beyond lmax.
 
 All C patches solve together as [C, N, N]; the particle deposit scatters
 each particle into its cell's patch and the 8 neighbouring cells' patches
-(patches overlap, MGPATCH_SIZE_FAC = 4 cell widths), with index_add_ on a
-flat view (atomic on a GPU, so the sums lose their order); derivatives at
+(patches overlap, MGPATCH_SIZE_FAC = 4 cell widths), by one
+ops/deposit.add_at on a flat view (a fixed order of sums: the same bits on
+every run); derivatives at
 the rays rotate the patch-basis gradient and Hessian back to the global
 (theta, phi) basis with exact 3-vector algebra (fill_uderivs_rays /
 rot_tangvectens analog, mgpoissonsolve.c:782-1346).
@@ -43,6 +44,7 @@ import torch.nn.functional as F
 from . import mg
 from .healpix import core as hp
 from .healpix import torchhp
+from .ops.deposit import add_at
 
 # patch cells per chunk of the BC fill, as a number of [N, N] elements
 FILL_CHUNK_ELEMS = 1 << 24
@@ -164,13 +166,16 @@ def _cic_patch_mass(setup: MGSetup, pos, w):
     wk = torch.where(ok, w[:, None], 0.0)
     grid = torch.zeros(setup.C * N * N, dtype=dt, device=dev)
     base = (cand * N + i0) * N + j0
+    idx, val = [], []
     for di in (0, 1):
         wi = (1.0 - fx) if di == 0 else fx
         for dj in (0, 1):
             wj = (1.0 - fy) if dj == 0 else fy
-            grid.index_add_(0, (base + (di * N + dj)).reshape(-1),
-                            (wk * wi * wj).reshape(-1))
-    return grid.view(setup.C, N, N)
+            idx.append((base + (di * N + dj)).reshape(-1))
+            val.append((wk * wi * wj).reshape(-1))
+    del base, fx, fy, wk
+    # the four corners' adds in the JAX package's order, as one add_at
+    return add_at(grid, torch.cat(idx), torch.cat(val)).view(setup.C, N, N)
 
 
 def _scale_patch_density(setup: MGSetup, grid, densfact, backdens):

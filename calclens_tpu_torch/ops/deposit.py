@@ -1,11 +1,12 @@
 """Particle -> HEALPix surface-density deposit (reference shtpoissonsolve.c
 step 1, :110-291): NGP, CIC and the sigma-bucketed SPH scheme.
 
-Port of calclens_tpu/ops/deposit.py: scatter-adds (`index_add_`) straight
-into the RING-ordered map, the SHT's native layout.  Masses are scaled by
+Port of calclens_tpu/ops/deposit.py: scatter-adds straight into the
+RING-ordered map, the SHT's native layout.  Masses are scaled by
 1/MASS_SCALE at deposit and rescaled in the Poisson solve
-(shtpoissonsolve.c:36,153) to keep float32 sums in range.  On CUDA the
-scatter-adds sum colliding particles in no fixed order.
+(shtpoissonsolve.c:36,153) to keep float32 sums in range.  Every
+scatter-add goes through add_at, which sums the values that meet in one
+pixel in a fixed order: the same bits on every run, on the card too.
 
 The SPH windows (kernel_bl, pixwin_disc_bl) are host numpy.  They give the
 JAX package's values bit for bit, but from one Legendre recurrence over all
@@ -25,23 +26,49 @@ from ..healpix import torchhp
 MASS_SCALE = 1e10  # reference shtpoissonsolve.c:36
 
 
+def add_at(out, idx, vals, dim=0):
+    """out[idx[i]] += vals[i] along dim for every i (the JAX package's
+    out.at[idx].add(vals)), in place, with the same bits on every run.
+
+    index_add_ on a CUDA tensor adds with atomics, so values that meet in
+    one element are summed in an order that changes from run to run.  Here
+    the indices are sorted stably, each run of equal indices is summed one
+    value after another in the order of i (XLA's order on the CPU), and the
+    sums are added to distinct elements: on the same inputs, the same bits
+    on the card as on the CPU.  The values go to segment_reduce as columns of a 2-D tensor,
+    which it sums with one thread per run and column (on a 1-D tensor its
+    CUDA form gives each run a tree of its own, in another order and far
+    slower on runs of a few values).  One host sync (the number of
+    distinct indices).  Indices are sorted as int32 where out allows it."""
+    if idx.numel() == 0:
+        return out
+    if out.shape[dim] < 2**31:
+        idx = idx.to(torch.int32)
+    key, perm = torch.sort(idx, stable=True)
+    uniq, counts = torch.unique_consecutive(key, return_counts=True)
+    v = vals.index_select(dim, perm).movedim(dim, 0)
+    sums = torch.segment_reduce(v.reshape(len(v), -1), "sum", lengths=counts)
+    return out.index_add_(dim, uniq,
+                          sums.view(-1, *v.shape[1:]).movedim(0, dim))
+
+
 def deposit_ngp(order: int, pos, mass, npix: int):
     """Nearest-grid-point deposit.  pos [N, 3] (any radius), mass [N]."""
     theta, phi = torchhp.vec2ang(pos)
     pix = torchhp.ang2pix_ring(theta, phi, order)
     m = torch.zeros((npix,), dtype=mass.dtype, device=mass.device)
-    return m.index_add_(0, pix, mass / MASS_SCALE)
+    return add_at(m, pix, mass / MASS_SCALE)
 
 
 def deposit_cic(tab: torchhp.InterpTables, pos, mass):
     """Cloud-in-cell deposit using the bilinear interpolation weights
-    (shtpoissonsolve.c:159-185): four scatter-adds."""
+    (shtpoissonsolve.c:159-185): the four taps' adds in the JAX package's
+    order (tap by tap, particle by particle), as one add_at."""
     theta, phi = torchhp.vec2ang(pos)
     pix, wgt = torchhp.get_interpol(tab, theta, phi)
     m = torch.zeros((tab.npix,), dtype=mass.dtype, device=mass.device)
-    for k in range(4):
-        m.index_add_(0, pix[..., k], mass * wgt[..., k] / MASS_SCALE)
-    return m
+    return add_at(m, pix.T.reshape(-1),
+                  (mass[None, :] * wgt.T / MASS_SCALE).reshape(-1))
 
 
 def smoothing_lengths(pos, comv_smoothing_scale, min_sl, max_sl):
@@ -80,17 +107,20 @@ def deposit_sph_bucketed(order: int, pos, mass, sl, sigmas, npix: int,
                     0.0, 1.0)
     m = torch.zeros((B * npix,), dtype=mass.dtype, device=mass.device)
     if tab is not None:
+        # per tap, the low bucket's adds then the high bucket's, as the
+        # JAX package orders them, each weight rounded as it rounds it
         pix4, wgt = torchhp.get_interpol(tab, theta, phi)
-        for k in range(4):
-            m.index_add_(0, lo * npix + pix4[..., k],
-                         mass * wgt[..., k] * (1.0 - t) / MASS_SCALE)
-            m.index_add_(0, hi * npix + pix4[..., k],
-                         mass * wgt[..., k] * t / MASS_SCALE)
-        return m.view(B, npix)
+        mw = mass[:, None] * wgt
+        idx = torch.stack([lo[:, None] * npix + pix4,
+                           hi[:, None] * npix + pix4])  # [2, N, 4]
+        val = torch.stack([mw * (1.0 - t)[:, None] / MASS_SCALE,
+                           mw * t[:, None] / MASS_SCALE])
+        return add_at(m, idx.permute(2, 0, 1).reshape(-1),
+                      val.permute(2, 0, 1).reshape(-1)).view(B, npix)
     pix = torchhp.ang2pix_ring(theta, phi, order)
-    m.index_add_(0, lo * npix + pix, mass * (1.0 - t) / MASS_SCALE)
-    m.index_add_(0, hi * npix + pix, mass * t / MASS_SCALE)
-    return m.view(B, npix)
+    return add_at(m, torch.cat([lo * npix + pix, hi * npix + pix]),
+                  torch.cat([mass * (1.0 - t) / MASS_SCALE,
+                             mass * t / MASS_SCALE])).view(B, npix)
 
 
 def legendre_table(lmax: int, x):

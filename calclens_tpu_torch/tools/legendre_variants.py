@@ -39,48 +39,48 @@ from . import cuda_ms, require_cuda
 # re, S1 re, S0 im, S1 im), two lanes per degree, each summing half of the
 # warp's 128 rings (the loop's start staggered by degree pair, for the
 # banks); the tensor-core branch stays in the source, unreached
-_K4_FP32_SOURCES = """  __shared__ __align__(16) float src_s[kWarps][4][kRow];
-  {
-    const float* src[4] = {m_even ? ere : ore, m_even ? ore : ere,
-                           m_even ? eim : oim, m_even ? oim : eim};
+_K4_FP32_SOURCES = """    __shared__ __align__(16) float src_s[kWarps][4][kRow];
+    {
+      const float* src[4] = {m_even ? ere : ore, m_even ? ore : ere,
+                             m_even ? eim : oim, m_even ? oim : eim};
 #pragma unroll
-    for (int q = 0; q < kRings; ++q) {
-      const int j = jw + 32 * q + lane;
+      for (int q = 0; q < kRings; ++q) {
+        const int j = jw + 32 * q + lane;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        src_s[w][r][4 * lane + q] = j < J ? src[r][mrow + j] : 0.0f;
+        for (int r = 0; r < 4; ++r) {
+          src_s[w][r][4 * lane + q] = j < J ? src[r][mrow + j] : 0.0f;
+        }
       }
     }
-  }
-  int buf = 0;
+    int buf = 0;
 """
-_K4_FP32_CONTRACTION = """        } else if (true) {
-          const int dg = lane >> 1, h = lane & 1;
-          const int par = (lb + dg) & 1;
-          const float* lr = &lam_s[w][dg][4 * h];
-          const float* sr = &src_s[w][par][4 * h];
-          const float* si = &src_s[w][2 + par][4 * h];
-          float pr = 0.0f, pim = 0.0f;
+_K4_FP32_CONTRACTION = """          } else if (true) {
+            const int dg = lane >> 1, h = lane & 1;
+            const int par = (lb + dg) & 1;
+            const float* lr = &lam_s[w][dg][4 * h];
+            const float* sr = &src_s[w][par][4 * h];
+            const float* si = &src_s[w][2 + par][4 * h];
+            float pr = 0.0f, pim = 0.0f;
 #pragma unroll
-          for (int it = 0; it < kWarpJ / 8; ++it) {
-            const int v = 8 * ((it + (dg >> 1)) & (kWarpJ / 8 - 1));
-            const float4 x = *reinterpret_cast<const float4*>(lr + v);
-            const float4 a = *reinterpret_cast<const float4*>(sr + v);
-            const float4 b = *reinterpret_cast<const float4*>(si + v);
-            pr += x.x * a.x;
-            pr += x.y * a.y;
-            pr += x.z * a.z;
-            pr += x.w * a.w;
-            pim += x.x * b.x;
-            pim += x.y * b.y;
-            pim += x.z * b.z;
-            pim += x.w * b.w;
-          }
-          pr += __shfl_xor_sync(0xffffffffu, pr, 1);
-          pim += __shfl_xor_sync(0xffffffffu, pim, 1);
-          if (h == 0) part[buf][w][dg] = make_float2(pr, pim);
-        } else {
-          // the 16 degrees' sums over the warp's rings, lambda's high and
+            for (int it = 0; it < kWarpJ / 8; ++it) {
+              const int v = 8 * ((it + (dg >> 1)) & (kWarpJ / 8 - 1));
+              const float4 x = *reinterpret_cast<const float4*>(lr + v);
+              const float4 a = *reinterpret_cast<const float4*>(sr + v);
+              const float4 b = *reinterpret_cast<const float4*>(si + v);
+              pr += x.x * a.x;
+              pr += x.y * a.y;
+              pr += x.z * a.z;
+              pr += x.w * a.w;
+              pim += x.x * b.x;
+              pim += x.y * b.y;
+              pim += x.z * b.z;
+              pim += x.w * b.w;
+            }
+            pr += __shfl_xor_sync(0xffffffffu, pr, 1);
+            pim += __shfl_xor_sync(0xffffffffu, pim, 1);
+            if (h == 0) part[buf][w][dg] = make_float2(pr, pim);
+          } else {
+            // the 16 degrees' sums over the warp's rings, lambda's high and
 """
 
 # name -> [(source, text, replacement)]
@@ -101,10 +101,16 @@ VARIANTS = {
                                 ("legendre_analysis.cu",
                                  "constexpr int kRings = 4;",
                                  "constexpr int kRings = 8;")],
+    # K4 held to 102 registers, 5 resident blocks per SM (smem allows 5)
+    "K4 5 blocks per SM": [("legendre_analysis_dot.cu",
+                            "__launch_bounds__(kThreads)\n"
+                            "legendre_analysis_dot_kernel(",
+                            "__launch_bounds__(kThreads, 5)\n"
+                            "legendre_analysis_dot_kernel(")],
     "K4 FP32 contraction": [
-        ("legendre_analysis_dot.cu", "  int buf = 0;\n", _K4_FP32_SOURCES),
+        ("legendre_analysis_dot.cu", "    int buf = 0;\n", _K4_FP32_SOURCES),
         ("legendre_analysis_dot.cu",
-         "        } else {\n          // the 16 degrees' sums over the "
+         "          } else {\n            // the 16 degrees' sums over the "
          "warp's rings, lambda's high and\n", _K4_FP32_CONTRACTION)],
     # K3's seed pre-pass: its producers on the plain chain_step, and more
     # resident blocks per SM (more consumers polling beside the producers)

@@ -1,6 +1,7 @@
 """Cut-sky runs and precomputed mass-map planes through the port, against
 calclens_tpu on the same numpy inputs (float64): the vacuum mask and the
-box's ray pixels, a 3-plane CIC trace in a box from init_rays, the interior
+box's ray pixels, a 3-plane CIC trace in a box from init_rays and 2-plane
+traces of SPH and NGP in boxes 0 and 2, the interior
 check of tests/test_cutsky_physics.py, a cut-sky restart, and
 UseHEALPixLensPlaneMaps planes as tests/test_mapplanes_cutsky.py asserts
 them.
@@ -143,6 +144,42 @@ def test_cutsky_cic_trace_matches_jax(box_trace):
     for a, b in zip(trt.rays, jrt.rays):
         np.testing.assert_allclose(a, b, rtol=0,
                                    atol=1e-9 * np.abs(b).max() + 1e-300)
+
+
+@pytest.mark.parametrize("scheme,box", [("SPH", 0), ("NGP", 2),
+                                        ("SPH", 2)])
+def test_cutsky_trace_matches_jax(scheme, box):
+    """The box trace of the other deposits and of the south cap: SPH in
+    box 0, NGP and SPH in box 2 (ra 100-340, dec -90 to -25), both drivers
+    from init_rays over planes 0 and 1 at SHTOrder 5 / rayOrder 4, the
+    port on one torch thread; the same bound as the CIC trace (1e-9 of
+    each quantity's max per plane).  The deposits sum in a fixed order
+    (ops/deposit.add_at); SPH in a box takes every branch of the bucketed
+    deposit (bucket 0 carries -backdens on the live pixels).  Most of the
+    time is the JAX step's first compile (~15 s NGP, ~25 s SPH with JAX's
+    compilation cache cold, at any order)."""
+    kw = dict(BOXES[box], DepositScheme=scheme, SHTOrder=5, rayOrder=4)
+    if scheme == "SPH":
+        kw["ComvSmoothingScale"] = 15.0
+    cfg = _box_cfg(**kw)
+    jrt = jdriver.Raytracer(cfg)
+    trt = tdriver.Raytracer(cfg, device="cpu")
+    jrt.init_rays()
+    trt.init_rays()
+    np.testing.assert_array_equal(trt.ray_nest, jrt.ray_nest)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        errs = []
+        for p in (0, 1):
+            pos, mass = _plane_particles(p)
+            jrt.step(p, pos=pos, mass=mass)
+            trt.step(p, pos=pos, mass=mass)
+            errs.append(_row_err(trt.rays_packed.numpy(), jrt.rays_packed))
+    finally:
+        torch.set_num_threads(threads)
+    assert max(errs) < 1e-9, errs
+    assert np.abs(trt.rays_packed[14:16].numpy()).max() > 0  # deflected
 
 
 def test_cutsky_restart_roundtrip(box_trace, tmp_path):

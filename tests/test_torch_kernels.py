@@ -356,6 +356,58 @@ def test_analysis_dot_tensor_cores_match_twin_and_k1(cuda_device, order):
     assert _relerr(re, kre) < TOL and _relerr(im, kim) < TOL
 
 
+@pytest.mark.parametrize("order", [9, 10])
+def test_analysis_kernels_bit_reproducible_and_row_local(cuda_device, order):
+    """K1 and K4 at orders whose rings fill more than one 512-ring tile
+    (J = 1024, 2048), where the tiles of a degree are combined: two
+    launches on the same inputs give the same bits (the tiles are added in
+    a fixed order), and a launch on a block of m rows (m0 > 0, as a rank
+    of a mesh launches them) gives the whole launch's rows bit for bit."""
+    plan = SHTPlan(order, cuda_device, dtype=torch.float32)
+    rng = np.random.default_rng(900 + order)
+    E, O = (torch.tensor((rng.normal(size=(plan.nm, plan.J))
+                          + 1j * rng.normal(size=(plan.nm, plan.J))
+                          ).astype(np.complex64), device=cuda_device)
+            for _ in range(2))
+    args = TL.analysis_inputs(plan, E, O)
+    m0, m1 = plan.nm // 3, plan.nm // 3 + plan.nm // 4
+    rows = (*(x[m0:m1].contiguous() for x in args[:4]), plan.cth,
+            plan.ln_sth, plan.logc[m0:m1].contiguous(), args[7])
+    for launch in (TL.analysis_cuda, TL.analysis_dot_cuda):
+        first = launch(*args, plan.nl)
+        second = launch(*args, plan.nl)
+        block = launch(*rows, plan.nl, m0)
+        for a, b, c in zip(first, second, block):
+            assert torch.equal(a, b)
+            assert torch.equal(c, a[m0:m1])
+            assert bool(a.abs().max() > 0)
+
+
+def test_add_at_on_the_card_equals_the_cpu(cuda_device):
+    """ops/deposit.add_at on the card, on many values per element (where
+    the order of a float32 sum shows): two calls give the same bits, and
+    the same bits as on the CPU (both sum each element's values one after
+    another in input order); the same for a [7, n] add along dim 1, as the
+    lens maps use it.  index_add_ on the card would add them with atomics,
+    in no fixed order."""
+    from calclens_tpu_torch.ops.deposit import add_at
+
+    rng = np.random.default_rng(21)
+    n, targets = 1 << 20, 1000
+    idx = torch.tensor(rng.integers(0, targets, n))
+    vals = torch.tensor(rng.lognormal(0.0, 3.0, n).astype(np.float32))
+    ref = add_at(torch.zeros(targets), idx, vals)
+    on = [add_at(torch.zeros(targets, device=cuda_device),
+                 idx.to(cuda_device), vals.to(cuda_device)).cpu()
+          for _ in range(2)]
+    assert torch.equal(on[0], on[1]) and torch.equal(on[0], ref)
+    vals7 = torch.tensor(rng.normal(size=(7, n)).astype(np.float32))
+    ref7 = add_at(torch.zeros(7, targets), idx, vals7, dim=1)
+    got7 = add_at(torch.zeros(7, targets, device=cuda_device),
+                  idx.to(cuda_device), vals7.to(cuda_device), dim=1).cpu()
+    assert torch.equal(got7, ref7)
+
+
 @pytest.mark.parametrize("lmax,rings", [(1000, 1024), (777, 700)])
 def test_analysis_kernel_ragged_degrees_and_rings(cuda_device, lmax, rings):
     """K1 (and K4) at band limits whose nl - m takes every residue of
