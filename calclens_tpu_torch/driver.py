@@ -28,7 +28,8 @@ shares of the snapshot by a slab-decomposed solve (fftpot.ThreeDPotDriver,
 parallel/slabfft.py) and holds it whole on every rank, as the JAX driver
 does, for the rank's rays.  The lens maps, the ray files, the npz restarts
 and the galaxy images are reduced or gathered to rank 0, which writes the
-same files a one-device run writes.
+same files a one-device run writes; the sharded checkpoint that run()
+writes is written by every rank, each its own columns.
 """
 
 from __future__ import annotations
@@ -626,9 +627,10 @@ class Raytracer:
         return f"{self.cfg.OutputPath or '.'}/restart.npz"
 
     def save_restart(self, path=None):
-        """The npz restart.  On a mesh the ranks' columns are gathered to
-        rank 0, which writes the file a one-device run writes (so a run on
-        n ranks resumes on any other number, or in the JAX package)."""
+        """The npz restart, the format the JAX package reads.  On a mesh the
+        ranks' columns are gathered to rank 0, which writes the file a
+        one-device run writes (so a run on n ranks resumes on any other
+        number, or in the JAX package)."""
         from . import restart as rst
 
         if self.mesh is None:
@@ -643,6 +645,38 @@ class Raytracer:
                               soa.unpack(full.cpu().numpy()), self.ray_nest,
                               self.current_plane, self.map_num)
         self.mesh.barrier()
+
+    def sharded_restart_path(self):
+        return f"{self.cfg.OutputPath or '.'}/restart_sharded"
+
+    def save_restart_sharded(self, path=None):
+        """The shard-parallel checkpoint (restart.write_restart_sharded):
+        each rank writes its own ray columns and its slice of the nest
+        index, rank 0 the metadata; no ray data moves between ranks.  The
+        counterpart of the JAX driver's save_restart_orbax."""
+        from . import restart as rst
+
+        r = 0 if self.mesh is None else self.mesh.rank
+        c0, c1 = int(self.ray_bounds[r]), int(self.ray_bounds[r + 1])
+        nest = None if self._ray_nest is None else self._ray_nest[c0:c1]
+        rst.write_restart_sharded(
+            path or self.sharded_restart_path(), self.cfg, self.rays_packed,
+            nest, self.current_plane, self.map_num, self.ray_bounds, r,
+            self.mesh)
+
+    def load_restart_sharded(self, path=None):
+        """Resume from a sharded checkpoint saved on ANY number of ranks:
+        each rank reads only the parts of the shards that overlap its own
+        columns, straight to its device, in the run's dtype; the nest index
+        (None on the full sky), current_plane and map_num as load_restart
+        sets them.  The counterpart of the JAX driver's
+        load_restart_orbax."""
+        from . import restart as rst
+
+        (self.rays_packed, self._ray_nest, self.current_plane,
+         self.map_num) = rst.read_restart_sharded(
+            path or self.sharded_restart_path(), self.cfg, self._columns,
+            self._np_dtype, self.device)
 
     def load_restart(self, path=None):
         """Resume from an npz restart (any writer's); on a mesh each rank
@@ -730,9 +764,10 @@ class Raytracer:
         of the sources in its radial bin (GalsFileList; written per plane
         when GalOutputName is set); after each MapRedshiftList plane the
         lens maps (when OutputPath is set), and the ray files before them
-        with MaxResMap and RayOutputName; npz restarts every
+        with MaxResMap and RayOutputName; the sharded checkpoint
+        (save_restart_sharded, OutputPath/restart_sharded) every
         WallTimeBetweenRestart seconds and before the WallTimeLimit; at the
-        end, the ray files (RayOutputName), the restart and the timing.0
+        end, the ray files (RayOutputName), the checkpoint and the timing.0
         rows."""
         cfg = self.cfg
         if self.rays_packed is None:
@@ -770,19 +805,19 @@ class Raytracer:
             step_t = self.timings[-1][1]
             if cfg.OutputPath and self._agree(
                     now - t_last_restart > cfg.WallTimeBetweenRestart):
-                self.save_restart()
+                self.save_restart_sharded()
                 if cfg.Profile:
                     self._note_phase(p, "RESTART", time.perf_counter() - now)
                 t_last_restart = now
             if self._agree(now - t_start > cfg.WallTimeLimit - 5.0 * step_t):
                 # graceful preemption (raytrace.c:143-149)
                 if cfg.OutputPath:
-                    self.save_restart()
+                    self.save_restart_sharded()
                 return
         if cfg.OutputPath and cfg.RayOutputName:
             self.write_rays()
         if cfg.OutputPath:
-            self.save_restart()
+            self.save_restart_sharded()
             if self._rank0():
                 self.write_timing()
 

@@ -3,10 +3,12 @@
     python -m calclens_tpu_torch.raytrace <config> [restart_plane] [--device DEV]
 
 The reference's main.c: read the config, then resume from OutputPath's
+sharded checkpoint restart_sharded/ (what run() writes), or else from its
 restart.npz, or else from a reference run's binary restart.0 files there
 (restart_plane overrides the plane to resume at), or start new rays; then
 run the multiple-plane trace, or the CMB propagation mode when CMBLensing is
-set (main.c:95-101).  DEV is a torch device, cuda by default.
+set (main.c:95-101).  A restart_sharded.tmp/ left by an interrupted write
+is never resumed from.  DEV is a torch device, cuda by default.
 """
 
 from __future__ import annotations
@@ -29,10 +31,14 @@ def main(argv=None):
     t0 = time.perf_counter()
     cfg = read_config(args.config)
     rt = Raytracer(cfg, device=args.device)
+    spath = rt.sharded_restart_path()
     rpath = rt.restart_path()
     legacy = os.path.join(cfg.OutputPath or ".", "restart.0")
     resumed = None
-    if os.path.exists(rpath):
+    if os.path.isdir(spath):
+        rt.load_restart_sharded(spath)
+        resumed = spath
+    elif os.path.exists(rpath):
         rt.load_restart(rpath)
         resumed = rpath
     elif os.path.exists(legacy):

@@ -4,14 +4,17 @@
     python -m calclens_tpu_torch.tools.exp_gather
     python -m calclens_tpu_torch.tools.legendre_variants [--order 12]
     python -m calclens_tpu_torch.tools.bench_gals [--device cpu]
+    python -m calclens_tpu_torch.tools.bench_restart [--ray-order 12]
 
 `roofline_legendre` measures the ceilings of the Legendre sweep (P1) and
 each Legendre kernel's share of them; `exp_gather` measures gathers from a
 table held on chip (P2-P4) beside torch's own `tab[idx]`;
 `legendre_variants` times design variants of K1-K4 built from edited
-copies of their sources; `bench_gals` times the galaxy image search.  All
-need a CUDA device: a measurement that finds none fails (`bench_gals
---device cpu` runs on the CPU, for tests).  Nothing is compiled or
+copies of their sources; `bench_gals` times the galaxy image search;
+`bench_restart` times the sharded checkpoint and the npz restart, each
+written and read back.  All need a CUDA device: a measurement that finds
+none fails (`bench_gals` and `bench_restart` take `--device cpu` to run
+on the CPU, for tests).  Nothing is compiled or
 launched when these modules are imported.
 """
 

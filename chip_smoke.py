@@ -125,7 +125,12 @@ of which must pass:
      the same float32 buffer on the card, on the CPU and in float64 on the
      card (index multisets equal; card vs CPU, positions within 1e-3 of a
      ray pixel off the polar caps, positions and A within twice the
-     float32 search's distance from float64); a legacy restart of the run's final rays loaded by a new
+     float32 search's distance from float64); the run's closing sharded
+     checkpoint (restart_sharded/, timed as run() writes it) loaded by a
+     new Raytracer, then save_restart and load_restart (npz) on the same
+     state, each load equal to the run's final rays bit for bit, each
+     route's seconds, GB/s, card peak and host resident-set peak printed
+     (tools/bench_restart.routes); a legacy restart of the run's final rays loaded by a new
      Raytracer and run_cmb_mode at CMBMapOrder 10 (12,582,912 rays counted,
      their radii chi(1100) within 1e-6, the three files read back); at
      SHTOrder 7 / rayOrder 6, Raytracer.run with 20,000 sources on the CPU
@@ -200,8 +205,10 @@ of which must pass:
      alpha of every 64th ray at 0.15-0.6 rad within 2 % (median) of
      pointmass.alpha_exact, its direction's median cosine above 0.999;
      Raytracer.run over two planes with 10^6 sources in plane 1's bin,
-     every source imaged, gals/s and the peak (its closing 16.9 GB npz
-     restart left out); then the synthesis at every candidate block count
+     every source imaged, gals/s and the peak, and its closing sharded
+     checkpoint (the 16.9 GB ray buffer) timed and compared with the run's
+     final rays block by block through the shard's memory map; then the
+     synthesis at every candidate block count
      at orders 12-13 on one alm (at order 12 1, 8 and 32, at 13 16 and
      32; orders 10-11 and the counts that never beat the fastest, and the
      order-13 per-block tables kept, which the port does not keep, are
@@ -226,7 +233,11 @@ of which must pass:
      step seconds, K1 and K2 ms and launches per plane (exactly one each),
      each rank's peak and their sum under 80 GB, A and alpha within
      P16_HEAD_BOUNDS of each quantity's max, the order-8 lens map counts
-     equal; the
+     equal; each rank's columns through save_restart_sharded (no data
+     collective called, 0 ray bytes sent) and the npz route (gathered to
+     rank 0 and written there), each timed with its bytes sent, and the
+     2-rank checkpoint loaded on one rank, equal to the ranks' gathered
+     rays bit for bit; the
      order-7/6 traces (2 planes: NGP, SPH, 4 forced j-blocks, K3 + K4;
      launches per rank per plane exact) and a 4-plane Raytracer.run with
      lens maps, two ray files and 2000 galaxy sources, on 2 and 4 ranks
@@ -275,6 +286,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1836,13 +1848,15 @@ def gals_run(device, out, sht_order, ray_order, ngals, particles,
     """Raytracer.run with GalsFileList (ngals sources at 300-1900 Mpc/h,
     seed 31) and GalOutputName over 8 planes, f32, each plane's particles
     through load_particles: `particles(cfg, cosmo, p)`.  Returns the
-    Raytracer, the launches of the run, those of each plane, the rays
-    before plane GALS_SEARCH_PLANE's step (the step never writes into
-    them), its seconds and the peak device memory."""
+    Raytracer, the launches of the run, those of each plane, {"rays": the
+    rays before plane GALS_SEARCH_PLANE's step (the step never writes into
+    them), "checkpoint": run()'s closing sharded checkpoint measured (on
+    the card)}, its seconds and the peak device memory."""
     import torch
     from calclens_tpu_torch import _ext
     from calclens_tpu_torch.config import RayTraceConfig
     from calclens_tpu_torch.driver import Raytracer
+    from calclens_tpu_torch.tools.bench_restart import measured
 
     os.makedirs(out, exist_ok=True)
     glist, _ = write_catalog(f"{out}/sources", ngals, 31, 300.0, 1900.0)
@@ -1867,7 +1881,18 @@ def gals_run(device, out, sht_order, ray_order, ngals, particles,
         return out_
 
     rt.step = counted_step
+    peak = 0
     if device == "cuda":
+        save = rt.save_restart_sharded
+
+        def measured_save(path=None):
+            nonlocal peak
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            snap["checkpoint"] = measured(
+                lambda: save(path), rt.rays_packed.numel()
+                * rt.rays_packed.element_size())[1]
+
+        rt.save_restart_sharded = measured_save
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     _ext.reset_launches()
@@ -1875,10 +1900,11 @@ def gals_run(device, out, sht_order, ray_order, ngals, particles,
     rt.run(progress=False)
     run_s = time.perf_counter() - t0
     launches = dict(_ext.launches)
-    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    if device == "cuda":
+        peak = max(peak, snap["checkpoint"]["card_peak"])
     check(bool(torch.isfinite(rt.rays_packed).all()),
           f"run() with galaxies on {device}: non-finite rays")
-    return rt, launches, plane_counts, snap["rays"], run_s, peak
+    return rt, launches, plane_counts, snap, run_s, peak
 
 
 def plane_images(rt, num_planes=8):
@@ -2040,12 +2066,13 @@ def gals_cmb_phase():
     from calclens_tpu_torch.driver import plane_params
     from calclens_tpu_torch.gals import concat
     from calclens_tpu_torch.io import legacy_restart as lr
+    from calclens_tpu_torch.tools import bench_restart
 
     res = {}
     unit, mass = seeded_particles(GALS_HEAD_PARTICLES, 1.0, 12)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        rt, launches, plane_counts, rays4, run_s, peak = gals_run(
+        rt, launches, plane_counts, snap, run_s, peak = gals_run(
             "cuda", f"{tmp}/head", *GALS_HEAD_ORDERS, GALS_HEADLINE,
             lambda cfg, cosmo, p: (unit * plane_params(cfg, cosmo, p).rad,
                                    mass),
@@ -2066,12 +2093,19 @@ def gals_cmb_phase():
             gridsearch={p: rows[p].get("GRIDSEARCH", 0.0) for p in rows},
             rows=rows, wall_s=time.perf_counter() - t0)
 
-        res["alone"] = search_alone(cfg, rt, rays4, GALS_HEADLINE)
+        res["alone"] = search_alone(cfg, rt, snap["rays"], GALS_HEADLINE)
         pp = plane_params(cfg, rt.cosmo, GALS_SEARCH_PLANE)
         res["cpu"] = search_card_vs_cpu(
-            cfg, rays4, res["alone"]["pos"][:GALS_CPU_CHECK], pp.rad,
+            cfg, snap["rays"], res["alone"]["pos"][:GALS_CPU_CHECK], pp.rad,
             pp.rad_minus1)
-        del rays4
+        del snap["rays"]
+
+        # run()'s closing sharded checkpoint read back, and the npz restart
+        # of the same state (each load equal to the run's rays bit for bit)
+        res["checkpoint"] = bench_restart.routes(
+            rt, f"{tmp}/restart.npz", "cuda", snap["checkpoint"])
+        res["checkpoint"]["bytes"] = (rt.rays_packed.numel()
+                                      * rt.rays_packed.element_size())
 
         # the CMB mode at full width from the run's final rays
         t0 = time.perf_counter()
@@ -2146,6 +2180,8 @@ def gals_cmb_phase():
 
 
 def report_gals_cmb(res, card):
+    from calclens_tpu_torch.tools.bench_restart import route_text
+
     r = res["run"]
     sht, ray = GALS_HEAD_ORDERS
     say(f"phase 12 ({card}): headline run() with galaxies, SHTOrder {sht} / "
@@ -2164,6 +2200,16 @@ def report_gals_cmb(res, card):
             f"{row.get('GRIDSEARCH', 0.0):.4f} s, "
             + ", ".join(f"{k} {v:.4f}" for k, v in sorted(row.items())
                         if k != "GRIDSEARCH"))
+    c = res["checkpoint"]
+    say(f"phase 12 ({card}): the headline run()'s rays, {c['bytes']} bytes "
+        f"packed, one device: " + "; ".join(
+            route_text(label, c[k]) for label, k in (
+                ("run()'s closing sharded checkpoint", "sharded_write"),
+                ("load_restart_sharded", "sharded_load"),
+                ("save_restart (npz)", "npz_write"),
+                ("load_restart (npz)", "npz_load")))
+        + f"; on disk {c['disk']['sharded']} and {c['disk']['npz']} bytes; "
+        f"both loads equal to the run's final rays bit for bit (reads warm)")
     a = res["alone"]
     say(f"phase 12 ({card}): the search alone on the headline rays before "
         f"plane {GALS_SEARCH_PLANE}, {GALS_HEADLINE} sources in its bin: "
@@ -3393,14 +3439,17 @@ def order13_gals(tmp):
     GalsFileList naming O13_GALS sources in plane 1's bin (write_catalog)
     and GalOutputName set: every source imaged (plane 1's catalog read
     back), gals/s of the plane's GRIDSEARCH column, each plane's launches,
-    the run's peak memory.  The run's closing restart (the 16.9 GB ray
-    buffer to an npz file) is left out."""
+    the run's peak memory; the run's closing sharded checkpoint (the 16.9
+    GB ray buffer) measured, then compared with the run's final rays chunk
+    by chunk through the shard's memory map (no second copy of the buffer
+    on the card)."""
     import torch
     from calclens_tpu_torch import _ext
     from calclens_tpu_torch.config import RayTraceConfig
     from calclens_tpu_torch.driver import Raytracer
     from calclens_tpu_torch.gals import io as galsio
     from calclens_tpu_torch.sht import transforms as T
+    from calclens_tpu_torch.tools.bench_restart import measured
 
     glist, _ = write_catalog(f"{tmp}/sources13", O13_GALS, 41,
                              *O13_GALS_RADII)
@@ -3415,14 +3464,24 @@ def order13_gals(tmp):
     rt = Raytracer(cfg, device="cuda")
     pos, mass = seeded_particles(O13_PARTICLES, 1.0, 14)
     rt.load_particles = lambda p: (pos * (250.0 * p + 125.0), mass)
-    rt.save_restart = lambda path=None: None
+    save, ckpt, peak = rt.save_restart_sharded, {}, 0
+
+    def measured_save(path=None):
+        nonlocal peak
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        ckpt.update(measured(lambda: save(path), rt.rays_packed.numel()
+                             * rt.rays_packed.element_size())[1])
+
+    rt.save_restart_sharded = measured_save
+    say(f"phase 15: {shutil.disk_usage(tmp).free / 1e9:.1f} GB free on the "
+        f"disk of {tmp}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _ext.reset_launches()
     t0 = time.perf_counter()
     rt.run(progress=False)
     run_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(peak, ckpt["card_peak"])
     launches = {k: v for k, v in _ext.launches.items() if v}
     nblk = T.synth_stream_blocks(rt.plan)
     want = {"legendre_analysis": 2, "legendre_synth": 2 * nblk}
@@ -3437,19 +3496,45 @@ def order13_gals(tmp):
           f"sources imaged")
     rows = dict(rt.phase_rows)
     gs_s = rows[1]["GRIDSEARCH"]
+    t0 = time.perf_counter()
+    same = checkpoint_holds(rt.sharded_restart_path(), rt.rays_packed)
+    ckpt["compare_s"] = time.perf_counter() - t0
+    check(same, "order-13 run(): its sharded checkpoint differs from its "
+          "final rays")
     out = dict(run_s=run_s, peak=peak, launches=launches, images=len(idx),
                imaged=imaged, gridsearch_s=gs_s, gals_per_s=O13_GALS / gs_s,
-               steps=[t for _, t in rt.timings], rows=rows, nblk=nblk)
+               steps=[t for _, t in rt.timings], rows=rows, nblk=nblk,
+               checkpoint=ckpt)
     del rt
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
+def checkpoint_holds(path, packed, chunk=1 << 26):
+    """Whether the one-device sharded checkpoint at `path` holds `packed`
+    (a [21, N] tensor on the card) bit for bit: each row of its shard's
+    memory map (copy-on-write, so torch takes it as it is) compared with
+    the card's row in chunks of `chunk` columns, on the card."""
+    import torch
+
+    mm = np.load(os.path.join(path, "rays.00000.npy"), mmap_mode="c")
+    if mm.shape != tuple(packed.shape):
+        return False
+    for k in range(mm.shape[0]):
+        for a in range(0, mm.shape[1], chunk):
+            part = torch.from_numpy(mm[k, a:a + chunk]).to(packed.device)
+            if not torch.equal(part, packed[k, a:a + chunk]):
+                return False
+    return True
+
+
 def stream_phase(dev, card):
     """Phase 15: block counts per order (stream_counts), the order-13 step
     (order13_step) and run() with galaxies (order13_gals); prints them."""
     import tempfile
+
+    from calclens_tpu_torch.tools.bench_restart import route_text
 
     t_phase = time.perf_counter()
     s = order13_step()
@@ -3507,6 +3592,11 @@ def stream_phase(dev, card):
         f"{', '.join(f'{t:.3f}' for t in g['steps'])} s, run "
         f"{g['run_s']:.2f} s, peak {g['peak'] / 2**30:.2f} GiB, launches "
         f"{g['launches']}")
+    say(f"phase 15 ({card}): " + route_text(
+        "run()'s closing sharded checkpoint of the order-13 rays (one "
+        "device)", g["checkpoint"])
+        + f"; equal to the run's final rays bit for bit through the shard's "
+        f"memory map ({g['checkpoint']['compare_s']:.1f} s)")
     check(g["peak"] < DEVICE_MEMORY, f"order-13 run() peak {g['peak']}")
     counts = {}
     for order in sorted(STREAM_COUNTS):
@@ -3767,20 +3857,16 @@ def p16_headline_run(mesh, device, planes, out_path):
     order-8 lens map counts and the whole rays (written to out_path) on
     rank 0 or the one device.  On a mesh the last plane runs with Profile
     set and the collectives' host seconds, each between two device syncs,
-    summed apart."""
+    summed apart; then the two restart routes (p16_checkpoint)."""
     import torch
     from calclens_tpu_torch import _ext
-    from calclens_tpu_torch.config import RayTraceConfig
     from calclens_tpu_torch.driver import Raytracer
     from calclens_tpu_torch.sht import legendre as TL
 
-    cfg = RayTraceConfig(OmegaM=0.3, maxComvDistance=2000.0, NumLensPlanes=8,
-                         SHTOrder=12, rayOrder=10, bundleOrder=3,
-                         Precision="f32").finalize()
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    rt = Raytracer(cfg, device=device, mesh=mesh)
+    rt = Raytracer(p16_headline_cfg(), device=device, mesh=mesh)
     rt.init_rays()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -3829,6 +3915,8 @@ def p16_headline_run(mesh, device, planes, out_path):
         untime_collectives(mesh)
     peak = torch.cuda.max_memory_allocated()
     check(bool(torch.isfinite(rt.rays_packed).all()), "non-finite rays")
+    ckpt = (None if mesh is None else
+            p16_checkpoint(rt, mesh, os.path.dirname(out_path)))
     sums = rt._lens_map_sums(MAP_ORDER)
     rank = 0 if mesh is None else mesh.rank
     full = (rt.rays_packed if mesh is None else mesh.gather_to(
@@ -3848,7 +3936,33 @@ def p16_headline_run(mesh, device, planes, out_path):
     return dict(rank=rank, rows=rows, peak=peak, resident=resident,
                 setup_s=setup_s, counts=sums if rank == 0 else None,
                 m_rows=None if mesh is None else mesh.block(12288),
-                profile=profile)
+                profile=profile, checkpoint=ckpt)
+
+
+def p16_checkpoint(rt, mesh, tmp):
+    """This rank's side of both restart routes on the same state, each
+    measured(): the sharded checkpoint (tmp/ckpt16, each rank its own
+    columns) and the npz restart (tmp/ckpt16.npz, the columns gathered to
+    rank 0, which writes it); the collectives each route called and the
+    bytes it sent through them (sent_bytes)."""
+    from calclens_tpu_torch.tools.bench_restart import measured
+
+    nbytes = rt.rays_packed.numel() * rt.rays_packed.element_size()
+    out = dict(bytes=nbytes)
+    for key, save in (
+            ("sharded", lambda: rt.save_restart_sharded(f"{tmp}/ckpt16")),
+            ("npz", lambda: rt.save_restart(f"{tmp}/ckpt16.npz"))):
+        calls = dict(mesh.calls)
+        spent = time_collectives(mesh)
+        try:
+            out[key] = measured(save, nbytes)[1]
+        finally:
+            untime_collectives(mesh)
+        out[key].update(
+            sent=sum(v[1] for v in spent.values()),
+            calls={k: v - calls.get(k, 0) for k, v in mesh.calls.items()
+                   if v != calls.get(k, 0)})
+    return out
 
 
 def p16_headline_rank(mesh, planes, out_path):
@@ -3860,6 +3974,55 @@ def p16_headline_rank(mesh, planes, out_path):
     res = p16_headline_run(mesh, mesh.device, planes, out_path)
     res.update(calls=dict(mesh.calls), probe=probe)
     return res
+
+
+def p16_resume(tmp, dev, heads):
+    """Prints both restart routes of each headline rank (p16_checkpoint):
+    the sharded route must have sent no ray bytes between the ranks (no
+    data collective called).  Then the ranks' sharded checkpoint loaded by
+    one Raytracer on the card, measured: it must hold the ranks' gathered
+    buffer (tmp/mesh.npy) bit for bit."""
+    import torch
+    from calclens_tpu_torch.driver import Raytracer
+    from calclens_tpu_torch.tools.bench_restart import measured, route_text
+
+    for h in heads:
+        c = h["checkpoint"]
+        say(f"phase 16 headline rank {h['rank']} of {P16_HEAD_RANKS}, its "
+            f"{c['bytes']} bytes of rays: " + route_text(
+                "save_restart_sharded", c["sharded"])
+            + f", ray bytes sent {c['sharded']['sent']}, collectives "
+            f"{c['sharded']['calls']}; " + route_text(
+                "save_restart (npz: gathered to rank 0, written there)",
+                c["npz"])
+            + f", bytes sent {c['npz']['sent']}, collectives "
+            f"{c['npz']['calls']}")
+        check(c["sharded"]["sent"] == 0
+              and not set(c["sharded"]["calls"]) & set(MESH_PRIMITIVES),
+              f"the sharded checkpoint moved ray data: {c['sharded']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rt = Raytracer(p16_headline_cfg(), device=dev)
+    full = np.load(f"{tmp}/mesh.npy")
+    load = measured(lambda: rt.load_restart_sharded(f"{tmp}/ckpt16"),
+                    full.nbytes)[1]
+    same = np.array_equal(rt.rays_packed.cpu().numpy(), full)
+    say("phase 16: " + route_text(
+        f"the {P16_HEAD_RANKS} ranks' sharded checkpoint loaded on one "
+        f"device", load) + f"; equal to the ranks' gathered rays {same}")
+    check(same, "the 2-rank checkpoint read on one device differs from the "
+          "ranks' gathered rays")
+    del rt
+    torch.cuda.empty_cache()
+
+
+def p16_headline_cfg():
+    """The headline's configuration on ranks and on one rank."""
+    from calclens_tpu_torch.config import RayTraceConfig
+
+    return RayTraceConfig(OmegaM=0.3, maxComvDistance=2000.0,
+                          NumLensPlanes=8, SHTOrder=12, rayOrder=10,
+                          bundleOrder=3, Precision="f32").finalize()
 
 
 def mesh_phase(dev, card, tmp):
@@ -3933,6 +4096,7 @@ def mesh_phase(dev, card, tmp):
         f"card: " + "; ".join(f"{k} {v}" for k, v in probe.items()))
     check(all(v == "ok" for h in heads for v in h["probe"].values()),
           f"gloo on CUDA tensors: {[h['probe'] for h in heads]}")
+    p16_resume(tmp, dev, heads)
     a = torch.from_numpy(np.load(f"{tmp}/mesh.npy"))
     b = torch.from_numpy(np.load(f"{tmp}/ref.npy"))
     errs = {q: float((a[r0:r1] - b[r0:r1]).abs().max()

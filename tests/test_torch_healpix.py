@@ -201,7 +201,8 @@ def test_import_port_leaves_jax_unloaded():
     streamed synthesis, and a precomputed
     mass-map plane, searching a galaxy's images (device and Born), a
     legacy restart carried to the CMB, a multigrid and an SHT-only plane
-    with DebugIO and their ray files, and a THREEDPOT plane from an LGadget
+    with DebugIO and their ray files, a sharded checkpoint written and
+    read back, and a THREEDPOT plane from an LGadget
     snapshot, loads neither jax nor the JAX package calclens_tpu; and
     importing them (the lens-plane maker and the HDF5 plane module
     included) loads no h5py, which the card's machine does not have."""
@@ -278,6 +279,8 @@ def test_import_port_leaves_jax_unloaded():
         "    rt.init_rays()\n"
         "    rt.step(0, pos=[[40.0, 30.0, 0.0]], mass=[1e12])\n"
         "    rt.write_rays()\n"
+        "rt.save_restart_sharded(tmp + '/ck')\n"
+        "rt.load_restart_sharded(tmp + '/ck')\n"
         "from calclens_tpu_torch.io import lgadget\n"
         "lgadget.write_snapshot(tmp + '/snap', [[1.0, 2.0, 3.0]],\n"
         "                       boxsize=10.0)\n"
@@ -301,6 +304,7 @@ def test_import_port_leaves_jax_unloaded():
         "            'calclens_tpu_torch.tools.bench_gals',\n"
         "            'calclens_tpu_torch.mg', 'calclens_tpu_torch.mgdriver',\n"
         "            'calclens_tpu_torch.io.rayio',\n"
+        "            'calclens_tpu_torch.restart',\n"
         "            'calclens_tpu_torch.rays.frames',\n"
         "            'calclens_tpu_torch.fftpot'):\n"
         "    assert mod in sys.modules, mod\n"

@@ -16,9 +16,10 @@ NGP, SPH and CIC-box float64 steps against JAX's 2-device steps (1e-10 of
 each quantity's max) and the port's one-device steps; the float32 step at
 JAX's own sharded-vs-single bound; 4 forced j-blocks; whole-plane particle
 tensors; ranks given different planes; and a 3-plane Raytracer.run() with
-lens maps, two ray files, galaxy images and the npz restart against one
-rank (1e-12; ray files byte-equal), resumed across 2 -> 1 rank, 1 -> 2
-ranks and 2 ranks -> JAX.
+lens maps, two ray files, galaxy images and its sharded checkpoint against
+one rank (1e-12; ray files byte-equal), the checkpoint resumed across 2 ->
+1 rank, 1 -> 2 ranks and (at the end of the 4-rank cases) 2 -> 4 ranks,
+and the npz restart the 2 ranks write after run() resumed in JAX.
 
 4 ranks: the float64 step against JAX's 4-device step, the float32 step
 against the port's one-device step, and the sharded galaxy searches at
@@ -126,21 +127,33 @@ def _run_cfg(tmp, out):
 
 
 def _run(mesh, tmp, out, resume_from=None):
-    """run() into `out` (on `mesh`, or one device when None); then, when
-    resume_from is a directory, a new Raytracer loads its restart.  Returns
+    """run() into `out` (on `mesh`, or one device when None), which writes
+    its sharded checkpoint; on a mesh the npz restart too (gathered to rank
+    0, the file the JAX package reads).  Then, when resume_from is a
+    directory, a new Raytracer loads the sharded checkpoint there.  Returns
     (the final whole packed buffer, (the resumed one, its plane) or
     None)."""
     from calclens_tpu_torch.driver import Raytracer
 
     rt = Raytracer(_run_cfg(tmp, out), device="cpu", mesh=mesh)
     rt.run(progress=False)
+    if mesh is not None:
+        rt.save_restart()
     final = rt.packed_global().numpy()
     resumed = None
     if resume_from is not None:
-        rt2 = Raytracer(_run_cfg(tmp, out), device="cpu", mesh=mesh)
-        rt2.load_restart(os.path.join(resume_from, "restart.npz"))
-        resumed = (rt2.packed_global().numpy(), rt2.current_plane)
+        resumed = _resume(mesh, tmp, resume_from)
     return final, resumed
+
+
+def _resume(mesh, tmp, run_dir):
+    """(the whole packed buffer, the plane) of a new Raytracer (on `mesh`,
+    or one device) that loads run_dir's sharded checkpoint."""
+    from calclens_tpu_torch.driver import Raytracer
+
+    rt = Raytracer(_run_cfg(tmp, run_dir), device="cpu", mesh=mesh)
+    rt.load_restart_sharded(os.path.join(run_dir, "restart_sharded"))
+    return rt.packed_global().numpy(), rt.current_plane
 
 
 # ---------------------------------------------------------------------------
@@ -238,6 +251,8 @@ def _rank_cases(mesh, tmp, one, packed, gal_pos):
                               one)}
     mesh.barrier()
     out["four"] = _four_rank_cases(mesh, packed, gal_pos)
+    # the 2-rank run()'s checkpoint resumed on the 4 ranks
+    out["four"]["resumed"] = _resume(mesh, tmp, os.path.join(tmp, "two"))
     out["jax_loaded"] = "jax" in sys.modules
     return out
 
@@ -503,6 +518,8 @@ def test_galaxy_catalogs_hold_the_same_images(runs):
 
 
 def test_ranks_resume_the_one_rank_restart(runs, two_run):
+    """The one-rank run()'s sharded checkpoint resumed on 2 ranks (1 -> 2):
+    the final rays bit for bit."""
     one = runs[1]
     for r in two_run:
         packed, plane = r["run"][1]
@@ -512,13 +529,18 @@ def test_ranks_resume_the_one_rank_restart(runs, two_run):
 
 def test_two_rank_restart_resumes_on_one_port_rank_and_in_jax(runs,
                                                               two_run):
-    """The 2 ranks' restart.npz is the file a one-device run writes: one
-    port rank and the JAX driver load the same rays from it."""
+    """The 2 ranks' sharded checkpoint resumes on one port rank (2 -> 1),
+    and their restart.npz (save_restart after run(), gathered to rank 0) is
+    the file a one-device run writes: one port rank and the JAX driver load
+    the same rays from it."""
     from calclens_tpu.driver import Raytracer as JRaytracer
     from calclens_tpu_torch.driver import Raytracer
 
     tmp = runs[0]
     final = two_run[0]["run"][0]
+    packed, plane = _resume(None, str(tmp), str(tmp / "two"))
+    assert plane == 3
+    np.testing.assert_array_equal(packed, final)
     path = str(tmp / "two" / "restart.npz")
     cfg = _run_cfg(str(tmp), tmp / "two")
     rt = Raytracer(cfg, device="cpu")
@@ -529,6 +551,17 @@ def test_two_rank_restart_resumes_on_one_port_rank_and_in_jax(runs,
     jrt.load_restart(path)
     assert jrt.current_plane == 3
     np.testing.assert_array_equal(np.asarray(jrt.rays_packed), final)
+
+
+def test_four_ranks_resume_the_two_rank_checkpoint(four, two_run):
+    """The 2 ranks' sharded checkpoint resumed on 4 ranks (2 -> 4), each
+    reading only the shards' parts that overlap its own columns: the final
+    rays bit for bit on every rank."""
+    final = two_run[0]["run"][0]
+    for r in four:
+        packed, plane = r["resumed"]
+        assert plane == 3
+        np.testing.assert_array_equal(packed, final)
 
 
 # ---------------------------------------------------------------------------

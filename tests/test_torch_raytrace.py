@@ -361,8 +361,9 @@ def test_pointmass_shear_positions_radius_through_port(port_pointmass):
 
 def test_cli_runs_and_resumes(tmp_path):
     """python -m calclens_tpu_torch.raytrace <cfg> [restart_plane] on the
-    CPU: a tiny point-mass trace writes restart.npz and timing.0, and a
-    second call resumes from the restart at the given plane."""
+    CPU: a tiny point-mass trace writes its sharded checkpoint
+    (restart_sharded/, what run() writes) and timing.0, and a second call
+    resumes from the checkpoint at the given plane."""
     planes = tmp_path / "planes"
     out = tmp_path / "out"
     cfg = RayTraceConfig(
@@ -374,16 +375,18 @@ def test_cli_runs_and_resumes(tmp_path):
     pm.make_pointmass_planes(cfg)
     path = tmp_path / "raytrace.cfg"
     path.write_text(cfg.to_cfg())
+    ckpt = str(out / "restart_sharded")
     assert port_main([str(path), "--device", "cpu"]) == 0
-    with np.load(out / "restart.npz") as z:
-        assert int(z["current_plane"]) == 3
-        first = z["n"].copy()
+    packed, _, plane, _ = trestart.read_restart_sharded(ckpt, cfg)
+    assert plane == 3
+    first = packed[0:3].numpy().copy()
+    assert not os.path.exists(str(out / "restart.npz"))
     rows = (out / "timing.0").read_text().splitlines()
     assert rows[0].startswith("#") and len(rows) == 4
     assert port_main([str(path), "2", "--device", "cpu"]) == 0
-    with np.load(out / "restart.npz") as z:
-        assert int(z["current_plane"]) == 3
-        # one more plane propagated from the end state: rays moved on
-        assert np.all(np.isfinite(z["n"])) and not np.array_equal(z["n"],
-                                                                  first)
-    assert os.path.exists(str(out / "restart.npz.bak"))
+    packed, _, plane, _ = trestart.read_restart_sharded(ckpt, cfg)
+    assert plane == 3
+    # one more plane propagated from the end state: rays moved on
+    n = packed[0:3].numpy()
+    assert np.all(np.isfinite(n)) and not np.array_equal(n, first)
+    assert os.path.isdir(ckpt + ".bak")

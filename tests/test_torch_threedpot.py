@@ -383,8 +383,9 @@ def test_ray_deflection_toward_point_mass_through_port():
 def test_threedpot_run_restart_and_cli(jax_trace, tmp_path):
     """JAX's end-to-end checks through the port's run() (radii 1000 within
     1e-9, finite A, nonzero convergence), with Profile's timing.0 columns;
-    a run stopped after two planes and resumed from its restart, and the
-    CLI, end on the same rays."""
+    a run stopped after two planes and resumed by the CLI from its npz
+    restart ends, in the sharded checkpoint that run() writes, on the same
+    rays."""
     from calclens_tpu_torch import raytrace
 
     lst = jax_trace[0]
@@ -419,7 +420,7 @@ def test_threedpot_run_restart_and_cli(jax_trace, tmp_path):
     assert raytrace.main([str(cfg_file), "--device", "cpu"]) == 0
     ru = TRaytracer(_trace_cfg(tconfig, lst, OutputPath=str(part)),
                     device="cpu")
-    ru.load_restart()
+    ru.load_restart_sharded()
     assert ru.current_plane == 4
     torch.testing.assert_close(ru.rays_packed, rt.rays_packed, rtol=0,
                                atol=0)
