@@ -53,7 +53,7 @@ from .poisson import (empty_plane_step_packed, plane_scalars,
                       plane_step_packed)
 from .rays import soa
 from .sht.plan import SHTPlan
-from .utils.profile import Profiler, sync
+from .utils.profile import Profiler, count, plane_span, span, sync
 
 MIN_SMOOTH_TO_RAY_RATIO = 0.5  # reference raytrace.h:123
 # degrees by which the vacuum mask widens the ra/dec box (the JAX package's)
@@ -474,7 +474,12 @@ class Raytracer:
         (SHTOnly = 0) returns none.  With UseHEALPixLensPlaneMaps the
         plane's mass map is read, with ThreeDPot the nearest snapshot's 3D
         potential grid gives the plane (fftpot.py), and pos, mass are not
-        used."""
+        used.  Under a torch.profiler the step is the PLANE span
+        (utils/profile.py)."""
+        with plane_span(self.device):
+            return self._step(plane_num, pos, mass, with_maps)
+
+    def _step(self, plane_num, pos, mass, with_maps):
         cfg = self.cfg
         if cfg.DebugIO and cfg.OutputPath:
             with_maps = True
@@ -526,8 +531,10 @@ class Raytracer:
                 # calclens_tpu/driver.py)
                 packed = empty_plane_step_packed(cfg.BornApprx,
                                                  self.rays_packed, scal)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with span("SYNC"):
+            count("host_sync")
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         self.rays_packed = packed
         self.current_plane = plane_num + 1
         self.timings.append((plane_num, time.perf_counter() - t0))
@@ -614,10 +621,11 @@ class Raytracer:
         shtpoissonsolve.c:521-576 + profile.c).  The step makes the same
         calls as without Profile, so it gives the same numbers."""
         def phase(tag, fn, *args):
-            t0 = time.perf_counter()
-            out = fn(*args)
-            sync(out)
-            self._note_phase(plane_num, tag, time.perf_counter() - t0)
+            with span(tag):
+                t0 = time.perf_counter()
+                out = fn(*args)
+                sync(out)
+                self._note_phase(plane_num, tag, time.perf_counter() - t0)
             return out
 
         return phase

@@ -44,7 +44,9 @@ import torch.nn.functional as F
 
 from .cosmology import RHO_CRIT, CSOL
 from .ops.deposit import add_at
-from .poisson import RAY_CHUNK, _call
+from .poisson import RAY_CHUNK
+from .utils.profile import count
+from .utils.profile import phase as default_phase
 
 FOUR_PI_G = 5.4061952545633574e-8  # Mpc (km/s)^2 / Msun (fftpoissonsolve.h:20)
 
@@ -453,7 +455,7 @@ class ThreeDPotDriver:
             t = (t.to(torch.float64) * self.length_conv).to(torch.float32)
         return t
 
-    def grid_for_plane(self, plane_rad, min_sl, phase=_call):
+    def grid_for_plane(self, plane_rad, min_sl, phase=default_phase):
         """(grid, L, padded grid) of the snapshot nearest plane_rad, built on
         first use: each file's float32 positions read (PARTIO), uploaded
         (UPLOAD) and deposited (DEPOSIT), then the solve and the padding
@@ -519,7 +521,8 @@ class ThreeDPotDriver:
         """Samples per ray chord: two per grid cell, at least 4."""
         return max(4, int(binL / (L / nfft) * 2))
 
-    def step(self, packed, scal, born: bool, plane_rad, binL, phase=_call):
+    def step(self, packed, scal, born: bool, plane_rad, binL,
+             phase=default_phase):
         """One THREEDPOT plane on packed [21, N]: the grid (built or
         cached), then per column chunk of RAY_CHUNK rays the per-plane rows
         zeroed and set from the path integrals (FFTSAMPLE) and the rays
@@ -532,6 +535,7 @@ class ThreeDPotDriver:
         nint = self.nint(L, nfft, binL)
 
         def s(x):
+            count("host_sync")       # a blocking host -> device copy
             return torch.tensor(x, dtype=packed.dtype, device=packed.device)
 
         Lt, rad_t, binL_t = s(L), s(plane_rad), s(binL)

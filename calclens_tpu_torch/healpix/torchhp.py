@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from . import core as hp
+from ..utils.profile import count
 
 
 def _isqrt_dev(x):
@@ -146,6 +147,7 @@ def _compress_bits32(v):
 
 
 def _face_table(table, face):
+    count("host_sync")       # the table's host -> device copy
     return torch.as_tensor(table, dtype=torch.int32,
                            device=face.device)[face.long()]
 

@@ -31,6 +31,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .utils.profile import count
+
 MGPATCH_SIZE_FAC = 4.0       # reference raytrace.h:125
 NUM_MGPATCH_MIN = 256        # reference raytrace.h:126
 
@@ -295,6 +297,7 @@ def solve_fas_adaptive(u0, rhs, levels: tuple, conv_fact,
         res = torch.sum(torch.abs((rhs - lop(u, lev)) * mask), dim=(-2, -1))
         # patches with zero source (tau ~ 0) are converged by definition
         done = torch.all(res <= conv_fact * torch.clamp(taun, min=1e-300))
+        count("host_sync")     # the stopping test waits for the card
         if agree(done) if agree is not None else bool(done):
             break
         _vcycle_(u, rhs, levels, 0, npre, npost)

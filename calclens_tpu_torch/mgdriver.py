@@ -45,6 +45,7 @@ from . import mg
 from .healpix import core as hp
 from .healpix import torchhp
 from .ops.deposit import add_at
+from .utils.profile import phase as default_phase
 
 # patch cells per chunk of the BC fill, as a number of [N, N] elements
 FILL_CHUNK_ELEMS = 1 << 24
@@ -509,7 +510,7 @@ def ray_cells(ray_nest, a, b, ray_order, bundle_order, device, col0=0):
 
 def mg_refine(setup: MGSetup, tab, rows, ray_nest, ray_order, potmap, pos,
               mass, densfact, backdens, conv_fact=-1.0, sl=None,
-              phase=None, mesh=None, col0=0):
+              phase=default_phase, mesh=None, col0=0):
     """Full refinement: deposit, BC fill, batched FAS solve, and the rays'
     fields.  Returns (field(a, b), cycles): field(a, b) gives the rays
     a..b's (pot, g0, g1, h00, h01, h10, h11) from the solved patches, the
@@ -521,7 +522,7 @@ def mg_refine(setup: MGSetup, tab, rows, ray_nest, ray_order, potmap, pos,
     whole.  sl (per-particle angular smoothing lengths) switches the patch
     deposit to the spline kernel; conv_fact > 0 enables MGConvFact
     stopping.  phase(tag, fn, *args) wraps each part (MGDEPOSIT, MGBC,
-    MGSOLVE).
+    MGSOLVE): by default inside the span of its tag (utils/profile.phase).
 
     mesh (a parallel.sharding.Mesh) shards the patch batch over the ranks:
     pos, mass and sl are this rank's particle rows, the deposit
@@ -535,7 +536,6 @@ def mg_refine(setup: MGSetup, tab, rows, ray_nest, ray_order, potmap, pos,
     are this rank's columns: ray_nest holds their own NEST pixels, or,
     for full-sky rays, col0 is the global index of the rank's first
     column (Raytracer.ray_bounds)."""
-    phase = phase or (lambda tag, fn, *args: fn(*args))
     c0, c1 = (0, setup.C) if mesh is None else mesh.block(setup.C)
     if mesh is not None:
         rho = phase("MGDEPOSIT", _deposit_patches_sharded, setup, mesh, pos,

@@ -22,6 +22,7 @@ import torch
 from scipy.special import eval_legendre
 
 from ..healpix import torchhp
+from ..utils.profile import count
 
 MASS_SCALE = 1e10  # reference shtpoissonsolve.c:36
 
@@ -38,8 +39,9 @@ def add_at(out, idx, vals, dim=0):
     on the card as on the CPU.  The values go to segment_reduce as columns of a 2-D tensor,
     which it sums with one thread per run and column (on a 1-D tensor its
     CUDA form gives each run a tree of its own, in another order and far
-    slower on runs of a few values).  One host sync (the number of
-    distinct indices).  Indices are sorted as int32 where out allows it."""
+    slower on runs of a few values).  Three host syncs: the number of
+    distinct indices, and segment_reduce's two checks of the lengths.
+    Indices are sorted as int32 where out allows it."""
     if idx.numel() == 0:
         return out
     if out.shape[dim] < 2**31:
@@ -48,6 +50,7 @@ def add_at(out, idx, vals, dim=0):
     uniq, counts = torch.unique_consecutive(key, return_counts=True)
     v = vals.index_select(dim, perm).movedim(dim, 0)
     sums = torch.segment_reduce(v.reshape(len(v), -1), "sum", lengths=counts)
+    count("host_sync", 3)
     return out.index_add_(dim, uniq,
                           sums.view(-1, *v.shape[1:]).movedim(0, dim))
 

@@ -37,6 +37,8 @@ from .ops.interp import FieldMaps
 from .rays import soa
 from .sht import transforms as T
 from .sht.plan import SHTPlan
+from .utils.profile import count
+from .utils.profile import phase as default_phase
 
 # column chunk of the multigrid and THREEDPOT ray sides: bounds their
 # transient working sets
@@ -60,8 +62,10 @@ class PlaneScalars(NamedTuple):
 
 
 def plane_scalars(pp, dtype, device) -> PlaneScalars:
-    """driver.PlaneParams -> PlaneScalars."""
+    """driver.PlaneParams -> PlaneScalars (each a blocking host -> device
+    copy on the card)."""
     def s(x):
+        count("host_sync")
         return torch.tensor(x, dtype=dtype, device=device)
 
     return PlaneScalars(densfact=s(pp.densfact), backdens=s(pp.backdens),
@@ -215,17 +219,15 @@ def _rayside(plan, tab, packed, maps, scal, born, halo, phase):
     return phase("RAYPROP", phase_rayside, tab, packed, maps, scal, born)
 
 
-def _call(tag, fn, *args):
-    return fn(*args)
-
-
 def plane_step_packed(plan: SHTPlan, tab, packed, pos, mass, born: bool,
                       with_maps: bool, scal: PlaneScalars, scheme="NGP",
-                      vacmask=None, sph=None, phase=_call, halo=None):
+                      vacmask=None, sph=None, phase=default_phase,
+                      halo=None):
     """One lens-plane step on the packed ray buffer: deposit, SHT Poisson
     solve, interpolation to the rays, propagation to the next plane (the
-    four phase_* calls, each made as phase(tag, fn, *args): a plain call by
-    default, a timed one in the driver's Profile mode).  Returns (packed',
+    four phase_* calls, each made as phase(tag, fn, *args): inside the
+    span of its tag by default (utils/profile.phase), a timed one in the
+    driver's Profile mode).  Returns (packed',
     FieldMaps or None).  On a mesh (plan.mesh): packed, pos and mass are
     this rank's columns and rows, the FieldMaps its pixel blocks, and halo
     the ray side's halo (phase_rayside_mesh)."""
@@ -244,8 +246,8 @@ def plane_step_packed(plan: SHTPlan, tab, packed, pos, mass, born: bool,
 
 def plane_step_density_packed(plan: SHTPlan, tab, packed, density,
                               born: bool, with_maps: bool,
-                              scal: PlaneScalars, vacmask=None, phase=_call,
-                              halo=None):
+                              scal: PlaneScalars, vacmask=None,
+                              phase=default_phase, halo=None):
     """plane_step_packed from a precomputed map (the UseHEALPixLensPlaneMaps
     path, shtpoissonsolve.c:336-436): density [npix] is mass per pixel /
     MASS_SCALE in RING order; its scaling is the DEPOSIT phase.  On a mesh
@@ -276,7 +278,7 @@ def potential_map(plan: SHTPlan, alm):
 def plane_step_mg(plan: SHTPlan, tab, mgsetup, packed, pos, mass,
                   scheme: str, born: bool, scal: PlaneScalars, vacmask=None,
                   conv_fact: float = -1.0, sph=None, ray_nest=None,
-                  phase=_call, col0=0):
+                  phase=default_phase, col0=0):
     """Non-SHTONLY plane step (reference poissondrivers.c:14-80 +
     mgpoissonsolve.c): the SHT solve gives the long-range potential MAP
     only (the NGP map deposit, CIC under scheme "CIC"; map2alm, the

@@ -23,6 +23,8 @@ import math
 import numpy as np
 import torch
 
+from ..utils.profile import count
+
 
 def _chirp(tmax, n, sign, cdtype):
     """w_t = exp(sign * i*pi*t^2/n) for t = 0..tmax-1, per row n [R]."""
@@ -92,6 +94,7 @@ class TableCache:
         def build():
             uniq, inv = np.unique(np.asarray(n, dtype=np.int64),
                                   return_inverse=True)
+            count("host_sync", 2)    # the two host -> device copies
             w, Vf = czt_tables(torch.as_tensor(uniq, device=self.device),
                                N, K, L, sign, cdtype, Nk=Nk)
             return w, Vf, torch.as_tensor(inv.reshape(-1), device=self.device)

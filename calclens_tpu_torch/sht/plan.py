@@ -24,6 +24,7 @@ import torch
 
 from ..healpix import core as hp
 from .czt import TableCache
+from ..utils.profile import count
 
 # the synthesis ring stages (transforms.synthesis_rings)
 SYNTHESIS_RINGS_MODES = ("uniform", "v2")
@@ -211,6 +212,7 @@ class SHTPlan:
         if tile_j not in self._mcut:
             from .legendre import tile_mcut
 
+            count("host_sync")   # the table's host -> device copy
             self._mcut[tile_j] = torch.as_tensor(
                 tile_mcut(self.sth_host, self.nl, self.nm, tile_j),
                 device=self.device)
@@ -242,6 +244,7 @@ class SHTPlan:
             rows = torch.arange(self.nrings_pad, device=self.device)[:, None]
             mask = (j < self.n_dev[:, None]) & (rows < self.nrings)
             sp = torch.as_tensor(self.startpix, device=self.device)[:, None]
+            count("host_sync")   # the table's host -> device copy
             idx = torch.where(mask, sp + j, 0).to(torch.int32).reshape(-1)
             return idx, mask
 
@@ -306,6 +309,7 @@ class RingPairWindow:
         if tile_j not in self._mcut:
             from .legendre import tile_mcut
 
+            count("host_sync")   # the table's host -> device copy
             self._mcut[tile_j] = torch.as_tensor(
                 tile_mcut(self.sth_host, self.nl, self.nm, tile_j),
                 device=self.device)
@@ -370,6 +374,7 @@ def pix2ring_index(startpix, base, npix, device, chunk=PIX_CHUNK):
         raise ValueError("ring -> map index beyond int32")
     sp = torch.as_tensor(startpix, device=device)
     bs = torch.as_tensor(base, device=device)
+    count("host_sync", 2)    # the two host -> device copies
     out = torch.empty(npix, dtype=torch.int32, device=device)
     for a in range(0, npix, chunk):
         p = torch.arange(a, min(npix, a + chunk), dtype=torch.int64,

@@ -31,6 +31,9 @@ rows; the synthesis runs K2 (or K3) on the rank's m rows, transposes m ->
 ring rows (per j-block when streamed), runs the ring DFTs of the rank's
 rows and redistributes their pixels to the rank's block.  The kernels are
 the one-device kernels on a block of m rows (their m0 argument).
+
+Each ring stage (analysis_rings, synthesis_rings, synth_ring_rows,
+analysis_ring_rows) is a RINGS span of the plane step (utils/profile.py).
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from . import legendre
 from .czt import TableCache, czt_blocked
 from .plan import SYNTHESIS_RINGS_MODES, SHTPlan, phase_table, pix2ring_index
 from .rings import _next_fft_len, belt_rows
+from ..utils.profile import count, spanned
 
 # j-blocks of the streamed synthesis per HEALPix order, the H100's own; an
 # order below 13 takes 1 (unstreamed), an order above 13 takes 13's.
@@ -59,6 +63,7 @@ STREAM_CZT_ROWS = 1024
 STREAM_CZT_ELEMS = 1 << 25
 
 
+@spanned("RINGS")
 def analysis_rings(plan: SHTPlan, maps):
     """RING map(s) [..., npix] -> G_m per ring [..., nrings_pad, nm],
 
@@ -85,6 +90,7 @@ def analysis_rings(plan: SHTPlan, maps):
         inplace=True)
 
 
+@spanned("RINGS")
 def synthesis_rings(plan: SHTPlan, Q):
     """q_m per ring [..., nrings_pad, nm] -> RING map(s) [..., npix],
 
@@ -242,6 +248,7 @@ def _streams_from_q_rows(plan, qphi, qth, qthth, sth, cot):
         inv_np = np.where(np.asarray(sth) > 0, 1.0 / np.asarray(sth), 0.0)
     inv = torch.as_tensor(inv_np, dtype=plan.dtype, device=dev)[:, None]
     cot = torch.as_tensor(np.asarray(cot), dtype=plan.dtype, device=dev)[:, None]
+    count("host_sync", 2)    # the two host -> device copies
     gp = qphi * im * inv
     return torch.stack([
         qphi,                                    # pot
@@ -329,6 +336,7 @@ def cap_czt_shape(plan: SHTPlan, a: int, b: int):
     return nmax, M, _next_fft_len(nmax + M)
 
 
+@spanned("RINGS")
 def synth_ring_rows(plan: SHTPlan, S, r0: int, r1: int, out=None,
                     cache=None):
     """S [k, r1 - r0, nm] complex q values of the rings [r0, r1) -> their
@@ -414,6 +422,7 @@ def _alm2allmaps_streamed(plan: SHTPlan, alm, nblk: int, out):
 # the transforms on a mesh (calclens_tpu/sht/transforms.py with plan.spec)
 # ----------------------------------------------------------------------------
 
+@spanned("RINGS")
 def analysis_ring_rows(plan: SHTPlan, seg, r0: int, r1: int, cache=None):
     """seg [..., startpix[r1] - startpix[r0]] the pixels of the rings [r0,
     r1) -> G [..., r1 - r0, nm] = e^{-i m phi0_r} DFT_{n_r}(x_r)[m mod n_r]:
