@@ -31,7 +31,7 @@ SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 SOURCES = ("legendre_analysis.cu", "legendre_analysis_dot.cu",
            "legendre_synth.cu", "legendre_synth_vpu.cu", "roofline_probe.cu",
-           "gather_probe.cu")
+           "gather_probe.cu", "rayside.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,7 +40,7 @@ launches = {"legendre_analysis": 0, "legendre_analysis_dot": 0,
             "legendre_synth": 0, "legendre_synth_phi": 0,
             "legendre_synth_vpu": 0, "legendre_synth_vpu_phi": 0,
             "legendre_chain_seed": 0, "roofline_probe": 0, "gather_rows": 0,
-            "gather_lanes": 0, "gather_onehot": 0}
+            "gather_lanes": 0, "gather_onehot": 0, "rayside": 0}
 
 # C launcher signatures: "p" = device pointer, "i" = int, "l" = long long,
 # "s" = cudaStream_t
@@ -65,6 +65,9 @@ _SIGNATURES = {
     "gather_rows_launch": "ppp" + "l" + "s",
     "gather_lanes_launch": "ppp" + "l" + "s",
     "gather_onehot_launch": "ppp" + "l" + "s",
+    # packed, maps7, wp, wpm1, wpm2, out, N, W, pix_base, order, born,
+    # stream
+    "rayside_launch": "pppppp" + "lll" + "ii" + "s",
 }
 
 _lib = None
@@ -161,3 +164,17 @@ def check(code: int, name: str):
     if code != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {code}")
+
+
+def launch(name, symbol, device, *args):
+    """Enqueue the C launcher `symbol` on the device's current stream (the
+    library is built at the first launch); count the launch under
+    `name`."""
+    import torch
+
+    fn = getattr(lib(), symbol)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = fn(*args, stream)
+    check(code, name)
+    launches[name] += 1

@@ -86,16 +86,13 @@ def interp_and_prop_sharded(tab, maps6, packed, wp, wpm1, wpm2, born: bool,
     interp_and_prop_sharded): maps6 [6, b - a] this rank's pixel block
     (mesh.blocks(npix)), packed [21, c] its ray columns.  The window
     [a - H, b + H) of the six maps comes by one halo exchange
-    (mesh.window); the rays are interpolated from it and propagated in
-    column chunks of `chunk` into a new buffer."""
+    (mesh.window); the rays are interpolated from it and propagated into
+    a new buffer (soa.interp_and_prop: the kernel on the card, the plain
+    twin in column chunks of `chunk` on the CPU)."""
     npix = tab.npix
     bounds = mesh.blocks(npix)
     win, lo = mesh.window(maps6, bounds, int(halo))
     maps7 = soa.with_pixel_ids(win, base=lo)
     del win
-
-    def block(b):
-        return soa.interp_and_prop_chunk(tab, maps7, b, wp, wpm1, wpm2, born,
-                                         pix_base=lo)
-
-    return soa.chunked_into(block, packed, chunk)
+    return soa.interp_and_prop(tab, maps7, packed, wp, wpm1, wpm2, born,
+                               pix_base=lo, chunk=chunk)

@@ -43,10 +43,10 @@ from .utils.profile import phase as default_phase
 # column chunk of the multigrid and THREEDPOT ray sides: bounds their
 # transient working sets
 RAY_CHUNK = 1 << 24
-# column chunk of the SHT-only ray side (phase_rayside, the empty plane):
-# its interpolation and propagation hold ~290 floats per ray at their
-# peak, 18 GiB at 2^24 rays (the peak of the order-13 step on an H100;
-# chip_smoke.py phase 15, PERF.md)
+# column chunk of the plain SHT-only ray side (phase_rayside's CPU twin,
+# the empty plane): its interpolation and propagation hold ~290 floats per
+# ray at their peak, 18 GiB at 2^24 rays (the peak of the order-13 step on
+# an H100 before the ray-side kernel; chip_smoke.py phase 15, PERF.md)
 RAYSIDE_CHUNK = 1 << 22
 
 
@@ -181,15 +181,12 @@ def phase_synthesis(plan: SHTPlan, alm):
 
 def phase_rayside(tab, packed, maps7, scal: PlaneScalars, born: bool):
     """Interpolate the maps to the rays and propagate (INTERP + RAYPROP)
-    in column chunks of RAYSIDE_CHUNK, each chunk's per-plane rows zeroed on a
-    copy, with the global gather from the whole maps ([7, npix] from
+    with the global gather from the whole maps ([7, npix] from
     phase_synthesis), into a new [21, N] buffer; packed is left as it
-    was."""
-    def block(b):
-        return soa.interp_and_prop_chunk(tab, maps7, b, scal.wp, scal.wpm1,
-                                         scal.wpm2, born)
-
-    return soa.chunked_into(block, packed, RAYSIDE_CHUNK)
+    was (soa.interp_and_prop: one kernel launch on the card, the plain
+    twin in column chunks of RAYSIDE_CHUNK on the CPU)."""
+    return soa.interp_and_prop(tab, maps7, packed, scal.wp, scal.wpm1,
+                               scal.wpm2, born, chunk=RAYSIDE_CHUNK)
 
 
 def phase_rayside_mesh(plan: SHTPlan, tab, packed, maps, scal: PlaneScalars,

@@ -3,7 +3,9 @@ parallel transport (shtpoissonsolve.c:1122-1204) and geodesic propagation
 (rayprop.c:18-189), componentwise on [N] rows.
 
 Port of calclens_tpu/rays/soa.py on the global-gather path.  The rays live
-packed as one [21, N] buffer.  Row layout: 0-2 n, 3-5 beta, 6-9 A (00, 01,
+packed as one [21, N] buffer.  interp_and_prop runs a plane's ray side: on
+the card as one launch of the hand-written kernel (csrc/rayside.cu), on the
+CPU as its plain twin below.  Row layout: 0-2 n, 3-5 beta, 6-9 A (00, 01,
 10, 11), 10-13 Aprev, 14-15 alpha, 16-19 U, 20 phi.
 """
 
@@ -13,7 +15,9 @@ import math
 
 import torch
 
+from .. import _ext
 from ..healpix import torchhp
+from ..utils.profile import count
 
 NROWS = 21
 
@@ -353,6 +357,71 @@ def _prop_rows(r, al0, al1, U00, U01, U10, U11, pot, wp, wpm1, wpm2,
            A00n, A01n, A10n, A11n, P00n, P01n, P10n, P11n,
            al0, al1, U00, U01, U10, U11, pot]
     return torch.stack(out, dim=0)
+
+
+def interp_and_prop(tab, maps7, packed, wp, wpm1, wpm2, born: bool, *,
+                    chunk: int, pix_base: int = 0):
+    """A plane's ray side on packed [21, N] into a new [21, N] buffer;
+    packed is left as it was.  CPU tensors take the plain twin:
+    interp_and_prop_chunk over column chunks of `chunk`, each chunk's
+    per-plane rows zeroed on a copy (chunked_into).  Anything else takes
+    the hand-written kernel (interp_and_prop_cuda), one launch for every
+    column, which takes float32 only.  Both compute the same numbers,
+    operation by operation."""
+    if packed.device.type != "cpu":
+        return interp_and_prop_cuda(tab, maps7, packed, wp, wpm1, wpm2, born,
+                                    pix_base)
+
+    def block(b):
+        return interp_and_prop_chunk(tab, maps7, b, wp, wpm1, wpm2, born,
+                                     pix_base=pix_base)
+
+    return chunked_into(block, packed, chunk)
+
+
+def interp_and_prop_cuda(tab, maps7, packed, wp, wpm1, wpm2, born: bool,
+                         pix_base: int = 0):
+    """Launch the ray-side kernel (csrc/rayside.cu) on packed's device and
+    PyTorch's current stream: packed [21, N] and maps7 [7, W] contiguous
+    CUDA float32, wp, wpm1 and wpm2 0-d float32 tensors on that device,
+    read there (no host sync).  Rows 14-20 of packed are taken as zero;
+    returns the new [21, N] state."""
+    name = "rayside"
+    dev = packed.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: packed is on {dev}, not on CUDA")
+    for key, x, shape in (("packed", packed, (NROWS, packed.shape[-1])),
+                          ("maps7", maps7, (7, maps7.shape[-1])),
+                          ("wp", wp, ()), ("wpm1", wpm1, ()),
+                          ("wpm2", wpm2, ())):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name}: {key} is {type(x).__name__}, not a "
+                            f"tensor")
+        if x.device != dev:
+            raise ValueError(f"{name}: {key} is on {x.device}, not on "
+                             f"{dev}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name}: {key} is {x.dtype}; the kernel takes "
+                            f"float32 only")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name}: {key} has shape {tuple(x.shape)}, "
+                             f"expected {shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: {key} is not contiguous")
+    N, W = packed.shape[1], maps7.shape[1]
+    if W == 0 or pix_base < 0 or pix_base + W > tab.npix:
+        raise ValueError(f"{name}: a window of {W} pixels from {pix_base} "
+                         f"does not lie in the {tab.npix} pixels of the "
+                         f"maps")
+    out = torch.empty_like(packed)
+    if N == 0:
+        return out
+    _ext.launch(name, "rayside_launch", dev, packed.data_ptr(),
+                maps7.data_ptr(), wp.data_ptr(), wpm1.data_ptr(),
+                wpm2.data_ptr(), out.data_ptr(), N, W, int(pix_base),
+                tab.order, int(bool(born)))
+    count("rayside_kernel")
+    return out
 
 
 def zero_plane_rows(packed):

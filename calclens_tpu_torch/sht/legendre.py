@@ -266,17 +266,6 @@ def _check_problem(name, nm, J, nl):
         raise ValueError(f"{name}: nm={nm} exceeds the grid's y dimension")
 
 
-def _launch(name, symbol, device, *args):
-    """Enqueue the C launcher `symbol` on the device's current stream (the
-    library is built at the first launch); count the launch."""
-    fn = getattr(_ext.lib(), symbol)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = fn(*args, stream)
-    _ext.check(code, name)
-    _ext.launches[name] += 1
-
-
 # ----------------------------------------------------------------------------
 # analysis: K1 and K4
 # ----------------------------------------------------------------------------
@@ -355,10 +344,10 @@ def _analysis_launch(name, symbol, ere, eim, ore, oim, cth, ln_sth, logc, mcut,
              ln_sth=(J,), logc=(nm,), mcut=(nt,)))
     alm_re = torch.zeros((nm, nl), dtype=torch.float32, device=ere.device)
     alm_im = torch.zeros_like(alm_re)
-    _launch(name, symbol, ere.device, ere.data_ptr(), eim.data_ptr(),
-            ore.data_ptr(), oim.data_ptr(), cth.data_ptr(), ln_sth.data_ptr(),
-            logc.data_ptr(), mcut.data_ptr(), alm_re.data_ptr(),
-            alm_im.data_ptr(), nl, nm, J, int(m0))
+    _ext.launch(name, symbol, ere.device, ere.data_ptr(), eim.data_ptr(),
+                ore.data_ptr(), oim.data_ptr(), cth.data_ptr(),
+                ln_sth.data_ptr(), logc.data_ptr(), mcut.data_ptr(),
+                alm_re.data_ptr(), alm_im.data_ptr(), nl, nm, J, int(m0))
     return alm_re, alm_im
 
 
@@ -542,10 +531,10 @@ def synth_cuda(streams, cth, ln_sth, logc, mcut, m0: int = 0):
              mcut=(-(-J // SYNTH_TILE_J),)))
     out = torch.empty((nm, 16 if derivs else 4, J), dtype=torch.float32,
                       device=cth.device)
-    _launch(name, f"{name}_launch", cth.device,
-            *(s.data_ptr() for s in streams), cth.data_ptr(),
-            ln_sth.data_ptr(), logc.data_ptr(), mcut.data_ptr(),
-            out.data_ptr(), nl, nm, J, int(m0))
+    _ext.launch(name, f"{name}_launch", cth.device,
+                *(s.data_ptr() for s in streams), cth.data_ptr(),
+                ln_sth.data_ptr(), logc.data_ptr(), mcut.data_ptr(),
+                out.data_ptr(), nl, nm, J, int(m0))
     return out
 
 
@@ -613,9 +602,9 @@ def chain_seed_cuda(sth, nm: int):
     seed_k = torch.empty((nm, J), dtype=torch.int32, device=sth.device)
     scratch = torch.empty(chain_seed_scratch(nm, J), dtype=torch.int32,
                           device=sth.device)
-    _launch(name, "legendre_chain_seed_launch", sth.device, sth.data_ptr(),
-            seed.data_ptr(), seed_k.data_ptr(), scratch.data_ptr(),
-            scratch.numel(), nm, J)
+    _ext.launch(name, "legendre_chain_seed_launch", sth.device, sth.data_ptr(),
+                seed.data_ptr(), seed_k.data_ptr(), scratch.data_ptr(),
+                scratch.numel(), nm, J)
     return seed, seed_k
 
 
@@ -704,10 +693,11 @@ def synth_vpu_cuda(a_re, a_im, cth, sth, cot, inv_sth, derivs: bool, mcut,
                     dict(a_re=(nm, nl), seed=(nm, J), seed_k=(nm, J)))
     out = torch.empty((nm, 12 if derivs else 4, J), dtype=torch.float32,
                       device=a_re.device)
-    _launch(name, "legendre_synth_vpu_launch", a_re.device,
-            a_re.data_ptr(), a_im.data_ptr(), cth.data_ptr(), cot.data_ptr(),
-            inv_sth.data_ptr(), seed.data_ptr(), seed_k.data_ptr(),
-            mcut.data_ptr(), out.data_ptr(), nl, nm, J, int(derivs), int(m0))
+    _ext.launch(name, "legendre_synth_vpu_launch", a_re.device,
+                a_re.data_ptr(), a_im.data_ptr(), cth.data_ptr(),
+                cot.data_ptr(), inv_sth.data_ptr(), seed.data_ptr(),
+                seed_k.data_ptr(), mcut.data_ptr(), out.data_ptr(), nl, nm, J,
+                int(derivs), int(m0))
     return out
 
 

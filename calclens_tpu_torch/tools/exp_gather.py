@@ -24,6 +24,7 @@ import json
 import numpy as np
 import torch
 
+from .. import _ext
 from . import (cuda_ms, no_tf32, require_cuda, sass as built_sass,
                sass_functions, sass_instructions)
 
@@ -103,32 +104,26 @@ def _check(name, tab, idx, tab_shape):
 
 
 def gather_rows_cuda(tab, idx):
-    from ..sht.legendre import _launch
-
     _check("gather_rows", tab, idx, (W, F))
     out = torch.empty((len(idx), F), dtype=torch.float32, device=tab.device)
-    _launch("gather_rows", "gather_rows_launch", tab.device, tab.data_ptr(),
-            idx.data_ptr(), out.data_ptr(), len(idx))
+    _ext.launch("gather_rows", "gather_rows_launch", tab.device,
+                tab.data_ptr(), idx.data_ptr(), out.data_ptr(), len(idx))
     return out
 
 
 def gather_lanes_cuda(tabT, idx):
-    from ..sht.legendre import _launch
-
     _check("gather_lanes", tabT, idx, (F, W))
     out = torch.empty((F, len(idx)), dtype=torch.float32, device=tabT.device)
-    _launch("gather_lanes", "gather_lanes_launch", tabT.device,
-            tabT.data_ptr(), idx.data_ptr(), out.data_ptr(), len(idx))
+    _ext.launch("gather_lanes", "gather_lanes_launch", tabT.device,
+                tabT.data_ptr(), idx.data_ptr(), out.data_ptr(), len(idx))
     return out
 
 
 def gather_onehot_cuda(tab, idx):
-    from ..sht.legendre import _launch
-
     _check("gather_onehot", tab, idx, (W, F))
     out = torch.empty((len(idx), F), dtype=torch.float32, device=tab.device)
-    _launch("gather_onehot", "gather_onehot_launch", tab.device,
-            tab.data_ptr(), idx.data_ptr(), out.data_ptr(), len(idx))
+    _ext.launch("gather_onehot", "gather_onehot_launch", tab.device,
+                tab.data_ptr(), idx.data_ptr(), out.data_ptr(), len(idx))
     return out
 
 

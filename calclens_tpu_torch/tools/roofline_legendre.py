@@ -33,6 +33,7 @@ import subprocess
 import numpy as np
 import torch
 
+from .. import _ext
 from . import (cuda_ms, no_tf32, require_cuda, sass as built_sass,
                sass_functions, sass_instructions)
 
@@ -134,15 +135,15 @@ def _check_shape(MT, LBLK, LB, TM, TJ, mode):
 def probe_cuda(MT, LBLK, LB, TM, TJ, mode, geo):
     """Launch the probe kernel (csrc/roofline_probe.cu) on geo's CUDA
     device and PyTorch's current stream.  Same contract as probe_plain."""
-    from ..sht.legendre import _check_cuda_f32, _launch
+    from ..sht.legendre import _check_cuda_f32
 
     _check_shape(MT, LBLK, LB, TM, TJ, mode)
     _check_cuda_f32("roofline_probe", dict(geo=geo), dict(geo=(5, TJ)))
     shape = (MT, TM, DOT_COLS, TJ) if mode == "dot" else (MT, TM, TJ)
     out = torch.empty(shape, dtype=torch.float32, device=geo.device)
-    _launch("roofline_probe", "roofline_probe_launch", geo.device,
-            geo.data_ptr(), out.data_ptr(), MT * TM, TJ, LB, LBLK,
-            MODE_IDS[mode])
+    _ext.launch("roofline_probe", "roofline_probe_launch", geo.device,
+                geo.data_ptr(), out.data_ptr(), MT * TM, TJ, LB, LBLK,
+                MODE_IDS[mode])
     return out
 
 

@@ -266,8 +266,19 @@ of which must pass:
      world size 1, against one rank within 5e-4.  The one-rank references
      reach the ranks as files in a temporary directory (~10 GB).
 
-`python3 chip_smoke.py --phase 15` (or `--phase 16`, `--phase 17`) runs the
-build and that phase alone and prints no JSON line.
+ 18. the ray side's kernel (csrc/rayside.cu) at the benchmark cells' shape:
+     17.2 M rays at rayOrder 14, the RING pixel centres of the cells' box
+     (10 <= ra <= 24.709, |dec| <= 7.5 degrees) moved off the centres,
+     with perturbed beta, A and A_prev, and NSIDE 4096 maps of lensing
+     size from a torch seed; the kernel against its twin (soa.chunked_into
+     over interp_and_prop_chunk in chunks of RAYSIDE_CHUNK) bit for bit,
+     born and full, packed untouched, the kernel twice equal; the
+     kernel's ms (CUDA events over RAYSIDE_REPS launches), the twin's ms
+     and the bound (140 B of device memory per ray and 28 B per map pixel
+     of the box, at 3.35 TB/s).
+
+`python3 chip_smoke.py --phase 15` (or `--phase 16`, `--phase 17`,
+`--phase 18`) runs the build and that phase alone and prints no JSON line.
 
 Before the JSON lines it prints, each beside the card's name and power
 limit, K1's and K4's ms at orders 10, 12 and 13 and the headline, SPH, MG,
@@ -1151,10 +1162,12 @@ PROFILE_TAGS = ("DEPOSIT", "SHTSOLVE", "SHT", "RAYPROP")
 # the planes of each CUDA-vs-CPU trace at SHTOrder 7 / rayOrder 6 (phases 4
 # and 11)
 TRACE_PLANES = 2
-# the kernels each pair of selectors runs on the plane step
-PATH_KERNELS = {("k2", "k1"): ("legendre_synth", "legendre_analysis"),
+# the kernels each pair of selectors runs on the plane step (the ray
+# side's kernel with either pair)
+PATH_KERNELS = {("k2", "k1"): ("legendre_synth", "legendre_analysis",
+                               "rayside"),
                 ("k3", "k4"): ("legendre_synth_vpu", "legendre_analysis_dot",
-                               "legendre_chain_seed")}
+                               "legendre_chain_seed", "rayside")}
 
 
 def trace_cuda_vs_cpu(synth, analysis, rings_mode):
@@ -1625,9 +1638,12 @@ def stream_blocks(order):
 
 
 # launches per plane; legendre_synth's is replaced by the order's j-blocks
-PLANE_LAUNCHES = {"NGP": {"legendre_analysis": 1, "legendre_synth": 1},
-                  "CIC": {"legendre_analysis": 1, "legendre_synth": 1},
-                  "SPH": {"legendre_analysis": 8, "legendre_synth": 1},
+PLANE_LAUNCHES = {"NGP": {"legendre_analysis": 1, "legendre_synth": 1,
+                          "rayside": 1},
+                  "CIC": {"legendre_analysis": 1, "legendre_synth": 1,
+                          "rayside": 1},
+                  "SPH": {"legendre_analysis": 8, "legendre_synth": 1,
+                          "rayside": 1},
                   # the MG step (any deposit: SPH deposits its SHT map by
                   # NGP): one analysis, one potential-only synthesis
                   "MG": {"legendre_analysis": 1, "legendre_synth_phi": 1}}
@@ -3366,7 +3382,7 @@ def order13_step():
     rays_s = time.perf_counter() - t0
     setup_peak = torch.cuda.max_memory_allocated()
     nblk = T.synth_stream_blocks(rt.plan)
-    want = {"legendre_analysis": 1, "legendre_synth": nblk}
+    want = {"legendre_analysis": 1, "legendre_synth": nblk, "rayside": 1}
     pos, mass = seeded_particles(O13_PARTICLES, 1.0, 13)
     staged = {p: rt.stage_particles(pos * (250.0 * p + 125.0), mass)
               for p in (1, 2)}
@@ -3484,7 +3500,8 @@ def order13_gals(tmp):
     peak = max(peak, ckpt["card_peak"])
     launches = {k: v for k, v in _ext.launches.items() if v}
     nblk = T.synth_stream_blocks(rt.plan)
-    want = {"legendre_analysis": 2, "legendre_synth": 2 * nblk}
+    want = {"legendre_analysis": 2, "legendre_synth": 2 * nblk,
+            "rayside": 2}
     check(launches == want, f"order-13 run() launched {launches}, expected "
           f"{want}")
     check(bool(torch.isfinite(rt.rays_packed).all()),
@@ -4121,7 +4138,7 @@ def mesh_phase(dev, card, tmp):
             + f", collectives (synced) {h['profile'][2]:.4f} s")
         for r in h["rows"]:
             check(r["launches"] == {"legendre_analysis": 1,
-                                    "legendre_synth": 1},
+                                    "legendre_synth": 1, "rayside": 1},
                   f"headline rank {h['rank']} plane {r['plane']}: launches "
                   f"{r['launches']}")
     rmed = float(np.median([r["s"] for r in ref["rows"][1:]]))
@@ -4160,13 +4177,14 @@ def mesh_phase(dev, card, tmp):
               f"phase 16 traces on {n} ranks: {errs}, {files}")
         for r in res_n:
             c = r["cases"]
-            check(all(x == {"legendre_analysis": 1, "legendre_synth": 1}
-                       for x in c["NGP"][1])
-                  and all(x == {"legendre_analysis": 8, "legendre_synth": 1}
-                          for x in c["SPH"][1])
-                  and all(x == {"legendre_analysis": 1, "legendre_synth": 4}
-                          for x in c["4 blocks"][1])
+            check(all(x == {"legendre_analysis": 1, "legendre_synth": 1,
+                            "rayside": 1} for x in c["NGP"][1])
+                  and all(x == {"legendre_analysis": 8, "legendre_synth": 1,
+                                "rayside": 1} for x in c["SPH"][1])
+                  and all(x == {"legendre_analysis": 1, "legendre_synth": 4,
+                                "rayside": 1} for x in c["4 blocks"][1])
                   and all(x.get("legendre_analysis_dot") == 1
+                          and x.get("rayside") == 1
                           and x.get("legendre_synth_vpu", 0) >= 1
                           and x.get("legendre_chain_seed", 0) >= 1
                           and "legendre_synth" not in x
@@ -4701,6 +4719,153 @@ def sharded_phase(dev, card, tmp, refs=None):
     return dict(mg=[r["mg"] for r in full])
 
 
+# phase 18: the ray side at the benchmark cells' shape (benchmark/configs/
+# patch220_sht_nside4096.json): the maps at SHTOrder 12, the rays at
+# rayOrder 14 in the box
+RAYSIDE_ORDERS = (12, 14)
+RAYSIDE_BOX = ((10.0, 24.709), (-7.5, 7.5))  # ra, dec in degrees
+RAYSIDE_REPS = 10
+RAYSIDE_RADII = (1025.0, 1000.0, 975.0)  # wp, wpm1, wpm2
+# device bytes per ray (rows 0-13 read, 21 rows written) and per map pixel
+# of the box (7 rows, read once: the taps hit L2)
+RAYSIDE_RAY_BYTES = (14 + 21) * 4
+RAYSIDE_PIXEL_BYTES = 7 * 4
+
+
+def box_ring_pixels(order, box=RAYSIDE_BOX):
+    """RING pixels (int64, ascending) of the belt rings of `order` whose
+    centres lie in the ra/dec box (degrees; the box lies in the belt)."""
+    (ra0, ra1), (dec0, dec1) = box
+    nside = 1 << order
+    ir = np.arange(nside, 3 * nside + 1)
+    z = 4.0 / 3.0 - 2.0 * ir / (3.0 * nside)
+    ir = ir[(z >= math.sin(math.radians(dec0)))
+            & (z <= math.sin(math.radians(dec1)))]
+    shift = np.where((ir + nside) % 2 == 0, 0.5, 0.0)
+    dphi = math.pi / (2 * nside)
+    i0 = np.ceil(math.radians(ra0) / dphi - shift).astype(np.int64)
+    i1 = np.floor(math.radians(ra1) / dphi - shift).astype(np.int64)
+    n = i1 - i0 + 1
+    start = 2 * nside * (nside - 1) + (ir - nside) * 4 * nside + i0
+    first = np.cumsum(n) - n
+    return np.repeat(start - first, n) + np.arange(int(n.sum()))
+
+
+def rayside_inputs(dev, seed=18):
+    """The phase's packed [21, N] and maps7 [7, npix] on the card."""
+    import torch
+
+    from calclens_tpu_torch.healpix import torchhp
+    from calclens_tpu_torch.rays import soa
+
+    map_order, ray_order = RAYSIDE_ORDERS
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pix = torch.from_numpy(box_ring_pixels(ray_order)).to(dev)
+    N = len(pix)
+    packed = torch.empty((21, N), dtype=torch.float32, device=dev)
+    jitter = 0.3 / (1 << ray_order)  # rad: the rays off their centres
+    for a in range(0, N, 1 << 22):
+        b = min(N, a + (1 << 22))
+        v = torch.stack(torchhp.pix2vec_ring_soa(pix[a:b], ray_order))
+        v = v + jitter * torch.randn(v.shape, generator=gen, device=dev)
+        v = v / torch.linalg.vector_norm(v, dim=0, keepdim=True)
+        beta = v + 1e-3 * torch.randn(v.shape, generator=gen, device=dev)
+        packed[0:3, a:b] = v * RAYSIDE_RADII[1]
+        packed[3:6, a:b] = beta / torch.linalg.vector_norm(beta, dim=0,
+                                                           keepdim=True)
+    eye = torch.tensor([1.0, 0.0, 0.0, 1.0], device=dev)[:, None]
+    packed[6:14] = eye.repeat(2, 1) + 1e-2 * torch.randn(
+        (8, N), generator=gen, device=dev)
+    packed[14:21] = torch.randn((7, N), generator=gen, device=dev)
+    npix = 12 * 4**map_order
+    maps7 = torch.empty((7, npix), dtype=torch.float32, device=dev)
+    for k, sc in enumerate((1e-4, 1e-3, 1e-3, 1e-2, 1e-2, 1e-2)):
+        maps7[k] = sc * torch.randn(npix, generator=gen, device=dev)
+    maps7[6] = soa.pixel_id_row(npix, torch.float32, dev)
+    return torchhp.InterpTables(map_order), packed, maps7
+
+
+def rayside_phase(dev, card):
+    """Phase 18: the ray-side kernel against its twin at the cells' shape,
+    bit for bit, born and full; times and bound.  Returns the kernel
+    table's entry."""
+    import torch
+
+    from calclens_tpu_torch import _ext
+    from calclens_tpu_torch import poisson
+    from calclens_tpu_torch.rays import soa
+
+    t_phase = time.perf_counter()
+    tab, packed, maps7 = rayside_inputs(dev)
+    N = packed.shape[1]
+    scal = [torch.tensor(x, dtype=torch.float32, device=dev)
+            for x in RAYSIDE_RADII]
+    held = packed.clone()
+    box_pixels = len(box_ring_pixels(RAYSIDE_ORDERS[0]))
+    nbytes = N * RAYSIDE_RAY_BYTES + box_pixels * RAYSIDE_PIXEL_BYTES
+    bound_ms = nbytes / HBM_RATE * 1e3
+    res = {}
+    for born in (False, True):
+        _ext.reset_launches()
+        kern = soa.interp_and_prop(tab, maps7, packed, *scal, born,
+                                   chunk=poisson.RAYSIDE_CHUNK)
+        torch.cuda.synchronize()
+        launches = _ext.launches["rayside"]
+        again = soa.interp_and_prop(tab, maps7, packed, *scal, born,
+                                    chunk=poisson.RAYSIDE_CHUNK)
+        twice = torch.equal(kern.view(torch.int32), again.view(torch.int32))
+        del again
+
+        def reps():
+            for _ in range(RAYSIDE_REPS):
+                out = soa.interp_and_prop(tab, maps7, packed, *scal, born,
+                                          chunk=poisson.RAYSIDE_CHUNK)
+            return out
+
+        _, ms = timed_once(reps)
+        ms /= RAYSIDE_REPS
+
+        def twin():
+            return soa.chunked_into(
+                lambda b: soa.interp_and_prop_chunk(tab, maps7, b, *scal,
+                                                    born),
+                packed, poisson.RAYSIDE_CHUNK)
+
+        twin()  # warm: the caching allocator's blocks
+        ref, plain_ms = timed_once(twin)
+        gi, ri = kern.view(torch.int32), ref.view(torch.int32)
+        bad = {int(k): (int((gi[k] != ri[k]).sum()),
+                        int((gi[k].long() - ri[k].long()).abs().max()))
+               for k in range(21) if not torch.equal(gi[k], ri[k])}
+        err = float((kern - ref).abs().max())
+        del kern, ref, gi, ri
+        torch.cuda.empty_cache()
+        label = "born" if born else "full"
+        say(f"{card}: phase 18 ray side ({label}) at {N} rays, maps at "
+            f"order {RAYSIDE_ORDERS[0]}: kernel {ms:.4f} ms (bound "
+            f"{bound_ms:.4f} ms: {nbytes / 1e9:.3f} GB at 3.35 TB/s, "
+            f"{100 * bound_ms / ms:.1f} %), twin {plain_ms:.2f} ms, "
+            f"{launches} launch; rows off the twin (columns, max ulps) "
+            f"{bad}, max abs {err:.3e}; twice equal {twice}")
+        check(launches == 1, f"phase 18 ({label}): {launches} launches")
+        check(not bad, f"phase 18 ({label}): kernel off its twin: {bad}")
+        check(twice, f"phase 18 ({label}): two launches differ")
+        res[label] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                          launches=launches)
+    check(torch.equal(packed, held), "phase 18: packed was written")
+    del packed, held, maps7
+    torch.cuda.empty_cache()
+    say(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+    full = res["full"]
+    return dict(name="rayside", route="cuda",
+                source="calclens_tpu_torch/csrc/rayside.cu",
+                replaces="none (rays/soa.py's eager ray side; the JAX "
+                         "package's is XLA)",
+                launches=full["launches"], max_abs_err=full["max_abs_err"],
+                ms=full["ms"], plain_ms=full["plain_ms"], bound_ms=bound_ms,
+                bound_by="bytes", library_ms=None, rays=N, born=res["born"])
+
+
 def run_program(mesh, program):
     """One rank's parts in order: [fn(mesh, *args) for fn, args in
     program], each part counting its own collectives (mesh.calls)."""
@@ -4796,6 +4961,10 @@ def main():
     if sys.argv[1:] == ["--phase", "15"]:
         stream_phase(dev, card)
         say(f"chip_smoke --phase 15: {time.perf_counter() - t_start:.1f} s")
+        return
+    if sys.argv[1:] == ["--phase", "18"]:
+        rayside_phase(dev, card)
+        say(f"chip_smoke --phase 18: {time.perf_counter() - t_start:.1f} s")
         return
     for n, phase in (("16", mesh_phase), ("17", sharded_phase)):
         if sys.argv[1:] == ["--phase", n]:
@@ -5174,6 +5343,8 @@ def main():
               v12["legendre_analysis_dot"][2],
               v10["legendre_analysis_dot"][3], plain_order=10),
     ]
+    # 18. the ray side's kernel at the benchmark cells' shape
+    kernels.append(rayside_phase(dev, card))
     dot = p1["modes"]["dot"]
     kernels.append(dict(
         name="roofline_probe", route="cuda",
